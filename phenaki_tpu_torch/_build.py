@@ -1,0 +1,141 @@
+"""Build and load the port's CUDA kernels.
+
+`load_library()` compiles every `csrc/*.cu` into one shared library with a
+plain C interface at first CUDA use, and loads it with ctypes. The build is
+keyed by a hash of the sources (and the nvcc command), so it reruns only
+when a source changes. Nothing here runs at import time: the CPU tests
+import every module on a machine with no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+NVCC_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+]
+
+# dtype codes of the C entry points
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib: Optional[ctypes.CDLL] = None
+# wall seconds of the last nvcc run in this process (0.0 when the cached
+# library was reused)
+build_seconds: float = 0.0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U64 = ctypes.c_ulonglong
+
+# C entry points: name -> argtypes. Every entry point returns the
+# cudaError_t of its launches (0 = success).
+_SIGNATURES = {
+    "flash_attention_fwd": [
+        _P, _P, _P,  # q, k, v
+        _P, _P,  # bias (h, i, j) or null, kmask (b, j) f32 or null
+        _P, _P,  # out, lse (b, h, i) f32 or null
+        _I, _I, _I, _I, _I,  # b, h, i, j, d
+        _F, _I, _I,  # scale, causal, dtype (0 = f32, 1 = bf16)
+        _P,  # stream
+    ],
+    "proj_sample": [
+        _P, _P, _P,  # h (rows, d), w (d, V), bias (V,) f32 or null
+        _P,  # noise (rows, V) f32 or null
+        _P, _P,  # ids (rows,) int32, score (rows,) f32
+        _P,  # partials scratch (rows, chunks, 5) f32
+        _I, _I, _I,  # rows, d, V
+        _F, _U64, _I,  # temperature, seed, dtype (0 = f32, 1 = bf16)
+        _P,  # stream
+    ],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the CUDA "
+        "kernels of phenaki_tpu_torch cannot be built"
+    )
+
+
+def _source_key(cmd) -> str:
+    h = hashlib.sha256(" ".join(cmd).encode())
+    for p in sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_library() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernels' shared library."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    nvcc = _nvcc()
+    sources = [str(p) for p in sorted(_CSRC.glob("*.cu"))]
+    base = [nvcc, *NVCC_FLAGS, f"-I{_CSRC}"]
+    so = _BUILD_DIR / f"libphenaki_kernels_{_source_key(base)}.so"
+    if not so.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [*base, "-o", str(tmp), *sources], capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.phenaki_error_string.argtypes = [ctypes.c_int]
+    lib.phenaki_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device pointer (null for None) as a ctypes argument."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on `device`, as a ctypes argument."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = _lib.phenaki_error_string(err).decode() if _lib is not None else ""
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

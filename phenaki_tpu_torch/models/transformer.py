@@ -1,0 +1,58 @@
+"""Transformer block stack (counterpart of phenaki_tpu/models/transformer.py).
+
+Per layer: PEG? -> self-attn -> cross-attn? -> GEGLU FF, all residual; then
+a gamma-only LayerNorm. The layers are a plain ModuleList (the TPU package's
+`scan_layers` stacked trees are unstacked by phenaki_tpu_torch.bridge).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from phenaki_tpu_torch.ops.attention import Attention
+from phenaki_tpu_torch.ops.feedforward import FeedForward
+from phenaki_tpu_torch.ops.norms import LayerNorm
+from phenaki_tpu_torch.ops.positional import PEG
+
+NUM_NULL_KV = 2  # learned null key/value pairs of cross-attention
+
+
+class TransformerLayer(nn.Module):
+    def __init__(self, dim: int, *, dim_context: Optional[int] = None, causal: bool = False,
+                 dim_head: int = 64, heads: int = 8, peg: bool = False, peg_causal: bool = False,
+                 peg_layout: str = "thw", has_cross_attn: bool = False):
+        super().__init__()
+        self.peg = PEG(dim, causal=peg_causal, layout=peg_layout) if peg else None
+        self.self_attn = Attention(dim, dim_head=dim_head, heads=heads, causal=causal)
+        self.cross_attn = (
+            Attention(dim, dim_context=dim_context, dim_head=dim_head, heads=heads,
+                      num_null_kv=NUM_NULL_KV, cross=True)
+            if has_cross_attn else None
+        )
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, attn_bias=None, context=None, self_attn_mask=None,
+                cross_attn_context_mask=None, video_shape=None):
+        if self.peg is not None:
+            x = self.peg(x, shape=video_shape) + x
+        x = self.self_attn(x, self_attn_mask, None, attn_bias) + x
+        if self.cross_attn is not None and context is not None:
+            x = self.cross_attn(x, cross_attn_context_mask, context) + x
+        return self.ff(x) + x
+
+
+class Transformer(nn.Module):
+    def __init__(self, dim: int, depth: int, **layer_kwargs):
+        super().__init__()
+        self.layers = nn.ModuleList(TransformerLayer(dim, **layer_kwargs) for _ in range(depth))
+        self.norm_out = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor, video_shape: Optional[Tuple[int, int, int, int]] = None,
+                attn_bias=None, context=None, self_attn_mask=None,
+                cross_attn_context_mask=None) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x, attn_bias, context, self_attn_mask, cross_attn_context_mask, video_shape)
+        return self.norm_out(x)

@@ -1,0 +1,59 @@
+"""Flagship presets (counterpart of phenaki_tpu/presets.py, the reference's
+8 heads x 64 head shape).
+
+C-ViViT: dim 512, 256x128 frames, patch 16, temporal patch 2, spatial and
+temporal depth 4, 8 heads x 64, LFQ with 65,536 codes: 17 frames decode from
+9 latent frames x 16x8 = 1152 tokens. MaskGit: dim 512, depth 6, 8 x 64,
+vocab 65,536, max_seq_len 1152, dim_context 768 (t5-v1_1-base), max text
+length 128. Sampling: 18 steps.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from phenaki_tpu_torch.models.cvivit import CViViT
+from phenaki_tpu_torch.models.maskgit import MaskGit
+from phenaki_tpu_torch.models.phenaki import Phenaki
+from phenaki_tpu_torch.ops.torch_init import init_parameters
+
+FLAGSHIP_IMAGE_SIZE = (256, 128)
+FLAGSHIP_NUM_FRAMES = 17
+FLAGSHIP_TEXT_DIM = 768
+
+
+def flagship_cvivit(**overrides) -> CViViT:
+    cfg = dict(dim=512, codebook_size=65536, image_size=FLAGSHIP_IMAGE_SIZE, patch_size=16,
+               temporal_patch_size=2, spatial_depth=4, temporal_depth=4, dim_head=64, heads=8)
+    cfg.update(overrides)
+    return CViViT(**cfg)
+
+
+def flagship_maskgit(max_seq_len: int = 1152, **overrides) -> MaskGit:
+    cfg = dict(dim=512, num_tokens=65536, max_seq_len=max_seq_len, depth=6,
+               dim_context=FLAGSHIP_TEXT_DIM, heads=8, dim_head=64)
+    cfg.update(overrides)
+    return MaskGit(**cfg)
+
+
+def flagship_phenaki(seed: int = 0, *, device="cuda", dtype=torch.bfloat16,
+                     num_frames: int = FLAGSHIP_NUM_FRAMES, steps: int = 18) -> Phenaki:
+    """The flagship Phenaki with seeded random weights on `device`.
+
+    Weights are drawn in f32 on the CPU from `torch.Generator().manual_seed(seed)`
+    (so a seed gives the same weights on every machine), then moved to
+    `device` and `dtype`."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("flagship_phenaki(device='cuda'): torch.cuda.is_available() is False")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device("meta"):
+        cvivit = flagship_cvivit()
+        maskgit = flagship_maskgit(max_seq_len=cvivit.num_tokens_per_frames(num_frames))
+    models = []
+    for m in (cvivit, maskgit):
+        m = init_parameters(m.to_empty(device="cpu"), gen)
+        models.append(m.to(device=device, dtype=dtype))
+    cvivit, maskgit = models
+    return Phenaki(maskgit=maskgit, cvivit=cvivit, text_embed_dim=FLAGSHIP_TEXT_DIM,
+                   steps=steps, max_text_len=128)

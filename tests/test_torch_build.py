@@ -1,0 +1,37 @@
+"""The port's build and device rules that hold on a machine without a card:
+a missing nvcc is an error (never a silent CPU run), the library is keyed by
+its sources, and `flagship_phenaki` refuses a CUDA device it cannot see."""
+
+import pytest
+import torch
+
+from phenaki_tpu_torch import _build
+from phenaki_tpu_torch.presets import flagship_phenaki
+
+torch.set_num_threads(1)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    if _build.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("this machine has nvcc under /usr/local/cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_library()
+
+
+def test_library_is_keyed_by_its_sources(monkeypatch, tmp_path):
+    (tmp_path / "a.cu").write_text("// one")
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    key = _build._source_key(["nvcc", "-O3"])
+    assert _build._source_key(["nvcc", "-O3"]) == key
+    assert _build._source_key(["nvcc", "-O2"]) != key
+    (tmp_path / "a.cu").write_text("// two")
+    assert _build._source_key(["nvcc", "-O3"]) != key
+
+
+def test_flagship_on_cuda_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        flagship_phenaki(seed=0, device="cuda")
