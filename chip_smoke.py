@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's flagship sampling path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's flagship sampling and training paths on one
+NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                         # every check; the last line is the verdict
+    python3 chip_smoke.py --profile-train OUT.txt  # the same, and a profile of two
+                                                  # flagship train steps written to OUT.txt
 
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc, holds
-each kernel against its plain PyTorch version at the flagship shapes, checks
-a small fp32 model sampled on the card against the same model on the CPU,
-then samples the flagship model (random weights from a seed) through the
-user entry point `flagship_phenaki(...).sample(...)` and checks that the
-path launched the kernels. Every check raises on failure; the last line is
-the JSON verdict, printed only when all passed. Needs no JAX.
+each kernel against its plain PyTorch version at the flagship shapes (the
+flash-attention forward and its three backward kernels, the projection
+sampler, the fused cross-entropy forward and its two backward kernels),
+checks a small fp32 model sampled and trained on the card against
+the same model on the CPU, samples the flagship model (random weights from
+a seed) through `flagship_phenaki(...).sample(...)`, and trains the flagship
+MaskGit through `PhenakiTrainer(...).train_step()` on seeded random token
+ids. Each main path is checked to have launched its kernels. Every check
+raises on failure; the last line is the JSON verdict, printed only when all
+passed. Needs no JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -24,12 +32,26 @@ FLASH_TPU = "phenaki_tpu/ops/pallas_attention.py:79"  # _flash_kernel
 PROJ_TPU = "phenaki_tpu/ops/pallas_sampling.py:220"  # _proj_kernel
 FLASH_SRC = "phenaki_tpu_torch/csrc/flash_attention.cu"
 PROJ_SRC = "phenaki_tpu_torch/csrc/proj_sample.cu"
+BWD_SRC = "phenaki_tpu_torch/csrc/flash_attention_bwd.cu"
+BWD_TPU = {"dq": "phenaki_tpu/ops/pallas_attention.py:458",  # _bwd_dq_kernel
+           "dkv": "phenaki_tpu/ops/pallas_attention.py:500",  # _bwd_dkv_kernel
+           "dbias": "phenaki_tpu/ops/pallas_attention.py:550"}  # _bwd_dbias_kernel
+CE_SRC = "phenaki_tpu_torch/csrc/fused_ce.cu"
+CE_TPU = {"ce_fwd": "phenaki_tpu/ops/pallas_ce.py:123",  # _fwd_kernel
+          "ce_dh": "phenaki_tpu/ops/pallas_ce.py:219",  # _bwd_dh_kernel
+          "ce_dw": "phenaki_tpu/ops/pallas_ce.py:240"}  # _bwd_dw_kernel
 
 # kernel launches per flagship sample: 6 MaskGit layers x (self + cross
 # attention) x 18 steps + 4 C-ViViT spatial layers (the seq-9 temporal
 # attention takes the plain path), and one projection-sampling call a step
 FLASH_PER_SAMPLE = 6 * 2 * 18 + 4
 PROJ_PER_SAMPLE = 18
+# kernel launches per flagship train step (grad_accum_every = 1): 6 MaskGit
+# layers x (self + cross attention) forward, dQ and dK/dV; dBias for the
+# self-attention's CPB bias only; one fused CE forward, dh and dW
+TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+TRAIN_BATCH, TRAIN_STEPS = 4, 5
+LEARN_MARGIN = 3.0  # nats the learning check's loss must fall by
 
 
 class CheckFailed(RuntimeError):
@@ -123,6 +145,209 @@ def check_flash(torch):
             check(err <= tol[dtype], f"flash {tag}: max abs err {err} > {tol[dtype]}")
             check(lse_err <= 1e-3, f"flash {tag}: lse err {lse_err}")
             result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return result
+
+
+def flash_bwd_cases(torch, dtype, gen):
+    """The train shapes (b = 4): MaskGit self-attention with the CPB bias and
+    an all-zero key mask, cross-attention with a row that sees only the
+    null-KV columns, the same with a row that sees no key at all, a causal
+    ALiBi case, and d = 128 with ragged tiles."""
+    from phenaki_tpu_torch.ops.attention import NEG_INF
+    from phenaki_tpu_torch.ops.positional import alibi_bias
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    cases = {}
+    q, k, v = qk((4, 8, 1152, 64), gen, dtype), qk((4, 8, 1152, 64), gen, dtype), rand(4, 8, 1152, 64)
+    cases["maskgit_self"] = (q, k, v, rand(8, 1152, 1152), torch.zeros(4, 1152, device="cuda"), False)
+    kc, vc = qk((4, 8, 130, 64), gen, dtype), rand(4, 8, 130, 64)
+    keep = torch.rand(4, 130, generator=gen) > 0.3
+    keep[:, :2] = True
+    keep[1, 2:] = False  # the null branch of CFG: only the null-KV columns
+    cases["maskgit_cross"] = (q, kc, vc, None, torch.where(keep, 0.0, NEG_INF).float().cuda(), False)
+    keep[2] = False  # a row that attends no key: lse = -inf, out = 0, gradients 0
+    cases["fully_masked_row"] = (q, kc, vc, None, torch.where(keep, 0.0, NEG_INF).float().cuda(), False)
+    qa, ka, va = qk((2, 8, 256, 64), gen, dtype), qk((2, 8, 320, 64), gen, dtype), rand(2, 8, 320, 64)
+    cases["causal_alibi"] = (qa, ka, va, alibi_bias(8, 256, 320, device="cuda").to(dtype), None, True)
+    qd, kd, vd = qk((1, 4, 200, 128), gen, dtype), qk((1, 4, 200, 128), gen, dtype), rand(1, 4, 200, 128)
+    cases["dim_head_128"] = (qd, kd, vd, rand(4, 200, 200), None, False)
+    return cases
+
+
+def check_flash_bwd(torch):
+    """The three backward kernels against `flash_attention_backward_plain` on
+    the same forward output, lse and cotangent; then autograd through
+    `flash_attention` on the card (gradients reach q, k, v and the bias)."""
+    import phenaki_tpu_torch.ops.flash_attention as fa
+
+    gen = torch.Generator().manual_seed(4)
+    # error relative to max |ref|. f32: the two differ only in summation order
+    # over up to 1152 terms. bf16: the plain version rounds p and dS to bf16
+    # before the products (as the TPU kernels do), the kernels keep them in
+    # f32, and dq/dk/dv are stored in bf16 (2^-8 relative)
+    tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (q, k, v, bias, kmask, causal) in flash_bwd_cases(torch, dtype, gen).items():
+            kw = dict(scale=8.0, causal=causal)
+            out, lse = fa.flash_attention(q, k, v, bias, kmask, return_lse=True, **kw)
+            do = torch.randn(out.shape, generator=gen).to("cuda", dtype)
+            delta = (do.float() * out.float()).sum(-1)
+            args = (q, k, v, bias, kmask, do, lse, delta)
+            got = {"dq": fa.flash_attention_bwd_dq(*args, **kw)}
+            got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(*args, **kw)
+            if bias is not None:
+                got["dbias"] = fa.flash_attention_bwd_dbias(*args, **kw)
+            ref = dict(zip(("dq", "dk", "dv", "dbias"),
+                           fa.flash_attention_backward_plain(q, k, v, bias, kmask, out, lse, do, **kw)))
+            torch.cuda.synchronize()
+            tag = f"{name}_{str(dtype).split('.')[-1]}"
+            errs, abs_errs = {}, {}
+            for key, g in got.items():
+                r = ref[key].float()
+                check(torch.isfinite(g).all().item(), f"flash bwd {tag}: non-finite {key}")
+                abs_errs[key] = (g.float() - r).abs().max().item()
+                errs[key] = abs_errs[key] / max(r.abs().max().item(), 1e-30)
+                check(errs[key] <= tol[dtype], f"flash bwd {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
+            if name == "fully_masked_row":
+                for key in ("dq", "dk", "dv"):
+                    check(got[key][2].abs().max().item() == 0.0, f"flash bwd {tag}: {key} of the masked row")
+                check(torch.isneginf(lse[2]).all().item(), f"flash bwd {tag}: lse of the masked row")
+            ms = plain_ms = None
+            if dtype == torch.bfloat16 and name in ("maskgit_self", "maskgit_cross"):
+                # timed at the train shapes only: each kernel against the plain
+                # version of that kernel alone (which recomputes p and dS, as
+                # the kernel does), and the whole plain backward
+                pargs = (q, k, v, bias, kmask, out, lse, do)
+                kernels = {"dq": (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain),
+                           "dkv": (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain)}
+                if bias is not None:
+                    kernels["dbias"] = (fa.flash_attention_bwd_dbias, fa.flash_attention_bwd_dbias_plain)
+                ms = {key: cuda_ms(lambda: kern(*args, **kw), reps=10) for key, (kern, _) in kernels.items()}
+                plain_ms = {key: cuda_ms(lambda: plain(*pargs, **kw), reps=10)
+                            for key, (_, plain) in kernels.items()}
+                plain_ms["whole_backward"] = cuda_ms(
+                    lambda: fa.flash_attention_backward_plain(*pargs, **kw), reps=10)
+            phase(f"flash_attention_bwd {tag}", shape=list(q.shape), j=k.shape[2],
+                  rel_err=errs, ms=ms, plain_ms=plain_ms)
+            result[tag] = dict(abs_errs=abs_errs, ms=ms, plain_ms=plain_ms)
+
+    # autograd on the card: the Function launches the kernels and every
+    # differentiable input gets a gradient equal to the plain backward's. f32
+    # on a slice of the self-attention case; bf16 (the WMMA kernels) at the
+    # whole train shape with an f32 bias, as the CPB gives it, so the
+    # Function's casts (bias to bf16 and back, dO to bf16) are on the path
+    q, k, v, bias, kmask, _ = flash_bwd_cases(torch, torch.float32, gen)["maskgit_self"]
+    f32_leaves = [t[:1, :2].clone() for t in (q, k, v)] + [bias[:2].clone()]
+    q, k, v, _, _, _ = flash_bwd_cases(torch, torch.bfloat16, gen)["maskgit_self"]
+    bf16_leaves = [q, k, v, torch.randn(8, 1152, 1152, generator=gen).cuda()]
+    for dtype, leaves, km in ((torch.float32, f32_leaves, kmask[:1]), (torch.bfloat16, bf16_leaves, kmask)):
+        leaves = [t.clone().requires_grad_() for t in leaves]
+        out = fa.flash_attention(*leaves, km, scale=8.0)
+        check(out.grad_fn is not None, "flash_attention on the card records no grad_fn")
+        do = torch.randn(out.shape, generator=gen).to("cuda", dtype)
+        out.backward(do)
+        detached = [t.detach() for t in leaves]
+        lse = fa.flash_attention(*detached, km, scale=8.0, return_lse=True)[1]
+        plain = fa.flash_attention_backward_plain(*detached, km, out.detach(), lse, do, scale=8.0)
+        errs = {}
+        for t, r, key in zip(leaves, plain, ("q", "k", "v", "bias")):
+            check(t.grad is not None and t.grad.dtype == t.dtype,
+                  f"flash_attention on the card: no gradient of its dtype for {key}")
+            errs[key] = ((t.grad.float() - r.float()).abs().max() / r.float().abs().max()).item()
+            check(errs[key] <= tol[dtype], f"autograd on the card ({dtype}): d{key} rel err {errs[key]}")
+        phase(f"flash_attention autograd on the card {str(dtype).split('.')[-1]}", shape=list(out.shape),
+              grad_fn=type(out.grad_fn).__name__, rel_err=errs)
+    return result
+
+
+def check_fused_ce(torch):
+    """The three fused-CE kernels against their plain versions (the (rows, V)
+    f32 logits materialised) on the same inputs: at the flagship train shape
+    (4 x 1152 rows, d = 512, V = 65,536, a bias) in bf16 and f32, and rows
+    that fill no whole tile (1000 rows, d = 128, V = 1024, no bias, every 7th
+    label -1, the pad label). Then a train step's CE both ways, forward and
+    backward: the kernels against the non-fused branch (a bf16 logits GEMM
+    and F.cross_entropy in f32)."""
+    import torch.nn.functional as F
+
+    import phenaki_tpu_torch.ops.fused_ce as ce
+
+    gen = torch.Generator().manual_seed(12)
+    # loss and lse: absolute (values near 11), the two sum 65,536 exps in
+    # other orders. Gradients, relative to max |ref|: f32 differs only in
+    # summation order; bf16 rounds dlog to bf16 in both, and a logit that
+    # differs in its last f32 bit can move one dlog entry by a bf16 ulp
+    tol = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+    cases = {"train": (4 * 1152, 512, 65536, True), "ragged": (1000, 128, 1024, False)}
+    result = {}
+    for name, (rows, d, v, with_bias) in cases.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            h = (torch.randn(rows, d, generator=gen) * 0.5).to("cuda", dtype)
+            w = (torch.randn(v, d, generator=gen) * 2 / d**0.5).to("cuda", dtype)
+            bias = (torch.randn(v, generator=gen) * 0.1).cuda() if with_bias else None
+            labels = torch.randint(0, v, (rows,), generator=gen)
+            if name == "ragged":
+                labels[::7] = -1
+            labels = labels.to(torch.int32).cuda()
+            g = torch.rand(rows, generator=gen).cuda()
+            args = (h, w, bias, labels)
+            loss, lse = ce.fused_ce_fwd(*args)
+            ref_loss, ref_lse = ce.cross_entropy_plain(*args)
+            bargs = (*args, ref_lse, g)
+            got, ref = {"dh": ce.fused_ce_bwd_dh(*bargs)}, {"dh": ce.cross_entropy_bwd_dh_plain(*bargs)}
+            got["dw"], got["db"] = ce.fused_ce_bwd_dw(*bargs)
+            ref["dw"], ref["db"] = ce.cross_entropy_bwd_dw_plain(*bargs)
+            torch.cuda.synchronize()
+            tag = f"{name}_{str(dtype).split('.')[-1]}"
+            abs_errs = {"loss": (loss - ref_loss).abs().max().item(), "lse": (lse - ref_lse).abs().max().item()}
+            errs = dict(abs_errs)
+            for key in ("loss", "lse"):
+                check(math.isfinite(errs[key]) and errs[key] <= 1e-4, f"fused CE {tag}: {key} err {errs[key]}")
+            for key in ("dh", "dw", "db"):
+                check(torch.isfinite(got[key]).all().item(), f"fused CE {tag}: non-finite {key}")
+                abs_errs[key] = (got[key] - ref[key]).abs().max().item()
+                errs[key] = abs_errs[key] / max(ref[key].abs().max().item(), 1e-30)
+                check(errs[key] <= tol[dtype], f"fused CE {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
+            ms = plain_ms = None
+            if tag == "train_bfloat16":
+                pairs = {"ce_fwd": (ce.fused_ce_fwd, ce.cross_entropy_plain, args),
+                         "ce_dh": (ce.fused_ce_bwd_dh, ce.cross_entropy_bwd_dh_plain, bargs),
+                         "ce_dw": (ce.fused_ce_bwd_dw, ce.cross_entropy_bwd_dw_plain, bargs)}
+                ms = {key: cuda_ms(lambda: kern(*a), reps=5) for key, (kern, _, a) in pairs.items()}
+                plain_ms = {key: cuda_ms(lambda: plain(*a), reps=5) for key, (_, plain, a) in pairs.items()}
+            phase(f"fused_ce {tag}", rows=rows, d=d, vocab=v, err=errs, ms=ms, plain_ms=plain_ms)
+            result[tag] = dict(abs_errs=abs_errs, ms=ms, plain_ms=plain_ms)
+            del got, ref
+
+    rows, d, v = 4 * 1152, 512, 65536
+    h = (torch.randn(4, 1152, d, generator=gen) * 0.5).to("cuda", torch.bfloat16).requires_grad_()
+    w = (torch.randn(v, d, generator=gen) * 2 / d**0.5).cuda().requires_grad_()
+    bias = torch.zeros(v, device="cuda", requires_grad=True)
+    ids = torch.randint(0, v, (4, 1152), generator=gen).cuda()
+    wgt = (torch.rand(4, 1152, generator=gen) < 0.5).float().cuda()
+
+    def fused():
+        per_token = ce.fused_vocab_cross_entropy(h, w, bias, ids)
+        ((per_token * wgt).sum() / wgt.sum()).backward()
+
+    def nonfused():
+        logits = F.linear(h, w.to(h.dtype), bias.to(h.dtype))
+        per_token = F.cross_entropy(logits.float().reshape(rows, v), ids.reshape(-1), reduction="none")
+        ((per_token.view(4, 1152) * wgt).sum() / wgt.sum()).backward()
+
+    both = {}
+    for key, fn in (("fused", fused), ("nonfused", nonfused)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        both[f"{key}_extra_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        both[f"{key}_fwd_bwd_ms"] = cuda_ms(fn, reps=5)
+    phase("fused_ce train-step CE, forward + backward", **both)
     return result
 
 
@@ -227,6 +452,7 @@ def run_main_path(torch):
     requests = [("warmup", embeds(1, 100), 10), ("req1", embeds(1, 101), 11),
                 ("req2", embeds(1, 102), 12), ("req3", embeds(1, 103), 13),
                 ("batch2", embeds(2, 104), 14), ("req1_again", embeds(1, 101), 11)]
+    torch.cuda.reset_peak_memory_stats()  # the kernel checks before allocated more
     flash_attention.launches = 0
     project_sample.launches = 0
     videos, seconds = {}, {}
@@ -258,6 +484,190 @@ def run_main_path(torch):
     return launches
 
 
+def train_kernels():
+    """The kernels of a train step by key: the attention forward, its three
+    backward kernels, and the fused CE's forward and two backward kernels."""
+    import phenaki_tpu_torch.ops.flash_attention as fa
+    import phenaki_tpu_torch.ops.fused_ce as ce
+
+    return {"fwd": fa.flash_attention, "dq": fa.flash_attention_bwd_dq,
+            "dkv": fa.flash_attention_bwd_dkv, "dbias": fa.flash_attention_bwd_dbias,
+            "ce_fwd": ce.fused_ce_fwd, "ce_dh": ce.fused_ce_bwd_dh, "ce_dw": ce.fused_ce_bwd_dw}
+
+
+def kernel_counts():
+    return {key: fn.launches for key, fn in train_kernels().items()}
+
+
+def reset_kernel_counts():
+    from phenaki_tpu_torch.ops.fused_sampling import project_sample
+
+    for fn in (*train_kernels().values(), project_sample):
+        fn.launches = 0
+
+
+def launched_since(before):
+    return {k: v - before[k] for k, v in kernel_counts().items()}
+
+
+def small_train_models(torch, seed):
+    """A small fp32 MaskGit over 128 tokens on a (2, 8, 8) grid with 2 x 64
+    heads (both attention calls pass the kernel gate; dim 128 and a 512-word
+    vocab pass the fused CE's) and the C-ViViT whose frame-to-token mask it
+    needs."""
+    from phenaki_tpu_torch.models.cvivit import CViViT
+    from phenaki_tpu_torch.models.maskgit import MaskGit
+    from phenaki_tpu_torch.ops.torch_init import init_parameters
+
+    gen = torch.Generator().manual_seed(seed)
+    cv = init_parameters(CViViT(128, 256, 64, 8, 2, 1, 1, dim_head=64, heads=2), gen)
+    mg = init_parameters(MaskGit(128, 512, 128, depth=2, heads=2, dim_head=64, dim_context=64), gen)
+    return mg, cv
+
+
+def check_small_train(torch):
+    """`Phenaki.loss` and its backward on the same weights, ids, frame mask,
+    text and draws (conditioning dropout on), on the card (the attention and
+    CE kernels) and on the CPU (their plain versions). The loss agrees within 1e-4
+    relative and each gradient within 1e-3 * max|g| of its tensor (floored
+    at 1e-5: the CPB output bias's true gradient is 0, the softmax cancels
+    a per-head constant), fp32 with TF32 off: cuBLAS and the CPU sum in
+    other orders."""
+    import copy
+
+    from phenaki_tpu_torch.models.phenaki import Phenaki
+
+    mg, cv = small_train_models(torch, 5)
+    gen = torch.Generator().manual_seed(6)
+    ids = torch.randint(0, 512, (2, 2, 8, 8), generator=gen)
+    emb = torch.randn(2, 8, 64, generator=gen)
+    emb[:, 6:] = 0.0
+    frame_mask = torch.tensor([[True, True, True], [True, False, False]])
+    runs = {}
+    for device in ("cpu", "cuda"):
+        ph = Phenaki(maskgit=copy.deepcopy(mg).to(device), cvivit=cv, text_embed_dim=64, steps=18,
+                     max_text_len=16)
+        before = kernel_counts()
+        loss, _ = ph.loss(video_codebook_ids=ids, text_embeds=emb, video_frame_mask=frame_mask,
+                          generator=torch.Generator().manual_seed(7))
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.cpu() for n, p in ph.maskgit.named_parameters()}
+        runs[device] = (loss.item(), grads, launched_since(before))
+    (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launched) = runs["cpu"], runs["cuda"]
+    worst = max(((g_gpu[n] - r).abs().max() / max(r.abs().max().item(), 1e-5)).item()
+                for n, r in g_cpu.items())
+    phase("small fp32 train card vs cpu", loss_cpu=loss_cpu, loss_gpu=loss_gpu,
+          worst_grad_rel_err=worst, kernel_launches=launched)
+    check(all(n > 0 for n in launched.values()), f"the small train step did not launch every kernel: {launched}")
+    check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu), f"loss differs: {loss_gpu} vs {loss_cpu}")
+    check(worst <= 1e-3, f"a gradient differs between card and CPU by {worst} of its max")
+
+
+def check_gumbel(torch):
+    """`gumbel_sample` on CUDA logits with a CPU generator: it draws on the
+    generator's device, so it gives the CPU's ids."""
+    from phenaki_tpu_torch.ops.sampling import gumbel_sample
+
+    logits = torch.randn(2, 64, 512, generator=torch.Generator().manual_seed(10))
+    got = gumbel_sample(logits.cuda(), 0.9, generator=torch.Generator().manual_seed(11))
+    ref = gumbel_sample(logits, 0.9, generator=torch.Generator().manual_seed(11))
+    phase("gumbel_sample cuda logits, cpu generator", device=str(got.device),
+          ids_equal_cpu=bool(torch.equal(got.cpu(), ref)))
+    check(got.is_cuda and torch.equal(got.cpu(), ref), "gumbel_sample on the card differs from the CPU")
+
+
+def check_learning(torch):
+    """`PhenakiTrainer` on one repeated batch (the small model, lr 1e-3): the
+    loss must fall by LEARN_MARGIN nats between the mean of the first 3 and
+    of the last 5 of 40 steps, and by more than 5 times the step-to-step
+    noise (the std of the last 10 steps' differences: each step masks
+    another random share of the tokens)."""
+    from phenaki_tpu_torch.models.phenaki import Phenaki
+    from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
+
+    mg, cv = small_train_models(torch, 8)
+    ph = Phenaki(maskgit=mg.cuda(), cvivit=cv, text_embed_dim=64, steps=18, max_text_len=16)
+    gen = torch.Generator().manual_seed(9)
+    item = (torch.randint(0, 512, (2, 8, 8), generator=gen), torch.randn(8, 64, generator=gen))
+    trainer = PhenakiTrainer(ph, dataset=[item] * 4, batch_size=4, train_lr=1e-3, seed=0,
+                             log_every=10**9)
+    losses = [trainer.train_step().item() for _ in range(40)]
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-5:])
+    noise = statistics.stdev(b - a for a, b in zip(losses[-11:], losses[-10:]))
+    phase("learning check", first=first, last=last, step_noise=noise, losses=losses[::5])
+    check(all(map(math.isfinite, losses)), "non-finite loss in the learning check")
+    check(first - last >= max(LEARN_MARGIN, 5 * noise),
+          f"the loss fell by {first - last} (margin {LEARN_MARGIN}, noise {noise})")
+
+
+def run_train_path(torch, profile_path=None):
+    """The flagship MaskGit (f32 parameters, bf16 compute) trained through
+    `PhenakiTrainer.train_step()` at b = 4 on seeded random token ids and
+    text embeddings: a warm-up step, then TRAIN_STEPS timed steps with the
+    exact kernel launches of each."""
+    from phenaki_tpu_torch.presets import flagship_train_phenaki
+    from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
+
+    t0 = time.perf_counter()
+    ph = flagship_train_phenaki(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_model_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(20)
+    ids = torch.randint(0, 65536, (2 * TRAIN_BATCH, 9, 16, 8), generator=gen)
+    emb = torch.randn(2 * TRAIN_BATCH, 50, 768, generator=gen)
+    trainer = PhenakiTrainer(ph, dataset=torch.utils.data.TensorDataset(ids, emb),
+                             batch_size=TRAIN_BATCH, seed=0, log_every=10**9)
+    before = {n: p.detach().clone() for n, p in ph.maskgit.named_parameters()}
+    warmup_loss = trainer.train_step().item()
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for step in range(TRAIN_STEPS):
+        counts = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = trainer.train_step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        per_step = launched_since(counts)
+        check(per_step == TRAIN_PER_STEP, f"train step {step}: launches {per_step} != {TRAIN_PER_STEP}")
+        losses.append(loss.item())
+    launches = kernel_counts()
+    check(all(map(math.isfinite, [warmup_loss, *losses])), f"non-finite train loss {losses}")
+    unchanged = [n for n, p in ph.maskgit.named_parameters() if torch.equal(p, before[n])]
+    check(not unchanged, f"parameters unchanged by training: {unchanged[:5]}")
+    per_step_s = statistics.median(seconds)
+    phase("train path", build_model_s=build_model_s, batch=TRAIN_BATCH, tokens_per_step=TRAIN_BATCH * 1152,
+          seconds_per_step=per_step_s, step_seconds=seconds, tokens_per_s=TRAIN_BATCH * 1152 / per_step_s,
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, warmup_loss=warmup_loss, losses=losses,
+          **launches)
+    if profile_path:
+        profile_train_steps(torch, trainer, profile_path)
+    return launches
+
+
+def profile_train_steps(torch, trainer, path):
+    """torch.profiler over two flagship train steps, written to `path`:
+    device time by kernel, and by the operator (autograd node included)
+    that launched it."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            trainer.train_step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(
+        events.table(sort_by="self_device_time_total", row_limit=60, max_name_column_width=100)
+        + "\n" + events.table(sort_by="device_time_total", row_limit=80, max_name_column_width=100))
+    phase("train profile", path=str(path))
+
+
 def main() -> int:
     try:
         import torch
@@ -281,9 +691,17 @@ def main() -> int:
           nvcc_build_s=_build.build_seconds, load_s=time.perf_counter() - t)
 
     flash = check_flash(torch)
+    bwd = check_flash_bwd(torch)["maskgit_self_bfloat16"]
     proj = check_proj(torch)
+    ce = check_fused_ce(torch)["train_bfloat16"]
     check_small_model(torch)
+    check_small_train(torch)
+    check_gumbel(torch)
+    check_learning(torch)
     launches = run_main_path(torch)
+    args = sys.argv[1:]
+    profile_path = args[args.index("--profile-train") + 1] if "--profile-train" in args else None
+    train = run_train_path(torch, profile_path)
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=FLASH_SRC, replaces=FLASH_TPU,
@@ -291,6 +709,15 @@ def main() -> int:
         dict(name="proj_sample", route="cuda", source=PROJ_SRC, replaces=PROJ_TPU,
              launches=launches["proj"], **proj["bfloat16"]),
     ]
+    for name, errs in (("dq", ["dq"]), ("dkv", ["dk", "dv"]), ("dbias", ["dbias"])):
+        kernels.append(dict(name=f"flash_attention_bwd_{name}", route="cuda", source=BWD_SRC,
+                            replaces=BWD_TPU[name], launches=train[name],
+                            max_abs_err=max(bwd["abs_errs"][e] for e in errs), ms=bwd["ms"][name],
+                            plain_ms=bwd["plain_ms"][name]))
+    for name, errs in (("ce_fwd", ["loss", "lse"]), ("ce_dh", ["dh"]), ("ce_dw", ["dw", "db"])):
+        kernels.append(dict(name=f"fused_{name}", route="cuda", source=CE_SRC, replaces=CE_TPU[name],
+                            launches=train[name], max_abs_err=max(ce["abs_errs"][e] for e in errs),
+                            ms=ce["ms"][name], plain_ms=ce["plain_ms"][name]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

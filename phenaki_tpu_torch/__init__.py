@@ -1,12 +1,16 @@
 """PyTorch + CUDA port of phenaki_tpu for NVIDIA Hopper (H100).
 
 The JAX package `phenaki_tpu` is the reference; this package keeps its
-module layout (ops/, models/, presets.py) and imports no JAX. Its two
-hand-written CUDA kernels (csrc/) replace the TPU package's Pallas kernels
-on the flagship text-to-video sampling path:
+module layout (ops/, models/, training/, presets.py) and imports no JAX.
+Its hand-written CUDA kernels (csrc/) replace the TPU package's Pallas
+kernels on the flagship text-to-video sampling path and the MaskGit
+training path:
 
 * ops/flash_attention.py  <-> phenaki_tpu/ops/pallas_attention.py
+  (the forward and its dQ, dK/dV and dBias backward kernels)
 * ops/fused_sampling.py   <-> phenaki_tpu/ops/pallas_sampling.py
+* ops/fused_ce.py         <-> phenaki_tpu/ops/pallas_ce.py
+  (the fused vocab cross-entropy and its dh and dW backward kernels)
 
 The kernels are built with nvcc at first CUDA use (_build.py). Each wrapper
 takes its plain PyTorch version only for a CPU tensor.

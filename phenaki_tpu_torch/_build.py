@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 `load_library()` compiles every `csrc/*.cu` into one shared library with a
-plain C interface at first CUDA use, and loads it with ctypes. The build is
-keyed by a hash of the sources (and the nvcc command), so it reruns only
-when a source changes. Nothing here runs at import time: the CPU tests
-import every module on a machine with no nvcc.
+plain C interface at first CUDA use, and loads it with ctypes. The sources
+compile in parallel, one nvcc process each, into objects that one more nvcc
+call links. The build is keyed by a hash of the sources (and the nvcc
+command), so it reruns only when a source changes. Nothing here runs at
+import time: the CPU tests import every module on a machine with no nvcc.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ NVCC_FLAGS = [
     "arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 ]
@@ -55,6 +55,41 @@ _SIGNATURES = {
         _P, _P,  # out, lse (b, h, i) f32 or null
         _I, _I, _I, _I, _I,  # b, h, i, j, d
         _F, _I, _I,  # scale, causal, dtype (0 = f32, 1 = bf16)
+        _P,  # stream
+    ],
+    **{
+        f"flash_attention_bwd_{which}": [
+            _P, _P, _P,  # q, k, v
+            _P, _P,  # bias (h, i, j) or null, kmask (b, j) f32 or null
+            _P, _P, _P,  # dout, lse (b, h, i) f32, delta (b, h, i) f32
+            *outputs,
+            _I, _I, _I, _I, _I,  # b, h, i, j, d
+            _F, _I, _I,  # scale, causal, dtype (0 = f32, 1 = bf16)
+            _P,  # stream
+        ]
+        for which, outputs in (("dq", [_P]),  # dq
+                               ("dkv", [_P, _P]),  # dk, dv
+                               ("dbias", [_P]))  # dbias (h, i, j) f32
+    },
+    "fused_ce_fwd": [
+        _P, _P, _P, _P,  # h (R, d), w (V, d), bias (V,) f32 or null, labels (R,) int32
+        _P, _P,  # loss, lse (R,) f32
+        _P, _P,  # label_logit (R,), partials (R, splits, 2) f32 scratch
+        _I, _I, _I, _I, _I,  # R, d, V, splits, dtype (0 = f32, 1 = bf16)
+        _P,  # stream
+    ],
+    "fused_ce_bwd_dh": [
+        _P, _P, _P, _P,  # h, w, bias or null, labels
+        _P, _P,  # lse, g (R,) f32
+        _P, _P,  # dh (R, d) f32, partials (splits, round_up(R, 32), d) f32 scratch
+        _I, _I, _I, _I, _I,  # R, d, V, splits, dtype
+        _P,  # stream
+    ],
+    "fused_ce_bwd_dw": [
+        _P, _P, _P, _P,  # h, w, bias or null, labels
+        _P, _P,  # lse, g (R,) f32
+        _P, _P,  # dw (V, d) f32, db (V,) f32
+        _I, _I, _I, _I,  # R, d, V, dtype
         _P,  # stream
     ],
     "proj_sample": [
@@ -102,15 +137,25 @@ def load_library() -> ctypes.CDLL:
     so = _BUILD_DIR / f"libphenaki_kernels_{_source_key(base)}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        tag = f"{so.stem}.{os.getpid()}"
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [*base, "-o", str(tmp), *sources], capture_output=True, text=True
-        )
+        objects = [str(_BUILD_DIR / f"{tag}.{Path(src).stem}.o") for src in sources]
+        procs = [
+            subprocess.Popen([*base, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objects)
+        ]
+        outputs = [p.communicate()[0] for p in procs]
+        for src, p, out in zip(sources, procs, outputs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{out}")
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([*base, "-shared", "-o", str(tmp), *objects],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        for obj in objects:
+            os.remove(obj)
         os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

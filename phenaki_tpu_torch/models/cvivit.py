@@ -1,6 +1,6 @@
 """C-ViViT, decode path (counterpart of phenaki_tpu/models/cvivit.py:
-shape arithmetic, `decode_from_codebook_indices`, `decode_tokens`,
-`_to_pixels`). Video is channels-last (b, f, H, W, c), as in the TPU package.
+shape arithmetic, `calculate_video_token_mask`,
+`decode_from_codebook_indices`, `decode_tokens`, `_to_pixels`). Video is channels-last (b, f, H, W, c), as in the TPU package.
 
 Decode: LFQ indices -> codes -> causal temporal transformer over the frame
 axis (PEG 'bhw_t', ALiBi) -> spatial transformer per frame (2-D continuous
@@ -73,6 +73,15 @@ class CViViT(nn.Module):
                 f" temporal_patch_size ({self.temporal_patch_size})"
             )
         return total + (num_frames // self.temporal_patch_size) * self.image_num_tokens
+
+    def calculate_video_token_mask(self, video_frame_mask: torch.Tensor) -> torch.Tensor:
+        """(b, f) frame mask -> (b, latent_f * h * w) token mask: the first
+        frame is its own latent frame, each later latent frame is valid when
+        any of its `temporal_patch_size` frames is."""
+        first, rest = video_frame_mask[:, :1], video_frame_mask[:, 1:]
+        rest = rest.reshape(rest.shape[0], -1, self.temporal_patch_size).any(dim=-1)
+        frame_mask = torch.cat([first, rest], dim=-1)
+        return frame_mask.repeat_interleave(self.image_num_tokens, dim=-1)
 
     def _to_pixels(self, tokens: torch.Tensor) -> torch.Tensor:
         """(b, t, h, w, dim) -> (b, f, H, W, c)."""

@@ -3,6 +3,8 @@
 Per layer: PEG? -> self-attn -> cross-attn? -> GEGLU FF, all residual; then
 a gamma-only LayerNorm. The layers are a plain ModuleList (the TPU package's
 `scan_layers` stacked trees are unstacked by phenaki_tpu_torch.bridge).
+Attention and FF dropout act in training mode (`module.train()`), where the
+TPU package passes `deterministic=False`.
 """
 
 from __future__ import annotations
@@ -23,16 +25,18 @@ NUM_NULL_KV = 2  # learned null key/value pairs of cross-attention
 class TransformerLayer(nn.Module):
     def __init__(self, dim: int, *, dim_context: Optional[int] = None, causal: bool = False,
                  dim_head: int = 64, heads: int = 8, peg: bool = False, peg_causal: bool = False,
-                 peg_layout: str = "thw", has_cross_attn: bool = False):
+                 peg_layout: str = "thw", has_cross_attn: bool = False,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0):
         super().__init__()
         self.peg = PEG(dim, causal=peg_causal, layout=peg_layout) if peg else None
-        self.self_attn = Attention(dim, dim_head=dim_head, heads=heads, causal=causal)
+        self.self_attn = Attention(dim, dim_head=dim_head, heads=heads, causal=causal,
+                                   dropout=attn_dropout)
         self.cross_attn = (
             Attention(dim, dim_context=dim_context, dim_head=dim_head, heads=heads,
-                      num_null_kv=NUM_NULL_KV, cross=True)
+                      num_null_kv=NUM_NULL_KV, cross=True, dropout=attn_dropout)
             if has_cross_attn else None
         )
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, dropout=ff_dropout)
 
     def forward(self, x, attn_bias=None, context=None, self_attn_mask=None,
                 cross_attn_context_mask=None, video_shape=None):

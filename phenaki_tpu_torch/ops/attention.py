@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from phenaki_tpu_torch.ops.feedforward import linear
 from phenaki_tpu_torch.ops.flash_attention import MAX_DIM_HEAD, flash_attention
 from phenaki_tpu_torch.ops.norms import LayerNorm, l2norm_scaled
 from phenaki_tpu_torch.ops.positional import alibi_bias
@@ -27,19 +28,22 @@ def flash_applies(q_shape, attn_bias: Optional[torch.Tensor]) -> bool:
     return q_shape[-1] <= MAX_DIM_HEAD and q_shape[-2] >= MIN_FLASH_SEQ
 
 
-def use_flash(q: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> bool:
-    """The kernel runs for a CUDA tensor that passes `flash_applies`."""
-    return q.is_cuda and flash_applies(q.shape, attn_bias)
+def use_flash(q: torch.Tensor, attn_bias: Optional[torch.Tensor], dropout: float = 0.0) -> bool:
+    """The kernel runs for a CUDA tensor that passes `flash_applies`, unless
+    attention dropout is active (the kernel has none, as on the TPU)."""
+    return q.is_cuda and dropout == 0.0 and flash_applies(q.shape, attn_bias)
 
 
 def qk_norm_attention(q, k, v, *, scale: float = SCALE, attn_bias=None, key_mask=None,
-                      causal: bool = False, use_alibi: bool = False) -> torch.Tensor:
+                      causal: bool = False, use_alibi: bool = False,
+                      dropout: float = 0.0) -> torch.Tensor:
     """Attention core: q, k already l2-normalised and scaled per dim.
     q (b, h, i, d); k, v (b, h, j, d); attn_bias (h, i, j) or (b, h, i, j);
-    key_mask (b, j) bool, True = attend."""
+    key_mask (b, j) bool, True = attend; `dropout` is the active attention
+    dropout rate (0 outside training)."""
     b, h, i, d = q.shape
     j = k.shape[2]
-    if use_flash(q, attn_bias):
+    if use_flash(q, attn_bias, dropout):
         bias = attn_bias
         if causal and use_alibi:
             ab = alibi_bias(h, i, j, device=q.device)
@@ -62,8 +66,10 @@ def qk_norm_attention(q, k, v, *, scale: float = SCALE, attn_bias=None, key_mask
         q_pos = torch.arange(i, device=q.device)[:, None] + (j - i)
         k_pos = torch.arange(j, device=q.device)[None, :]
         sim = sim.masked_fill(k_pos > q_pos, NEG_INF)
-    attn = torch.softmax(sim, dim=-1).to(v.dtype)
-    return torch.einsum("bhij,bhjd->bhid", attn, v)
+    attn = torch.softmax(sim, dim=-1)
+    if dropout > 0:
+        attn = F.dropout(attn, dropout)
+    return torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype), v)
 
 
 class Attention(nn.Module):
@@ -74,13 +80,16 @@ class Attention(nn.Module):
     l2-normalised q/k with learned per-dim scales and the fixed SCALE;
     optional learned null key/values prepended to the keys; causal masking
     with ALiBi. `reference_self_kv` takes self-attention K/V from the
-    pre-norm input (the reference checkpoints' quirk).
+    pre-norm input (the reference checkpoints' quirk). Weights are cast to
+    the activations' dtype at use; `dropout` acts on the attention
+    probabilities in training mode.
     """
 
     def __init__(self, dim: int, *, dim_context: Optional[int] = None, dim_head: int = 64,
                  heads: int = 8, causal: bool = False, num_null_kv: int = 0, cross: bool = False,
-                 reference_self_kv: bool = False):
+                 reference_self_kv: bool = False, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         inner = dim_head * heads
         kv_dim = (dim_context or dim) if cross else dim
         self.heads, self.dim_head, self.causal = heads, dim_head, causal
@@ -111,10 +120,10 @@ class Attention(nn.Module):
 
         x = self.norm(x)
         if kv_input is None:
-            qkv = F.linear(x, torch.cat([self.to_q.weight, self.to_kv.weight]))
+            qkv = F.linear(x, torch.cat([self.to_q.weight, self.to_kv.weight]).to(x.dtype))
             q, kv = qkv[..., :inner], qkv[..., inner:]
         else:
-            q, kv = self.to_q(x), self.to_kv(kv_input)
+            q, kv = linear(x, self.to_q), linear(kv_input, self.to_kv)
         k, v = kv[..., :inner], kv[..., inner:]
 
         def split_heads(t):
@@ -137,6 +146,7 @@ class Attention(nn.Module):
                 mask = F.pad(mask, (self.num_null_kv, 0), value=True)
 
         out = qk_norm_attention(q, k, v, attn_bias=attn_bias, key_mask=mask,
-                                causal=self.causal, use_alibi=self.causal)
+                                causal=self.causal, use_alibi=self.causal,
+                                dropout=self.dropout if self.training else 0.0)
         out = out.transpose(1, 2).reshape(batch, n, inner)
-        return self.to_out(out)
+        return linear(out, self.to_out)

@@ -1,4 +1,8 @@
-"""GEGLU feedforward block (counterpart of phenaki_tpu/ops/feedforward.py)."""
+"""GEGLU feedforward block (counterpart of phenaki_tpu/ops/feedforward.py).
+
+The TPU package gives `geglu` a hand-written VJP to save memory under
+`nn.scan`; here autograd differentiates the same math (the tests hold the
+gradients to the JAX VJP)."""
 
 from __future__ import annotations
 
@@ -14,6 +18,13 @@ def ff_inner_dim(dim: int, mult: int = 4) -> int:
     return int(mult * (2 / 3) * dim)
 
 
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """`layer(x)` computed in x's dtype: the weights are cast at use, as a
+    flax module's `dtype` does (no copy when the dtypes already match)."""
+    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
 def geglu(x: torch.Tensor) -> torch.Tensor:
     """Split the last axis in two halves (a, gate): gelu_exact(gate) * a."""
     a, gate = x.chunk(2, dim=-1)
@@ -21,14 +32,19 @@ def geglu(x: torch.Tensor) -> torch.Tensor:
 
 
 class FeedForward(nn.Module):
-    """LN (with beta) -> Linear(2*inner, no bias) -> GEGLU -> Linear(dim, no bias)."""
+    """LN (with beta) -> Linear(2*inner, no bias) -> GEGLU -> dropout ->
+    Linear(dim, no bias)."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
         inner = ff_inner_dim(dim, mult)
         self.norm = StandardLayerNorm(dim)
         self.proj_in = nn.Linear(dim, inner * 2, bias=False)
         self.proj_out = nn.Linear(inner, dim, bias=False)
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj_out(geglu(self.proj_in(self.norm(x))))
+        h = geglu(linear(self.norm(x), self.proj_in))
+        if self.dropout > 0:
+            h = F.dropout(h, self.dropout, self.training)
+        return linear(h, self.proj_out)

@@ -1,8 +1,11 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions, and the
+autograd Function that joins the forward to its backward.
 
-Counterpart of phenaki_tpu/ops/pallas_attention.py (the forward of
-`flash_qk_attention`, TPU kernel `_flash_kernel`). The kernel lives in
-csrc/flash_attention.cu; its source note says what bounds it on the H100.
+Counterpart of phenaki_tpu/ops/pallas_attention.py (`flash_qk_attention`:
+the forward, TPU kernel `_flash_kernel`, and its custom VJP, TPU kernels
+`_bwd_dq_kernel`, `_bwd_dkv_kernel`, `_bwd_dbias_kernel`). The kernels live
+in csrc/flash_attention.cu and csrc/flash_attention_bwd.cu; their source
+notes say what bounds them on the H100.
 
 Contract: `softmax(scale * q @ k^T + bias[h] + kmask[b]) @ v` with f32
 statistics, q (b, h, i, d), k/v (b, h, j, d), bias (h, i, j) shared over the
@@ -10,6 +13,11 @@ batch, kmask (b, j) additive f32 (0 or NEG_INF), causal with the queries at
 the last i of the j keys. The output has the input dtype; `return_lse` adds
 the f32 per-row log-sum-exp (b, h, i). The bias is streamed in q's dtype,
 as the TPU wrapper does.
+
+Gradients flow to q, k, v and the bias (accumulated in f32 and cast to the
+bias's dtype); the kmask gets none, as in the TPU package. The backward
+recomputes `p = exp(s - lse)` from the forward's saved lse; a row whose keys
+are all masked (lse = -inf, out = 0) has p = 0 and so zero gradients.
 """
 
 from __future__ import annotations
@@ -20,11 +28,28 @@ from phenaki_tpu_torch import _build
 
 NEG_INF = -1e30
 MAX_DIM_HEAD = 128
+HARD_MASK = -1e29  # a kmask value at or below this gives the key weight 0
 
 
 def flash_attention_plain(q, k, v, bias=None, kmask=None, *, scale: float, causal: bool = False,
                           return_lse: bool = False):
-    """Plain PyTorch version: the (i, j) scores materialised in f32."""
+    """Plain PyTorch version: the (i, j) scores materialised in f32. A row
+    whose keys are all masked gives out = 0 and lse = -inf, as the kernel."""
+    sim = _scores(q, k, bias, kmask, scale, causal)
+    attn = torch.softmax(sim, dim=-1).to(v.dtype)
+    out = torch.einsum("bhij,bhjd->bhid", attn, v)
+    dead = _dead_rows(sim, kmask, causal)
+    if dead is not None:
+        out = out.masked_fill(dead[..., None], 0.0)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(sim, dim=-1)
+    return out, (lse if dead is None else lse.masked_fill(dead, -torch.inf))
+
+
+def _scores(q, k, bias, kmask, scale, causal):
+    """f32 scores; a masked key scores about NEG_INF (finite, so a row of
+    them has a finite softmax that `_dead_rows` then overrides)."""
     sim = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * scale
     if bias is not None:
         sim = sim + bias.to(q.dtype).float()[None]
@@ -35,11 +60,75 @@ def flash_attention_plain(q, k, v, bias=None, kmask=None, *, scale: float, causa
         row = torch.arange(i, device=q.device)[:, None] + (j - i)
         col = torch.arange(j, device=q.device)[None, :]
         sim = sim.masked_fill(col > row, NEG_INF)
-    attn = torch.softmax(sim, dim=-1).to(v.dtype)
-    out = torch.einsum("bhij,bhjd->bhid", attn, v)
-    if return_lse:
-        return out, torch.logsumexp(sim, dim=-1)
-    return out
+    return sim
+
+
+def _dead_rows(sim, kmask, causal):
+    """(b, h, i) True where every key is masked (None when no mask can do
+    that): the kernel's hard mask is an additive kmask <= HARD_MASK."""
+    if kmask is None and not causal:
+        return None
+    return sim.amax(dim=-1) <= HARD_MASK
+
+
+def _probs(sim, lse):
+    """exp(sim - lse), and 0 on a row with no unmasked key (lse = -inf)."""
+    lse = lse[..., None]
+    return torch.exp(sim - lse).masked_fill(torch.isneginf(lse), 0.0)
+
+
+def flash_attention_backward_plain(q, k, v, bias, kmask, out, lse, do, *, scale: float,
+                                   causal: bool = False):
+    """Plain PyTorch backward: (dq, dk, dv, dbias) with dbias (h, i, j) f32,
+    or None without a bias.
+
+    It recomputes p = exp(s - lse) from the saved lse the way the TPU
+    package's `_recompute_p` does, rather than differentiating the plain
+    forward, and rounds p and dS to the input dtype before the products that
+    consume them, as the TPU kernels do."""
+    p, ds = _plain_ds(q, k, v, bias, kmask, out, lse, do, scale, causal)
+    dk, dv = _plain_dkv(q, k, v, do, p, ds, scale)
+    dbias = ds.sum(0) if bias is not None else None
+    return _plain_dq(k, ds, scale, q.dtype), dk, dv, dbias
+
+
+def _plain_ds(q, k, v, bias, kmask, out, lse, do, scale, causal):
+    """p and dS = p * (dO v^T - rowsum(dO * O)), f32."""
+    p = _probs(_scores(q, k, bias, kmask, scale, causal), lse.float())
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bhid,bhjd->bhij", do.float(), v.float())
+    return p, p * (dp - delta)
+
+
+def _plain_dq(k, ds, scale, dtype):
+    return (torch.einsum("bhij,bhjd->bhid", ds.to(dtype).float(), k.float()) * scale).to(dtype)
+
+
+def _plain_dkv(q, k, v, do, p, ds, scale):
+    dk = torch.einsum("bhij,bhid->bhjd", ds.to(q.dtype).float(), q.float()) * scale
+    dv = torch.einsum("bhij,bhid->bhjd", p.to(do.dtype).float(), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# The plain version of each backward kernel alone: each recomputes p and dS,
+# as its kernel does, then forms its own gradient.
+
+
+def flash_attention_bwd_dq_plain(q, k, v, bias, kmask, out, lse, do, *, scale: float,
+                                 causal: bool = False):
+    _, ds = _plain_ds(q, k, v, bias, kmask, out, lse, do, scale, causal)
+    return _plain_dq(k, ds, scale, q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, bias, kmask, out, lse, do, *, scale: float,
+                                  causal: bool = False):
+    p, ds = _plain_ds(q, k, v, bias, kmask, out, lse, do, scale, causal)
+    return _plain_dkv(q, k, v, do, p, ds, scale)
+
+
+def flash_attention_bwd_dbias_plain(q, k, v, bias, kmask, out, lse, do, *, scale: float,
+                                    causal: bool = False):
+    return _plain_ds(q, k, v, bias, kmask, out, lse, do, scale, causal)[1].sum(0)
 
 
 def _kernel_operands(q, k, v, bias, kmask):
@@ -66,19 +155,24 @@ def _kernel_operands(q, k, v, bias, kmask):
     return q.contiguous(), k.contiguous(), v.contiguous(), bias, kmask
 
 
-def flash_attention(q, k, v, bias=None, kmask=None, *, scale: float, causal: bool = False,
-                    return_lse: bool = False):
-    """Fused attention forward. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (or raises)."""
-    q, k, v, bias, kmask = _kernel_operands(q, k, v, bias, kmask)
+def _on_card(q, *others) -> bool:
+    """False for CPU tensors (the plain versions); True for CUDA tensors on
+    one device; raises for anything else."""
     if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash attention: unsupported device {q.device}")
+    for t in others:
+        if t is not None and t.device != q.device:
+            raise ValueError("flash attention: all operands must be on one device")
+    return True
+
+
+def _forward(q, k, v, bias, kmask, scale, causal, return_lse):
+    """The forward on prepared operands: plain on the CPU, the kernel on a card."""
+    if not _on_card(q, k, v, bias, kmask):
         return flash_attention_plain(q, k, v, bias, kmask, scale=scale, causal=causal,
                                      return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: unsupported device {q.device}")
-    for t in (k, v, bias, kmask):
-        if t is not None and t.device != q.device:
-            raise ValueError("flash_attention: all operands must be on one device")
     lib = _build.load_library()
     b, h, i, d = q.shape
     j = k.shape[2]
@@ -94,4 +188,103 @@ def flash_attention(q, k, v, bias=None, kmask=None, *, scale: float, causal: boo
     return (out, lse) if return_lse else out
 
 
+def _bwd_launch(name, outputs, q, k, v, bias, kmask, do, lse, delta, scale, causal):
+    lib = _build.load_library()
+    b, h, i, d = q.shape
+    p = _build.ptr
+    err = getattr(lib, name)(
+        p(q), p(k), p(v), p(bias), p(kmask), p(do), p(lse), p(delta), *map(p, outputs),
+        b, h, i, k.shape[2], d, float(scale), int(bool(causal)), _build.DTYPES[q.dtype],
+        _build.stream(q.device),
+    )
+    _build.check(err, name)
+
+
+def flash_attention_bwd_dq(q, k, v, bias, kmask, do, lse, delta, *, scale: float,
+                           causal: bool = False):
+    """dQ kernel on prepared CUDA operands; delta = rowsum(dO * O) f32."""
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_attention_bwd_dq", [dq], q, k, v, bias, kmask, do, lse, delta, scale, causal)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, bias, kmask, do, lse, delta, *, scale: float,
+                            causal: bool = False):
+    """dK/dV kernel on prepared CUDA operands."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_attention_bwd_dkv", [dk, dv], q, k, v, bias, kmask, do, lse, delta, scale,
+                causal)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dbias(q, k, v, bias, kmask, do, lse, delta, *, scale: float,
+                              causal: bool = False):
+    """dBias kernel on prepared CUDA operands: (h, i, j) f32, summed over b."""
+    dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    _bwd_launch("flash_attention_bwd_dbias", [dbias], q, k, v, bias, kmask, do, lse, delta, scale,
+                causal)
+    flash_attention_bwd_dbias.launches += 1
+    return dbias
+
+
+def flash_attention_backward(q, k, v, bias, kmask, out, lse, do, *, scale: float,
+                             causal: bool = False, need_dbias: bool = True):
+    """(dq, dk, dv, dbias f32 or None) on prepared operands: the plain
+    backward on the CPU, the three kernels on a card."""
+    if not _on_card(q, k, v, bias, kmask, out, lse, do):
+        dq, dk, dv, dbias = flash_attention_backward_plain(q, k, v, bias, kmask, out, lse, do,
+                                                           scale=scale, causal=causal)
+        return dq, dk, dv, dbias if need_dbias else None
+    do = do.to(q.dtype).contiguous()
+    # delta = rowsum(dO * O) in f32, outside the kernels as in the TPU package
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    args = (q, k, v, bias, kmask, do, lse, delta)
+    dq = flash_attention_bwd_dq(*args, scale=scale, causal=causal)
+    dk, dv = flash_attention_bwd_dkv(*args, scale=scale, causal=causal)
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = flash_attention_bwd_dbias(*args, scale=scale, causal=causal)
+    return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kmask, scale, causal):
+        bias_dtype = bias.dtype if bias is not None else None
+        q, k, v, bias, kmask = _kernel_operands(q, k, v, bias, kmask)
+        out, lse = _forward(q, k, v, bias, kmask, scale, causal, True)
+        ctx.save_for_backward(q, k, v, bias, kmask, out, lse)
+        ctx.scale, ctx.causal, ctx.bias_dtype = scale, causal, bias_dtype
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, bias, kmask, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_attention_backward(
+            q, k, v, bias, kmask, out, lse, do, scale=ctx.scale, causal=ctx.causal,
+            need_dbias=ctx.needs_input_grad[3])
+        if dbias is not None:
+            dbias = dbias.to(ctx.bias_dtype)
+        return dq, dk, dv, dbias, None, None, None
+
+
+def flash_attention(q, k, v, bias=None, kmask=None, *, scale: float, causal: bool = False,
+                    return_lse: bool = False):
+    """Fused attention. A CPU tensor takes the plain versions; a CUDA tensor
+    launches the kernels (or raises). Differentiable in q, k, v and bias
+    when autograd records."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        out, lse = _FlashAttention.apply(q, k, v, bias, kmask, float(scale), bool(causal))
+        return (out, lse) if return_lse else out
+    q, k, v, bias, kmask = _kernel_operands(q, k, v, bias, kmask)
+    return _forward(q, k, v, bias, kmask, scale, causal, return_lse)
+
+
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dbias.launches = 0

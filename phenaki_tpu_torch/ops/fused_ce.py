@@ -1,0 +1,224 @@
+"""Fused vocab projection + softmax cross-entropy: the CUDA kernels'
+wrappers, their plain versions, and the autograd Function that joins the
+forward to its backward.
+
+Counterpart of phenaki_tpu/ops/pallas_ce.py (`fused_vocab_cross_entropy`:
+the forward, TPU kernel `_fwd_kernel`, and its custom VJP, TPU kernels
+`_bwd_dh_kernel` and `_bwd_dw_kernel`). The kernels live in
+csrc/fused_ce.cu; its source note says what bounds them on the H100.
+
+Contract, per row of h (rows, d) against its integer label, over the V rows
+of the weight (V, d), the nn.Linear layout: `logits = h @ weight^T + bias`
+in f32, `loss = logsumexp(logits) - logits[label]` (a label outside [0, V)
+picks no logit: loss = lse, the TPU kernels' -1 pad label). The backward
+recomputes `dlog = (softmax(logits) - onehot) * g` from the saved lse and
+gives `dh = dlog @ weight`, `dweight = dlog^T @ h` (dlog rounded to h's
+dtype first, as the TPU kernels do) and `dbias = sum_rows dlog` in f32.
+The weight is cast to h's dtype at use and its gradient returned in its own
+dtype, so f32 parameters train with bf16 compute without a rounded gradient.
+The (rows, V) logits exist only in the plain versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from phenaki_tpu_torch import _build
+
+MAX_DIM = 512  # the kernels keep all of d in shared memory (csrc/fused_ce.cu MAX_D)
+RESIDENT_ROWS = 32  # rows of h a forward / dh block holds (csrc/fused_ce.cu RES)
+VOCAB_TILE = 64  # vocab ids a forward / dh block takes a step (csrc/fused_ce.cu STR)
+
+
+def can_fuse_ce(d: int, v: int) -> bool:
+    """Shape gate, the TPU wrapper's (`d % 128 == 0`, a vocab of 512-wide
+    blocks) with the kernels' shared-memory bound on d."""
+    return d % 128 == 0 and d <= MAX_DIM and v % 512 == 0 and v >= 512
+
+
+def _logits(h, weight, bias):
+    logits = h.float() @ weight.float().t()
+    return logits + bias.float() if bias is not None else logits
+
+
+def _valid(labels, v):
+    return (labels >= 0) & (labels < v)
+
+
+def cross_entropy_plain(h, weight, bias, labels):
+    """Plain version of the forward kernel: the (rows, V) f32 logits
+    materialised. h (rows, d), weight (V, d), bias (V,) or None, labels
+    (rows,) int. Returns (loss, lse), f32 (rows,)."""
+    logits = _logits(h, weight, bias)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = _valid(labels, weight.shape[0])
+    picked = logits.gather(-1, labels.long().clamp(0, weight.shape[0] - 1)[:, None])[:, 0]
+    return lse - torch.where(valid, picked, 0.0), lse
+
+
+def _dlogits(h, weight, bias, labels, lse, g):
+    """(softmax - onehot) * g, recomputed from the saved lse, f32 (rows, V)."""
+    dlog = (_logits(h, weight, bias) - lse.float()[:, None]).exp_()
+    valid = _valid(labels, weight.shape[0])
+    idx = labels.long().clamp(0, weight.shape[0] - 1)[:, None]
+    dlog.scatter_add_(1, idx, -valid.float()[:, None])
+    return dlog.mul_(g.float()[:, None])
+
+
+def cross_entropy_bwd_dh_plain(h, weight, bias, labels, lse, g):
+    """Plain version of the dh kernel: dh (rows, d) f32."""
+    dlog = _dlogits(h, weight, bias, labels, lse, g)
+    return dlog.to(h.dtype).float() @ weight.float()
+
+
+def cross_entropy_bwd_dw_plain(h, weight, bias, labels, lse, g):
+    """Plain version of the dW kernel: (dweight (V, d), dbias (V,)) f32."""
+    dlog = _dlogits(h, weight, bias, labels, lse, g)
+    return dlog.to(h.dtype).float().t() @ h.float(), dlog.sum(0)
+
+
+def _operands(h, weight, bias, labels):
+    """Validate; return (h (rows, d), weight in h's dtype, bias f32 or None,
+    labels int32 (rows,)) as contiguous tensors."""
+    if h.ndim < 2 or weight.ndim != 2 or weight.shape[1] != h.shape[-1]:
+        raise ValueError(f"h (..., d) {tuple(h.shape)} and weight (V, d) {tuple(weight.shape)} disagree")
+    if labels.shape != h.shape[:-1]:
+        raise ValueError(f"labels {tuple(labels.shape)} must be h's leading shape {tuple(h.shape[:-1])}")
+    v = weight.shape[0]
+    if bias is not None:
+        if bias.shape != (v,):
+            raise ValueError(f"bias must be ({v},)")
+        bias = bias.float().contiguous()
+    h2 = _aligned(h.reshape(-1, h.shape[-1]).contiguous())
+    return h2, _aligned(weight.to(h.dtype).contiguous()), bias, labels.reshape(-1).to(torch.int32).contiguous()
+
+
+def _aligned(t):
+    """t itself, or a copy when its data does not start on 16 bytes (the
+    kernels stage rows with 16-byte loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _on_card(h, *others) -> bool:
+    """False for CPU tensors (the plain versions); True for CUDA tensors on
+    one device that the kernels take; raises for anything else."""
+    if h.device.type == "cpu":
+        return False
+    if h.device.type != "cuda":
+        raise RuntimeError(f"fused cross-entropy: unsupported device {h.device}")
+    for t in others:
+        if t is not None and t.device != h.device:
+            raise ValueError("fused cross-entropy: all operands must be on one device")
+    return True
+
+
+def _check_kernel_shape(h, weight):
+    d, v = h.shape[1], weight.shape[0]
+    if not can_fuse_ce(d, v):
+        raise ValueError(f"fused cross-entropy kernels do not take d={d}, V={v}")
+    if h.dtype not in _build.DTYPES:
+        raise ValueError(f"fused cross-entropy kernels take {list(_build.DTYPES)}, not {h.dtype}")
+
+
+def _splits(rows: int, v: int, device) -> int:
+    """Vocab splits of the forward and dh grids: about 8 blocks per SM in
+    all, and at least one vocab tile a split."""
+    tiles = v // VOCAB_TILE
+    row_blocks = -(-rows // RESIDENT_ROWS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(tiles, -(-8 * sms // row_blocks)))
+
+
+def fused_ce_fwd(h, weight, bias, labels):
+    """Forward kernel on prepared CUDA operands: (loss, lse), f32 (rows,)."""
+    _check_kernel_shape(h, weight)
+    rows, d = h.shape
+    v = weight.shape[0]
+    splits = _splits(rows, v, h.device)
+    f32 = dict(dtype=torch.float32, device=h.device)
+    loss, lse, label_logit = (torch.empty(rows, **f32) for _ in range(3))
+    partials = torch.empty((rows, splits, 2), **f32)
+    p = _build.ptr
+    err = _build.load_library().fused_ce_fwd(
+        p(h), p(weight), p(bias), p(labels), p(loss), p(lse), p(label_logit), p(partials),
+        rows, d, v, splits, _build.DTYPES[h.dtype], _build.stream(h.device))
+    _build.check(err, "fused_ce_fwd")
+    fused_ce_fwd.launches += 1
+    return loss, lse
+
+
+def fused_ce_bwd_dh(h, weight, bias, labels, lse, g):
+    """dh kernel on prepared CUDA operands; lse and g f32 (rows,). dh
+    (rows, d) f32."""
+    _check_kernel_shape(h, weight)
+    rows, d = h.shape
+    v = weight.shape[0]
+    splits = _splits(rows, v, h.device)
+    rows_pad = -(-rows // RESIDENT_ROWS) * RESIDENT_ROWS
+    dh = torch.empty((rows, d), dtype=torch.float32, device=h.device)
+    partials = torch.empty((splits, rows_pad, d), dtype=torch.float32, device=h.device)
+    p = _build.ptr
+    err = _build.load_library().fused_ce_bwd_dh(
+        p(h), p(weight), p(bias), p(labels), p(lse), p(g), p(dh), p(partials), rows, d, v, splits,
+        _build.DTYPES[h.dtype], _build.stream(h.device))
+    _build.check(err, "fused_ce_bwd_dh")
+    fused_ce_bwd_dh.launches += 1
+    return dh
+
+
+def fused_ce_bwd_dw(h, weight, bias, labels, lse, g):
+    """dW kernel on prepared CUDA operands: (dweight (V, d), dbias (V,)) f32."""
+    _check_kernel_shape(h, weight)
+    rows, d = h.shape
+    v = weight.shape[0]
+    dw = torch.empty((v, d), dtype=torch.float32, device=h.device)
+    db = torch.empty(v, dtype=torch.float32, device=h.device)
+    p = _build.ptr
+    err = _build.load_library().fused_ce_bwd_dw(
+        p(h), p(weight), p(bias), p(labels), p(lse), p(g), p(dw), p(db), rows, d, v,
+        _build.DTYPES[h.dtype], _build.stream(h.device))
+    _build.check(err, "fused_ce_bwd_dw")
+    fused_ce_bwd_dw.launches += 1
+    return dw, db
+
+
+class _FusedCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, weight, bias, labels):
+        ops = _operands(h, weight, bias, labels)
+        if _on_card(*ops):
+            loss, lse = fused_ce_fwd(*ops)
+        else:
+            loss, lse = cross_entropy_plain(*ops)
+        ctx.save_for_backward(*ops, lse)
+        ctx.h_shape, ctx.h_dtype, ctx.w_dtype = h.shape, h.dtype, weight.dtype
+        ctx.b_dtype = bias.dtype if bias is not None else None
+        return loss.view(h.shape[:-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, weight, bias, labels, lse = ctx.saved_tensors
+        g = g.reshape(-1).float().contiguous()
+        if _on_card(h, weight, bias, labels, lse, g):
+            dh = fused_ce_bwd_dh(h, weight, bias, labels, lse, g)
+            dw, db = fused_ce_bwd_dw(h, weight, bias, labels, lse, g)
+        else:
+            dh = cross_entropy_bwd_dh_plain(h, weight, bias, labels, lse, g)
+            dw, db = cross_entropy_bwd_dw_plain(h, weight, bias, labels, lse, g)
+        db = db.to(ctx.b_dtype) if ctx.b_dtype is not None else None
+        return dh.to(ctx.h_dtype).view(ctx.h_shape), dw.to(ctx.w_dtype), db, None
+
+
+def fused_vocab_cross_entropy(h, weight, bias, labels):
+    """Per-token softmax CE of `h @ weight^T + bias` against integer labels.
+
+    h (..., d); weight (V, d), the nn.Linear layout; bias (V,) or None;
+    labels h's leading shape, int. Returns f32 losses of the labels' shape.
+    A CPU tensor takes the plain versions; a CUDA tensor launches the
+    kernels (or raises). Gradients reach h, weight and bias."""
+    return _FusedCE.apply(h, weight, bias, labels)
+
+
+fused_ce_fwd.launches = 0
+fused_ce_bwd_dh.launches = 0
+fused_ce_bwd_dw.launches = 0

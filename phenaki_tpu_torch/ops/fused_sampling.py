@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from phenaki_tpu_torch import _build
-from phenaki_tpu_torch.ops.sampling import gumbel
+from phenaki_tpu_torch.ops.sampling import gumbel, uniform
 
 ROW_TILE = 64  # rows per tile of h in the kernel (csrc/proj_sample.cu RT)
 VOCAB_CHUNK = 64  # vocab columns per block (csrc/proj_sample.cu VC)
@@ -51,8 +51,7 @@ def project_sample_plain(h, weight, bias, temperature: float, *, generator=None,
     if bias is not None:
         logits = logits + bias.float()
     if noise is None:
-        gen_device = generator.device if generator is not None else torch.device("cpu")
-        noise = torch.rand(logits.shape, generator=generator, device=gen_device).to(logits.device)
+        noise = uniform(logits.shape, generator, logits.device)
     y = logits * (1.0 / max(float(temperature), 1e-10)) + gumbel(noise.reshape(logits.shape))
     ids = y.argmax(dim=-1)  # first maximal index: ties go to the lowest id
     m = logits.amax(dim=-1, keepdim=True)

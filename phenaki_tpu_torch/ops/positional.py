@@ -77,6 +77,55 @@ class ContinuousPositionBias(nn.Module):
         return table[idx].permute(2, 0, 1)  # (heads, N, N)
 
 
+def _windows(xp: torch.Tensor, grid) -> torch.Tensor:
+    """The 3 x 3 x 3 windows of a padded (b, t+2, h+2, w+2, d) tensor as an
+    overlapping strided view (b, t, h, w, 3, 3, 3, d)."""
+    s = xp.stride()
+    return xp.as_strided((*grid, 3, 3, 3, xp.shape[-1]), (*s[:4], *s[1:4], s[4]))
+
+
+def _stencil(xp: torch.Tensor, taps: torch.Tensor, grid) -> torch.Tensor:
+    """sum over the 27 taps (3, 3, 3, d) of the windows of xp times the tap:
+    one windowed multiply-and-sum (a grouped F.conv3d ran as one cuDNN
+    launch per channel on the H100)."""
+    return (_windows(xp, grid) * taps).sum(dim=(4, 5, 6))
+
+
+def _pad(x: torch.Tensor, frame_pad) -> torch.Tensor:
+    return F.pad(x, (0, 0, 1, 1, 1, 1, *frame_pad))
+
+
+class _Depthwise3x3x3(torch.autograd.Function):
+    """PEG's stencil with an explicit backward, as the TPU package's
+    `depthwise3x3x3` VJP: autograd of the overlapping strided view takes
+    PyTorch's generic `as_strided` backward, which scatters the (27 x larger)
+    window gradient back with index_add. Here dx is the same stencil over the
+    cotangent with the taps flipped (frame padding swapped), and the tap and
+    bias gradients are f32 reductions."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, causal):
+        frame_pad = (2, 0) if causal else (1, 1)
+        taps = weight.to(x.dtype)[:, 0].permute(1, 2, 3, 0)  # (3, 3, 3, d)
+        ctx.save_for_backward(x, weight, bias)
+        ctx.frame_pad = frame_pad
+        return _stencil(_pad(x, frame_pad), taps, x.shape[:4]) + bias.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias = ctx.saved_tensors
+        lo, hi = ctx.frame_pad
+        grid = x.shape[:4]
+        taps = weight.to(x.dtype)[:, 0].permute(1, 2, 3, 0)
+        # dx[t] = sum_dt dy[t + lo - dt] * k[dt]
+        dx = _stencil(_pad(dy, (hi, lo)), taps.flip(0, 1, 2), grid)
+        dy32 = dy.float()[:, :, :, :, None, None, None, :]
+        dtaps = (_windows(_pad(x, (lo, hi)), grid).float() * dy32).sum(dim=(0, 1, 2, 3))
+        dweight = dtaps.permute(3, 0, 1, 2)[:, None].to(weight.dtype)
+        dbias = dy.float().sum(dim=(0, 1, 2, 3)).to(bias.dtype)
+        return dx, dweight, dbias, None
+
+
 class PEG(nn.Module):
     """Positional encoding generator: depthwise 3x3x3 conv over the token grid.
 
@@ -106,15 +155,7 @@ class PEG(nn.Module):
                 x = x.reshape(b, t, h, w, d)
             else:
                 x = x.reshape(b, h, w, t, d).permute(0, 3, 1, 2, 4)
-        # the 27 taps as one windowed multiply-and-sum over a strided view (a
-        # grouped F.conv3d ran as one cuDNN launch per channel on the H100)
-        b, t, h, w, _ = x.shape
-        frame_pad = (2, 0) if self.causal else (1, 1)
-        xp = F.pad(x, (0, 0, 1, 1, 1, 1, *frame_pad))
-        s = xp.stride()
-        windows = xp.as_strided((b, t, h, w, 3, 3, 3, d), (*s[:4], *s[1:4], s[4]))
-        taps = self.weight.to(x.dtype)[:, 0].permute(1, 2, 3, 0)  # (3, 3, 3, d)
-        out = (windows * taps).sum(dim=(4, 5, 6)) + self.bias.to(x.dtype)
+        out = _Depthwise3x3x3.apply(x, self.weight, self.bias, self.causal)
         if len(orig_shape) == 3 and self.layout == "bhw_t":
             out = out.permute(0, 2, 3, 1, 4)
         return out.reshape(orig_shape)

@@ -6,6 +6,10 @@ temporal depth 4, 8 heads x 64, LFQ with 65,536 codes: 17 frames decode from
 9 latent frames x 16x8 = 1152 tokens. MaskGit: dim 512, depth 6, 8 x 64,
 vocab 65,536, max_seq_len 1152, dim_context 768 (t5-v1_1-base), max text
 length 128. Sampling: 18 steps.
+
+`flagship_phenaki` builds the sampling model (bf16 weights);
+`flagship_train_phenaki` the training one: f32 parameters with bf16
+compute, as the TPU package's flagship trains (`dtype=jnp.bfloat16`).
 """
 
 from __future__ import annotations
@@ -43,13 +47,25 @@ def flagship_phenaki(seed: int = 0, *, device="cuda", dtype=torch.bfloat16,
     Weights are drawn in f32 on the CPU from `torch.Generator().manual_seed(seed)`
     (so a seed gives the same weights on every machine), then moved to
     `device` and `dtype`."""
+    return _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype=None)
+
+
+def flagship_train_phenaki(seed: int = 0, *, device="cuda",
+                           num_frames: int = FLAGSHIP_NUM_FRAMES) -> Phenaki:
+    """The flagship Phenaki for training: the same seeded weights as
+    `flagship_phenaki`, kept in f32, with the MaskGit computing in bf16."""
+    return _seeded_flagship(seed, device, torch.float32, num_frames, 18, compute_dtype=torch.bfloat16)
+
+
+def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype) -> Phenaki:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("flagship_phenaki(device='cuda'): torch.cuda.is_available() is False")
     gen = torch.Generator().manual_seed(seed)
     with torch.device("meta"):
         cvivit = flagship_cvivit()
-        maskgit = flagship_maskgit(max_seq_len=cvivit.num_tokens_per_frames(num_frames))
+        maskgit = flagship_maskgit(max_seq_len=cvivit.num_tokens_per_frames(num_frames),
+                                   dtype=compute_dtype)
     models = []
     for m in (cvivit, maskgit):
         m = init_parameters(m.to_empty(device="cpu"), gen)

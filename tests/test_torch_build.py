@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from phenaki_tpu_torch import _build
-from phenaki_tpu_torch.presets import flagship_phenaki
+from phenaki_tpu_torch.presets import flagship_phenaki, flagship_train_phenaki
 
 torch.set_num_threads(1)
 
@@ -30,8 +30,9 @@ def test_library_is_keyed_by_its_sources(monkeypatch, tmp_path):
     assert _build._source_key(["nvcc", "-O3"]) != key
 
 
-def test_flagship_on_cuda_needs_a_card():
+@pytest.mark.parametrize("preset", [flagship_phenaki, flagship_train_phenaki])
+def test_flagship_on_cuda_needs_a_card(preset):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        flagship_phenaki(seed=0, device="cuda")
+        preset(seed=0, device="cuda")

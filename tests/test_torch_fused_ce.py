@@ -1,0 +1,179 @@
+"""The port's fused vocab cross-entropy (phenaki_tpu_torch/ops/fused_ce.py)
+against the JAX package's Pallas kernels (ops/pallas_ce.py), run in
+interpret mode on the CPU.
+
+On a CPU tensor the port's autograd Function takes the plain forward and
+the plain versions of the two backward kernels, so these tests pin the math
+contract the CUDA kernels are held to on the card (chip_smoke.py): the loss
+and the gradients of h, the weight and the bias against
+`fused_vocab_cross_entropy` and `jax.value_and_grad` of a weighted mean, the
+-1 pad label, and `Phenaki.loss` through the fused branch against the JAX
+loss with its fused branch on. Tolerances, fp32: the JAX tests' own, atol
+and rtol 1e-4 on the loss and 2e-4 on the gradients (blockwise online
+log-sum-exp against one-shot); `Phenaki.loss` as in test_torch_train.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import phenaki_tpu.models.phenaki as jphenaki_module  # noqa: E402
+import phenaki_tpu.ops.pallas_attention as pa  # noqa: E402
+import phenaki_tpu.ops.pallas_ce as pce  # noqa: E402
+from phenaki_tpu.models.cvivit import CViViT as JCViViT  # noqa: E402
+from phenaki_tpu.models.maskgit import MaskGit as JMaskGit  # noqa: E402
+from phenaki_tpu.models.phenaki import Phenaki as JPhenaki  # noqa: E402
+from phenaki_tpu.utils.jit_init import jit_init  # noqa: E402
+from phenaki_tpu_torch.bridge import flax_to_state_dict, load_flax_params
+from phenaki_tpu_torch.models import phenaki as phenaki_module
+from phenaki_tpu_torch.models.cvivit import CViViT
+from phenaki_tpu_torch.models.maskgit import MaskGit
+from phenaki_tpu_torch.models.phenaki import Phenaki
+from phenaki_tpu_torch.ops.fused_ce import can_fuse_ce, fused_vocab_cross_entropy
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(pce, "_INTERPRET", True)
+    monkeypatch.setattr(pa, "_INTERPRET", True)
+
+
+CASES = {  # name -> (b, n, d, V, bias, pad labels)
+    "bias": (2, 12, 128, 2048, True, False),
+    "ragged_rows_no_bias": (1, 9, 128, 1024, False, False),
+    "labels_across_blocks_pad": (1, 16, 128, 4096, True, True),
+}
+
+
+def _inputs(name):
+    b, n, d, v, with_bias, pad = CASES[name]
+    rng = np.random.RandomState(sorted(CASES).index(name))
+    h = (rng.randn(b, n, d) * 0.3).astype(np.float32)
+    w = (rng.randn(d, v) * (1.5 / np.sqrt(d))).astype(np.float32)  # the JAX (d, V) layout
+    bias = (rng.randn(v) * 0.05).astype(np.float32) if with_bias else None
+    labels = rng.randint(0, v, (b, n)).astype(np.int32)
+    if name == "labels_across_blocks_pad":
+        labels = ((np.arange(b * n) * 257 + 11) % v).reshape(b, n).astype(np.int32)
+    if pad:
+        labels[0, ::5] = -1  # the TPU kernels' pad label: no logit picked
+    wgt = rng.rand(b, n).astype(np.float32)
+    return h, w, bias, labels, wgt
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_loss_and_grads_match_pallas(name):
+    h, w, bias, labels, wgt = _inputs(name)
+
+    def j_loss(h_, w_, b_):
+        ce = pce.fused_vocab_cross_entropy(h_, w_, b_, jnp.asarray(labels))
+        return jnp.sum(ce * wgt) / jnp.sum(wgt), ce
+
+    args = [jnp.asarray(h), jnp.asarray(w)] + ([jnp.asarray(bias)] if bias is not None else [None])
+    argnums = (0, 1, 2) if bias is not None else (0, 1)
+    (ref_loss, ref_ce), ref_grads = jax.value_and_grad(j_loss, argnums=argnums, has_aux=True)(*args)
+
+    th = torch.from_numpy(h).requires_grad_()
+    tw = torch.from_numpy(w.T.copy()).requires_grad_()  # (V, d), the nn.Linear layout
+    tb = torch.from_numpy(bias).requires_grad_() if bias is not None else None
+    ce = fused_vocab_cross_entropy(th, tw, tb, torch.from_numpy(labels))
+    loss = (ce * torch.from_numpy(wgt)).sum() / float(wgt.sum())
+    loss.backward()
+
+    assert ce.shape == labels.shape and ce.dtype == torch.float32
+    np.testing.assert_allclose(ce.detach().numpy(), np.asarray(ref_ce), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), atol=1e-4, rtol=1e-4)
+    got = [th.grad.numpy(), tw.grad.numpy().T] + ([tb.grad.numpy()] if bias is not None else [])
+    for key, g, r in zip(("dh", "dw", "dbias"), got, ref_grads):
+        np.testing.assert_allclose(g, np.asarray(r), atol=2e-4, rtol=2e-4, err_msg=key)
+
+
+def test_bf16_compute_keeps_f32_weight_gradient():
+    """bf16 h with an f32 weight: the weight is cast at use and its gradient
+    comes back in f32 (no bf16 rounding), h's in bf16; close to the f32 CE."""
+    h, w, bias, labels, wgt = _inputs("bias")
+    th = torch.from_numpy(h).to(torch.bfloat16).requires_grad_()
+    tw = torch.from_numpy(w.T.copy()).requires_grad_()
+    ce = fused_vocab_cross_entropy(th, tw, torch.from_numpy(bias), torch.from_numpy(labels).long())
+    (ce * torch.from_numpy(wgt)).sum().backward()
+    assert th.grad.dtype == torch.bfloat16 and tw.grad.dtype == torch.float32
+    logits = th.detach().float() @ tw.detach().to(torch.bfloat16).float().t() + torch.from_numpy(bias)
+    ref = torch.nn.functional.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                            torch.from_numpy(labels).long().reshape(-1), reduction="none")
+    torch.testing.assert_close(ce.detach().reshape(-1), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_shape_gate_matches_pallas():
+    for d, v in [(512, 65536), (128, 512), (128, 1536), (64, 1024), (768, 65536), (512, 1000),
+                 (512, 256)]:
+        ported = can_fuse_ce(d, v)
+        assert ported == (pce.can_fuse_ce(d, v) and d <= 512), (d, v)
+
+
+# ---------------------------------------------------------------------------
+# Phenaki.loss through the fused branch, against the JAX loss with its fused
+# branch on (`use_fused_ce()` is True only on a TPU: patched for the test)
+
+TEXT_DIM, STEPS = 16, 4
+CVIVIT = dict(dim=32, codebook_size=64, image_size=64, patch_size=8, temporal_patch_size=2,
+              spatial_depth=1, temporal_depth=1, dim_head=16, heads=2)
+MASKGIT = dict(dim=128, num_tokens=512, max_seq_len=128, depth=1, heads=2, dim_head=32,
+               dim_context=TEXT_DIM)
+GRID = (2, 8, 8)
+
+
+def test_phenaki_loss_fused_branch_matches_jax(monkeypatch):
+    assert can_fuse_ce(MASKGIT["dim"], MASKGIT["num_tokens"])
+    monkeypatch.setattr(jphenaki_module, "use_fused_ce", lambda: True)
+    jcv = JCViViT(**CVIVIT, scan_layers=True)
+    cv_vars = jit_init(jcv, jax.random.PRNGKey(0), jnp.zeros((1, 3, 64, 64, 3)))
+    jph = JPhenaki(maskgit=JMaskGit(**MASKGIT, scan_layers=True), cvivit=jcv, cvivit_vars=cv_vars,
+                   steps=STEPS, text_embed_dim=TEXT_DIM, max_text_len=8)
+    jph.init(jax.random.PRNGKey(1))
+    params = jax.tree_util.tree_map(np.asarray, jax.device_get(jph.params["maskgit"]))
+
+    rng_np = np.random.RandomState(6)
+    ids = rng_np.randint(0, 512, size=(2, *GRID)).astype(np.int32)
+    emb = rng_np.randn(2, 6, TEXT_DIM).astype(np.float32)
+    emb[1, 3:] = 0.0
+    rng = jax.random.PRNGKey(8)
+
+    def j_loss(mg_params):
+        loss, _ = jph.loss({"maskgit": mg_params, "critic": None}, rng,
+                           video_codebook_ids=jnp.asarray(ids), text_embeds=jnp.asarray(emb),
+                           cond_drop_prob=0.0)
+        return loss
+
+    ref_loss, ref_grads = jax.value_and_grad(j_loss)(jax.tree_util.tree_map(jnp.asarray, params))
+
+    rng_mask, rng_step = jax.random.split(rng, 7)[:2]
+    step = np.asarray(jax.random.randint(rng_step, (2,), 0, STEPS))
+    noise = np.asarray(jax.random.uniform(rng_mask, (2, ids[0].size)))
+    tph = Phenaki(maskgit=load_flax_params(MaskGit(**MASKGIT), params), cvivit=CViViT(**CVIVIT),
+                  text_embed_dim=TEXT_DIM, steps=STEPS, max_text_len=8)
+    monkeypatch.setattr(tph, "_loss_draws", lambda b, n, gen, device: (
+        torch.from_numpy(step.copy()).long(), torch.from_numpy(noise.copy())))
+    calls = []
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return fused_vocab_cross_entropy(*args)
+
+    monkeypatch.setattr(phenaki_module, "fused_vocab_cross_entropy", spy)
+    loss, _ = tph.loss(video_codebook_ids=torch.from_numpy(ids), text_embeds=torch.from_numpy(emb),
+                       cond_drop_prob=0.0)
+    loss.backward()
+    assert calls == [(2, 128, MASKGIT["dim"])]
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
+    ref = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, jax.device_get(ref_grads)))
+    named = dict(tph.maskgit.named_parameters())
+    assert sorted(ref) == sorted(named)
+    for name, p in named.items():
+        r = ref[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), r, atol=1e-3 * max(np.abs(r).max(), 1e-5),
+                                   rtol=0, err_msg=name)
