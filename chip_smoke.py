@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's flagship sampling and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's flagship sampling and training paths, with
+and without a critic, on one NVIDIA GPU.
 
     python3 chip_smoke.py                         # every check; the last line is the verdict
     python3 chip_smoke.py --profile-train OUT.txt  # the same, and a profile of two
@@ -9,14 +9,17 @@ NVIDIA GPU.
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc, holds
 each kernel against its plain PyTorch version at the flagship shapes (the
 flash-attention forward and its three backward kernels, the projection
-sampler, the fused cross-entropy forward and its two backward kernels),
-checks a small fp32 model sampled and trained on the card against
-the same model on the CPU, samples the flagship model (random weights from
-a seed) through `flagship_phenaki(...).sample(...)`, and trains the flagship
-MaskGit through `PhenakiTrainer(...).train_step()` on seeded random token
-ids. Each main path is checked to have launched its kernels. Every check
-raises on failure; the last line is the JSON verdict, printed only when all
-passed. Needs no JAX.
+sampler, the fused cross-entropy forward and its two backward kernels, the
+logits-path sampler), checks small fp32 models sampled and trained on the
+card against the same models on the CPU (with and without a critic, and on
+the logits path), and drives the flagship model (random weights from a
+seed) through its entry points: `flagship_phenaki(...).sample(...)` plain,
+with a TokenCritic and with a SelfCritic; the logits path of
+`maskgit_sample_loop`; and `PhenakiTrainer(...).train_step()` on seeded
+random token ids, without a critic and with a TokenCritic. Each main path
+is checked to have launched exactly its kernels. Every check raises on
+failure; the last line is the JSON verdict, printed only when all passed.
+Needs no JAX.
 """
 
 from __future__ import annotations
@@ -41,16 +44,27 @@ CE_TPU = {"ce_fwd": "phenaki_tpu/ops/pallas_ce.py:123",  # _fwd_kernel
           "ce_dh": "phenaki_tpu/ops/pallas_ce.py:219",  # _bwd_dh_kernel
           "ce_dw": "phenaki_tpu/ops/pallas_ce.py:240"}  # _bwd_dw_kernel
 
-# kernel launches per flagship sample: 6 MaskGit layers x (self + cross
-# attention) x 18 steps + 4 C-ViViT spatial layers (the seq-9 temporal
-# attention takes the plain path), and one projection-sampling call a step
-FLASH_PER_SAMPLE = 6 * 2 * 18 + 4
-PROJ_PER_SAMPLE = 18
+GUMBEL_SRC = "phenaki_tpu_torch/csrc/gumbel_sample.cu"
+GUMBEL_TPU = "phenaki_tpu/ops/pallas_sampling.py:33"  # _kernel
+
+# kernel launches per flagship sample (every other kernel: none): 6 MaskGit
+# layers x (self + cross attention) x 18 steps + 4 C-ViViT spatial layers
+# (the seq-9 temporal attention takes the plain path), and one
+# projection-sampling call a step. A critic (TokenCritic, or SelfCritic on
+# the MaskGit trunk) adds 6 x 2 attention calls on every step but the last;
+# the logits path samples with the logits-path kernel instead of the
+# projection sampler
+SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18}
+CRITIC_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 6 * 2 * 17 + 4, "proj": 18}
+LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18}
 # kernel launches per flagship train step (grad_accum_every = 1): 6 MaskGit
 # layers x (self + cross attention) forward, dQ and dK/dV; dBias for the
-# self-attention's CPB bias only; one fused CE forward, dh and dW
+# self-attention's CPB bias only; one fused CE forward, dh and dW. A
+# TokenCritic adds its 6 x 2 attention calls each way (no position bias, so
+# no dBias) and one projection sample of the generator's tokens
 TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
-TRAIN_BATCH, TRAIN_STEPS = 4, 5
+CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1)
+TRAIN_BATCH, TRAIN_STEPS, CRITIC_TRAIN_STEPS = 4, 5, 3
 LEARN_MARGIN = 3.0  # nats the learning check's loss must fall by
 
 
@@ -92,8 +106,10 @@ def qk(shape, gen, dtype):
 
 
 def flash_cases(torch, dtype, gen):
-    """The flagship shapes at b = 1 (CFG stacks 2 rows), a causal case, and
-    d = 128 with ragged tiles."""
+    """The flagship shapes at b = 1 (CFG stacks 2 rows): MaskGit
+    self-attention with the CPB bias, the TokenCritic's self-attention
+    without one, cross-attention; a causal case, and d = 128 with ragged
+    tiles."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
     from phenaki_tpu_torch.ops.positional import alibi_bias
 
@@ -102,6 +118,7 @@ def flash_cases(torch, dtype, gen):
     v = torch.randn(2, 8, 1152, 64, generator=gen).to("cuda", dtype)
     bias = torch.randn(8, 1152, 1152, generator=gen).to("cuda", dtype)
     cases["maskgit_self"] = (q, k, v, bias, None, False)
+    cases["critic_self"] = (q, k, v, None, None, False)
     kc, vc = qk((2, 8, 130, 64), gen, dtype), torch.randn(2, 8, 130, 64, generator=gen).to("cuda", dtype)
     keep = torch.rand(2, 130, generator=gen) > 0.3
     keep[:, :2] = True
@@ -150,7 +167,8 @@ def check_flash(torch):
 
 def flash_bwd_cases(torch, dtype, gen):
     """The train shapes (b = 4): MaskGit self-attention with the CPB bias and
-    an all-zero key mask, cross-attention with a row that sees only the
+    an all-zero key mask, the TokenCritic's self-attention without a bias,
+    cross-attention with a row that sees only the
     null-KV columns, the same with a row that sees no key at all, a causal
     ALiBi case, and d = 128 with ragged tiles."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
@@ -162,6 +180,7 @@ def flash_bwd_cases(torch, dtype, gen):
     cases = {}
     q, k, v = qk((4, 8, 1152, 64), gen, dtype), qk((4, 8, 1152, 64), gen, dtype), rand(4, 8, 1152, 64)
     cases["maskgit_self"] = (q, k, v, rand(8, 1152, 1152), torch.zeros(4, 1152, device="cuda"), False)
+    cases["critic_self"] = (q, k, v, None, torch.zeros(4, 1152, device="cuda"), False)
     kc, vc = qk((4, 8, 130, 64), gen, dtype), rand(4, 8, 130, 64)
     keep = torch.rand(4, 130, generator=gen) > 0.3
     keep[:, :2] = True
@@ -216,7 +235,7 @@ def check_flash_bwd(torch):
                     check(got[key][2].abs().max().item() == 0.0, f"flash bwd {tag}: {key} of the masked row")
                 check(torch.isneginf(lse[2]).all().item(), f"flash bwd {tag}: lse of the masked row")
             ms = plain_ms = None
-            if dtype == torch.bfloat16 and name in ("maskgit_self", "maskgit_cross"):
+            if dtype == torch.bfloat16 and name in ("maskgit_self", "critic_self", "maskgit_cross"):
                 # timed at the train shapes only: each kernel against the plain
                 # version of that kernel alone (which recomputes p and dS, as
                 # the kernel does), and the whole plain backward
@@ -266,11 +285,12 @@ def check_flash_bwd(torch):
 def check_fused_ce(torch):
     """The three fused-CE kernels against their plain versions (the (rows, V)
     f32 logits materialised) on the same inputs: at the flagship train shape
-    (4 x 1152 rows, d = 512, V = 65,536, a bias) in bf16 and f32, and rows
-    that fill no whole tile (1000 rows, d = 128, V = 1024, no bias, every 7th
-    label -1, the pad label). Then a train step's CE both ways, forward and
-    backward: the kernels against the non-fused branch (a bf16 logits GEMM
-    and F.cross_entropy in f32)."""
+    (4 x 1152 rows, d = 512, V = 65,536, a bias) and at d = 1024, where the
+    kernels walk d in two slices, in bf16 and f32; and rows that fill no
+    whole tile (1000 rows, V = 1024, no bias, every 7th label -1, the pad
+    label) at d = 128 and at d = 640 (a 512- and a 128-wide slice). Then a
+    train step's CE both ways, forward and backward: the kernels against the
+    non-fused branch (a bf16 logits GEMM and F.cross_entropy in f32)."""
     import torch.nn.functional as F
 
     import phenaki_tpu_torch.ops.fused_ce as ce
@@ -281,7 +301,8 @@ def check_fused_ce(torch):
     # summation order; bf16 rounds dlog to bf16 in both, and a logit that
     # differs in its last f32 bit can move one dlog entry by a bf16 ulp
     tol = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
-    cases = {"train": (4 * 1152, 512, 65536, True), "ragged": (1000, 128, 1024, False)}
+    cases = {"train": (4 * 1152, 512, 65536, True), "d1024": (4 * 1152, 1024, 65536, True),
+             "ragged": (1000, 128, 1024, False), "ragged_d640": (1000, 640, 1024, False)}
     result = {}
     for name, (rows, d, v, with_bias) in cases.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -289,7 +310,7 @@ def check_fused_ce(torch):
             w = (torch.randn(v, d, generator=gen) * 2 / d**0.5).to("cuda", dtype)
             bias = (torch.randn(v, generator=gen) * 0.1).cuda() if with_bias else None
             labels = torch.randint(0, v, (rows,), generator=gen)
-            if name == "ragged":
+            if name.startswith("ragged"):
                 labels[::7] = -1
             labels = labels.to(torch.int32).cuda()
             g = torch.rand(rows, generator=gen).cuda()
@@ -312,7 +333,7 @@ def check_fused_ce(torch):
                 errs[key] = abs_errs[key] / max(ref[key].abs().max().item(), 1e-30)
                 check(errs[key] <= tol[dtype], f"fused CE {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
             ms = plain_ms = None
-            if tag == "train_bfloat16":
+            if tag in ("train_bfloat16", "d1024_bfloat16"):
                 pairs = {"ce_fwd": (ce.fused_ce_fwd, ce.cross_entropy_plain, args),
                          "ce_dh": (ce.fused_ce_bwd_dh, ce.cross_entropy_bwd_dh_plain, bargs),
                          "ce_dw": (ce.fused_ce_bwd_dw, ce.cross_entropy_bwd_dw_plain, bargs)}
@@ -352,36 +373,47 @@ def check_fused_ce(torch):
 
 
 def check_proj(torch):
+    """The projection sampler against its plain version with injected noise:
+    at the flagship decode shape (d = 512) and at d = 1024, where the
+    kernel stages W in d-slices, in bf16 and f32; and at the critic train
+    shape, (4, 1152, 512) bf16 embeddings with the f32 weight cast to bf16
+    at the call, as `Phenaki.loss` does, at its sample temperature 1."""
     from phenaki_tpu_torch.ops.fused_sampling import project_sample, project_sample_plain
 
     gen = torch.Generator().manual_seed(2)
-    rows, d, v = 1152, 512, 65536
+    rows, v = 1152, 65536
+    # (batch, d, embedding dtype, weight dtype, temperature)
+    cases = {f"d{d}_{str(dtype).split('.')[-1]}": (1, d, dtype, dtype, 0.85)
+             for d in (512, 1024) for dtype in (torch.bfloat16, torch.float32)}
+    cases["critic_train_bfloat16"] = (4, 512, torch.bfloat16, torch.float32, 1.0)
     result = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        h = torch.randn(1, rows, d, generator=gen).to("cuda", dtype)
+    for tag, (b, d, dtype, w_dtype, temp) in cases.items():
+        h = torch.randn(b, rows, d, generator=gen).to("cuda", dtype)
         # logits peaked (std ~9), so that scores spread over [0, 1] and are
         # not all ~1 - 1/V as at the default init
-        w = ((torch.rand(v, d, generator=gen) * 2 - 1) * 16 / d**0.5).to("cuda", dtype)
+        w = ((torch.rand(v, d, generator=gen) * 2 - 1) * 16 / d**0.5).to("cuda", w_dtype)
         bias = ((torch.rand(v, generator=gen) * 2 - 1) / d**0.5).cuda()
-        noise = torch.rand(1, rows, v, generator=gen).cuda()
-        temp = 0.85
-        ids, score = project_sample(h, w, bias, temp, noise=noise)
-        ref_ids, ref_score = project_sample_plain(h, w, bias, temp, noise=noise)
+        noise = torch.rand(b, rows, v, generator=gen).cuda()
+        ids, score = project_sample(h, w.to(dtype), bias, temp, noise=noise)
+        ref_ids, ref_score = project_sample_plain(h, w.to(dtype), bias, temp, noise=noise)
         torch.cuda.synchronize()
         same = ids == ref_ids
         agree = same.float().mean().item()
         err = (score - ref_score)[same].abs().max().item()
-        ms = cuda_ms(lambda: project_sample(h, w, bias, temp, noise=noise), reps=10)
-        plain_ms = cuda_ms(lambda: project_sample_plain(h, w, bias, temp, noise=noise), reps=10)
+        ms = cuda_ms(lambda: project_sample(h, w.to(dtype), bias, temp, noise=noise), reps=10)
+        plain_ms = cuda_ms(lambda: project_sample_plain(h, w.to(dtype), bias, temp, noise=noise), reps=10)
         gseed = torch.Generator().manual_seed(7)
-        ms_philox = cuda_ms(lambda: project_sample(h, w, bias, temp, generator=gseed), reps=10)
-        tag = str(dtype).split(".")[-1]
-        phase(f"project_sample {tag}", rows=rows, d=d, vocab=v, id_agreement=agree,
-              score_max_abs_err=err, score_min=score.min().item(), ms=ms, ms_philox=ms_philox,
-              plain_ms=plain_ms)
+        ms_philox = cuda_ms(lambda: project_sample(h, w.to(dtype), bias, temp, generator=gseed), reps=10)
+        phase(f"project_sample {tag}", rows=b * rows, d=d, vocab=v, weight_dtype=str(w_dtype),
+              id_agreement=agree, score_max_abs_err=err, score_min=score.min().item(), ms=ms,
+              ms_philox=ms_philox, plain_ms=plain_ms)
+        check(ids.shape == (b, rows) and score.shape == (b, rows), f"project_sample {tag}: shapes")
         check(agree >= 0.999, f"project_sample {tag}: ids agree on {agree} < 0.999 of rows")
         check(err <= 1e-4, f"project_sample {tag}: score err {err} > 1e-4")
-        result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        # `ms` against `plain_ms` on the same injected noise; the main paths
+        # run the in-kernel Philox stream, timed as `ms_philox`
+        result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_philox=ms_philox)
+        del h, w, noise
 
     # the in-kernel Philox stream: softmax frequencies and seed determinism
     n_rows, d, v = 4096, 128, 512
@@ -403,14 +435,75 @@ def check_proj(torch):
     return result
 
 
+def check_gumbel_kernel(torch):
+    """`gumbel_sample_with_score` (kernel 10) against its plain version with
+    injected noise: the stacked CFG logits of a flagship logits-path decode
+    step (2, 1152, 65,536) in bf16 and f32, an odd row count (2, 1151,
+    65,536), and an odd vocab without CFG at temperature 0 (one value a
+    load). The kernel writes its arithmetic with round-to-nearest
+    intrinsics, so with the same uniforms the ids must agree on every row;
+    the score within 1e-5 (the sum-exp adds 65,536 terms in another order).
+    Then the in-kernel Philox stream: softmax frequencies and seeds."""
+    from phenaki_tpu_torch.ops.fused_sampling import (
+        gumbel_sample_with_score,
+        gumbel_sample_with_score_plain,
+    )
+
+    gen = torch.Generator().manual_seed(21)
+    cases = {"stacked_bfloat16": (2, 1152, 65536, torch.bfloat16, 5.0, 0.85),
+             "stacked_float32": (2, 1152, 65536, torch.float32, 5.0, 0.85),
+             "stacked_odd_rows_bfloat16": (2, 1151, 65536, torch.bfloat16, 5.0, 0.5),
+             "odd_vocab_t0_float32": (3, 100, 5003, torch.float32, None, 0.0)}
+    result = {}
+    for tag, (bb, n, v, dtype, scale, temp) in cases.items():
+        logits = (torch.randn(bb, n, v, generator=gen) * 3).to("cuda", dtype)
+        b = bb // 2 if scale is not None else bb
+        noise = torch.rand(b, n, v, generator=gen).cuda()
+        kw = dict(cond_scale=scale, noise=noise)
+        ids, score = gumbel_sample_with_score(logits, temp, **kw)
+        ref_ids, ref_score = gumbel_sample_with_score_plain(logits, temp, **kw)
+        torch.cuda.synchronize()
+        agree = (ids == ref_ids).float().mean().item()
+        err = (score - ref_score).abs().max().item()
+        ms = cuda_ms(lambda: gumbel_sample_with_score(logits, temp, **kw), reps=10)
+        plain_ms = cuda_ms(lambda: gumbel_sample_with_score_plain(logits, temp, **kw), reps=10)
+        gseed = torch.Generator().manual_seed(7)
+        ms_philox = cuda_ms(lambda: gumbel_sample_with_score(logits, temp, cond_scale=scale,
+                                                             generator=gseed), reps=10)
+        phase(f"gumbel_sample {tag}", shape=[bb, n, v], cond_scale=scale, temperature=temp,
+              id_agreement=agree, score_max_abs_err=err, ms=ms, ms_philox=ms_philox,
+              plain_ms=plain_ms)
+        check(ids.shape == (b, n) and score.shape == (b, n), f"gumbel_sample {tag}: shapes")
+        check(agree == 1.0, f"gumbel_sample {tag}: ids agree on {agree} of rows, not all")
+        check(err <= 1e-5, f"gumbel_sample {tag}: score err {err} > 1e-5")
+        result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_philox=ms_philox)
+        del logits, noise
+
+    # Philox: 4096 rows of stacked logits whose CFG combine peaks three ids
+    n_rows, v = 4096, 512
+    cond = torch.full((v,), -4.0)
+    cond[[5, 40, 100]] = torch.tensor([2.0, 1.5, 1.0])
+    null = torch.zeros(v)
+    stacked = torch.stack([cond.expand(n_rows, v), null.expand(n_rows, v)]).cuda()
+    draw = [gumbel_sample_with_score(stacked, 1.0, cond_scale=2.0,
+                                     generator=torch.Generator().manual_seed(s))[0] for s in (5, 5, 6)]
+    probs = torch.softmax(cond * 2.0, -1)
+    freq = {c: (draw[0] == c).float().mean().item() for c in (5, 40, 100)}
+    dev = max(abs(freq[c] - probs[c].item()) for c in freq)
+    phase("gumbel_sample philox", rows=n_rows, vocab=v, max_freq_dev=dev,
+          freqs=[freq[c] for c in (5, 40, 100)], probs=[probs[c].item() for c in (5, 40, 100)])
+    check(dev < 0.03, f"gumbel_sample Philox frequencies deviate by {dev} from softmax")
+    check(torch.equal(draw[0], draw[1]), "gumbel_sample: the same seed gave different ids")
+    check(not torch.equal(draw[0], draw[2]), "gumbel_sample: different seeds gave the same ids")
+    return result
+
+
 def check_small_model(torch):
     """A small fp32 model whose shapes pass both kernel gates, sampled greedy
     on the card and on the CPU (plain versions): ids equal, video atol 1e-4."""
     from phenaki_tpu_torch.models.cvivit import CViViT
     from phenaki_tpu_torch.models.maskgit import MaskGit
     from phenaki_tpu_torch.models.phenaki import Phenaki
-    from phenaki_tpu_torch.ops.fused_sampling import project_sample
-    from phenaki_tpu_torch.ops.flash_attention import flash_attention
     from phenaki_tpu_torch.ops.torch_init import init_parameters
 
     gen = torch.Generator().manual_seed(3)
@@ -424,90 +517,155 @@ def check_small_model(torch):
                      max_text_len=16)
         kw = dict(num_frames=5, text_embeds=emb, cond_scale=5.0, starting_temperature=0.0,
                   generator=torch.Generator().manual_seed(0))
-        f0, p0 = flash_attention.launches, project_sample.launches
+        before = kernel_counts()
         ids[device] = ph.sample_ids(**kw).cpu()
         videos[device] = ph.sample(**kw).float().cpu()
-        launched = (flash_attention.launches - f0, project_sample.launches - p0)
+        launched = launched_since(before)
     err = (videos["cuda"] - videos["cpu"]).abs().max().item()
     phase("small fp32 model card vs cpu", ids_equal=bool(torch.equal(ids["cuda"], ids["cpu"])),
-          video_max_abs_err=err, kernel_launches=list(launched))
-    check(launched[0] > 0 and launched[1] > 0, "the small model did not launch both kernels")
+          video_max_abs_err=err, kernel_launches=nonzero(launched))
+    check(launched["fwd"] > 0 and launched["proj"] > 0, "the small model did not launch both kernels")
     check(torch.equal(ids["cuda"], ids["cpu"]), "greedy ids differ between card and CPU")
     check(err <= 1e-4, f"video differs between card and CPU by {err}")
 
 
-def run_main_path(torch):
-    from phenaki_tpu_torch.ops.flash_attention import flash_attention
-    from phenaki_tpu_torch.ops.fused_sampling import project_sample
-    from phenaki_tpu_torch.presets import flagship_phenaki
+def logits_path_ids(torch, ph, text_embeds, generator, *, num_frames, cond_scale=5.0,
+                    starting_temperature=0.9):
+    """Decode through the logits path, as a user of `maskgit_sample_loop`
+    does: the stacked (2b, n, V) cond/null logits of
+    `MaskGit.forward_with_cond_scale(combine=False)` go to the logits-path
+    sampler, which fuses the CFG combine. Returns the ids (b, n)."""
+    from phenaki_tpu_torch.models.sampling_loop import maskgit_sample_loop
 
-    t0 = time.perf_counter()
-    ph = flagship_phenaki(seed=0, device="cuda")
-    torch.cuda.synchronize()
-    build_model_s = time.perf_counter() - t0
+    mg = ph.maskgit.eval()
+    device = mg.to_logits.weight.device
+    text = ph.pad_text_embeds(text_embeds.to(device))
+    mask = (text != 0).any(dim=-1)
+    patch_shape = ph.cvivit.get_video_patch_shape(num_frames)
+    with torch.inference_mode():
+        bias = mg.rel_pos_bias(patch_shape)
+        return maskgit_sample_loop(
+            lambda ids: mg.forward_with_cond_scale(
+                ids, video_patch_shape=patch_shape, context=text, text_mask=mask,
+                cond_scale=cond_scale, attn_bias=bias, combine=False),
+            stacked_cfg_scale=cond_scale, batch=text.shape[0],
+            num_tokens_seq=ph.cvivit.num_tokens_per_frames(num_frames), mask_id=mg.mask_id,
+            device=device, steps=ph.steps, starting_temperature=starting_temperature,
+            generator=generator)
 
+
+def sample_requests(torch):
+    """(name, text embeddings, seed): a warm-up, three b = 1 prompts, b = 2,
+    and the first prompt again with its seed."""
     def embeds(b, seed):
         return torch.randn(b, 50, 768, generator=torch.Generator().manual_seed(seed))
 
-    requests = [("warmup", embeds(1, 100), 10), ("req1", embeds(1, 101), 11),
-                ("req2", embeds(1, 102), 12), ("req3", embeds(1, 103), 13),
-                ("batch2", embeds(2, 104), 14), ("req1_again", embeds(1, 101), 11)]
+    return [("warmup", embeds(1, 100), 10), ("req1", embeds(1, 101), 11),
+            ("req2", embeds(1, 102), 12), ("req3", embeds(1, 103), 13),
+            ("batch2", embeds(2, 104), 14), ("req1_again", embeds(1, 101), 11)]
+
+
+def run_sample_path(torch, label, sample, per_sample):
+    """Flagship requests through `sample(text_embeds, generator)`, 17 frames
+    of 256 x 128 each: every request launches exactly `per_sample` kernels
+    (counts set to 0 before the path, read after it); the same seed gives
+    the same video, distinct prompts distinct videos."""
     torch.cuda.reset_peak_memory_stats()  # the kernel checks before allocated more
-    flash_attention.launches = 0
-    project_sample.launches = 0
+    reset_kernel_counts()
     videos, seconds = {}, {}
-    for name, emb, seed in requests:
-        f0, p0 = flash_attention.launches, project_sample.launches
+    for name, emb, seed in sample_requests(torch):
+        before = kernel_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        video = ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0,
-                          generator=torch.Generator().manual_seed(seed))
+        video = sample(emb, torch.Generator().manual_seed(seed))
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t
-        counts = (flash_attention.launches - f0, project_sample.launches - p0)
+        counts = launched_since(before)
         b = emb.shape[0]
-        check(tuple(video.shape) == (b, 17, 256, 128, 3), f"{name}: video shape {tuple(video.shape)}")
-        check(torch.isfinite(video).all().item(), f"{name}: non-finite video")
-        check(counts == (FLASH_PER_SAMPLE, PROJ_PER_SAMPLE),
-              f"{name}: launches {counts} != {(FLASH_PER_SAMPLE, PROJ_PER_SAMPLE)}")
+        check(tuple(video.shape) == (b, 17, 256, 128, 3), f"{label} {name}: video shape {tuple(video.shape)}")
+        check(torch.isfinite(video).all().item(), f"{label} {name}: non-finite video")
+        check(counts == exact(per_sample), f"{label} {name}: launches {nonzero(counts)} != {per_sample}")
         videos[name] = video
-        phase(f"sample {name}", batch=b, seconds=seconds[name], flash_launches=counts[0],
-              project_sample_launches=counts[1], video_mean=video.float().mean().item(),
-              video_std=video.float().std().item())
-    launches = {"flash": flash_attention.launches, "proj": project_sample.launches}
-    check(torch.equal(videos["req1"], videos["req1_again"]), "the same seed gave a different video")
-    check(not torch.equal(videos["req1"][:, :1], videos["req2"][:, :1]), "distinct prompts gave one video")
-    per_sample = statistics.median(seconds[n] for n in ("req1", "req2", "req3"))
-    phase("main path", build_model_s=build_model_s, seconds_per_sample_b1=per_sample,
-          seconds_batch2=seconds["batch2"], frames_per_s_b1=17 / per_sample,
-          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **launches)
+        phase(f"{label} {name}", batch=b, seconds=seconds[name], launches=nonzero(counts),
+              video_mean=video.float().mean().item(), video_std=video.float().std().item())
+    launches = kernel_counts()
+    check(torch.equal(videos["req1"], videos["req1_again"]), f"{label}: the same seed gave a different video")
+    check(not torch.equal(videos["req1"][:, :1], videos["req2"][:, :1]), f"{label}: distinct prompts gave one video")
+    per_sample_s = statistics.median(seconds[n] for n in ("req1", "req2", "req3"))
+    phase(label, seconds_per_sample_b1=per_sample_s, seconds_batch2=seconds["batch2"],
+          frames_per_s_b1=17 / per_sample_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+          launches=nonzero(launches))
     return launches
 
 
-def train_kernels():
-    """The kernels of a train step by key: the attention forward, its three
-    backward kernels, and the fused CE's forward and two backward kernels."""
+def run_sample_paths(torch):
+    """The flagship sampled four ways, each model built by its preset: plain
+    (`flagship_phenaki(...).sample`), on the logits path (its MaskGit through
+    `maskgit_sample_loop(logits_fn=..., stacked_cfg_scale=5)`), and
+    critic-guided with a TokenCritic and with a SelfCritic. Returns each
+    path's launches."""
+    from phenaki_tpu_torch.presets import flagship_phenaki
+
+    paths = {}
+    for label, kw in (("sample", {}), ("token_critic_sample", {"critic": True}),
+                      ("self_critic_sample", {"self_token_critic": True})):
+        t0 = time.perf_counter()
+        ph = flagship_phenaki(seed=0, device="cuda", **kw)
+        torch.cuda.synchronize()
+        phase(f"{label} model", build_model_s=time.perf_counter() - t0)
+
+        def sample(emb, gen):
+            return ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0, generator=gen)
+
+        per_sample = SAMPLE_LAUNCHES if not kw else CRITIC_SAMPLE_LAUNCHES
+        paths[label] = run_sample_path(torch, label, sample, per_sample)
+        if not kw:
+            def logits_sample(emb, gen):
+                ids = logits_path_ids(torch, ph, emb, gen, num_frames=17)
+                with torch.inference_mode():
+                    return ph.cvivit.decode_from_codebook_indices(ids)
+
+            paths["logits_path_sample"] = run_sample_path(torch, "logits_path_sample", logits_sample,
+                                                          LOGITS_SAMPLE_LAUNCHES)
+        del ph
+        torch.cuda.empty_cache()
+    return paths
+
+
+def all_kernels():
+    """Every kernel's wrapper by key: the attention forward, its three
+    backward kernels, the fused CE's forward and two backward kernels, the
+    projection sampler and the logits-path sampler."""
     import phenaki_tpu_torch.ops.flash_attention as fa
     import phenaki_tpu_torch.ops.fused_ce as ce
+    import phenaki_tpu_torch.ops.fused_sampling as fs
 
     return {"fwd": fa.flash_attention, "dq": fa.flash_attention_bwd_dq,
             "dkv": fa.flash_attention_bwd_dkv, "dbias": fa.flash_attention_bwd_dbias,
-            "ce_fwd": ce.fused_ce_fwd, "ce_dh": ce.fused_ce_bwd_dh, "ce_dw": ce.fused_ce_bwd_dw}
+            "ce_fwd": ce.fused_ce_fwd, "ce_dh": ce.fused_ce_bwd_dh, "ce_dw": ce.fused_ce_bwd_dw,
+            "proj": fs.project_sample, "gumbel": fs.gumbel_sample_with_score}
 
 
 def kernel_counts():
-    return {key: fn.launches for key, fn in train_kernels().items()}
+    return {key: fn.launches for key, fn in all_kernels().items()}
 
 
 def reset_kernel_counts():
-    from phenaki_tpu_torch.ops.fused_sampling import project_sample
-
-    for fn in (*train_kernels().values(), project_sample):
+    for fn in all_kernels().values():
         fn.launches = 0
 
 
 def launched_since(before):
     return {k: v - before[k] for k, v in kernel_counts().items()}
+
+
+def exact(per_call):
+    """Launches of every kernel: `per_call`'s, and none of the others."""
+    return {key: per_call.get(key, 0) for key in all_kernels()}
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 def small_train_models(torch, seed):
@@ -558,10 +716,99 @@ def check_small_train(torch):
     worst = max(((g_gpu[n] - r).abs().max() / max(r.abs().max().item(), 1e-5)).item()
                 for n, r in g_cpu.items())
     phase("small fp32 train card vs cpu", loss_cpu=loss_cpu, loss_gpu=loss_gpu,
-          worst_grad_rel_err=worst, kernel_launches=launched)
-    check(all(n > 0 for n in launched.values()), f"the small train step did not launch every kernel: {launched}")
+          worst_grad_rel_err=worst, kernel_launches=nonzero(launched))
+    check(all(launched[k] > 0 for k in TRAIN_PER_STEP), f"the small train step did not launch every kernel: {launched}")
     check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu), f"loss differs: {loss_gpu} vs {loss_cpu}")
     check(worst <= 1e-3, f"a gradient differs between card and CPU by {worst} of its max")
+
+
+def check_small_critic(torch):
+    """Small fp32 models on the card (the kernels) and on the CPU (their
+    plain versions), greedy (starting temperature 0, noise_K 0): the
+    logits-path decode and critic-guided `sample_ids` with a TokenCritic and
+    with a SelfCritic give the same ids; then `Phenaki.loss` with each
+    critic, on the same weights, ids, text and draws and with the
+    generator's sample uniforms injected, gives the same losses and every
+    MaskGit and critic gradient within the tolerances of
+    `check_small_train`."""
+    import copy
+
+    from torch import nn
+
+    from phenaki_tpu_torch.models.cvivit import CViViT
+    from phenaki_tpu_torch.models.maskgit import MaskGit, TokenCritic
+    from phenaki_tpu_torch.models.phenaki import Phenaki
+    from phenaki_tpu_torch.ops.torch_init import init_parameters
+
+    gen = torch.Generator().manual_seed(13)
+    trunk = dict(depth=2, heads=2, dim_head=64, dim_context=64)
+    cv = init_parameters(CViViT(128, 256, 64, 8, 2, 1, 1, dim_head=64, heads=2), gen)
+    emb = torch.randn(2, 8, 64, generator=gen)
+    emb[:, 6:] = 0.0
+
+    def models(n_tokens, kind):
+        mg = init_parameters(MaskGit(128, 512, n_tokens, **trunk), gen)
+        critic = init_parameters(TokenCritic(128, 512, n_tokens, has_cross_attn=True, **trunk), gen)
+        head = init_parameters(nn.Linear(128, 1), gen)
+        return mg, critic if kind == "token" else None, head
+
+    def phenaki(parts, kind, device):
+        mg, critic, head = (copy.deepcopy(m) for m in parts)
+        ph = Phenaki(maskgit=mg.to(device), cvivit=copy.deepcopy(cv).to(device), text_embed_dim=64, steps=6,
+                     max_text_len=16, critic=critic.to(device) if critic is not None else None,
+                     self_token_critic=kind == "self")
+        if kind == "self":
+            ph.critic.to_pred.load_state_dict(head.state_dict())
+        return ph
+
+    for kind in ("token", "self"):
+        parts = models(192, kind)  # 5 frames: (3, 8, 8) tokens
+        ids, launched = {}, {}
+        for device in ("cpu", "cuda"):
+            ph = phenaki(parts, kind, device)
+            before = kernel_counts()
+            kw = dict(text_embeds=emb, generator=torch.Generator().manual_seed(0), num_frames=5,
+                      starting_temperature=0.0)
+            ids[device] = (ph.sample_ids(cond_scale=5.0, noise_K=0.0, **kw).cpu(),
+                           logits_path_ids(torch, ph, **kw).cpu())
+            torch.cuda.synchronize()
+            launched[device] = nonzero(launched_since(before))
+        same = [torch.equal(a, b) for a, b in zip(ids["cpu"], ids["cuda"])]
+        phase(f"small fp32 {kind} critic sampling card vs cpu", critic_guided_ids_equal=same[0],
+              logits_path_ids_equal=same[1], kernel_launches=launched["cuda"])
+        check(not launched["cpu"], f"the CPU run launched kernels: {launched['cpu']}")
+        check(all(launched["cuda"].get(k, 0) > 0 for k in ("fwd", "proj", "gumbel")),
+              f"the small {kind} critic sample did not launch every sampling kernel: {launched['cuda']}")
+        check(all(same), f"greedy ids differ between card and CPU ({kind} critic): {same}")
+
+    g = torch.Generator().manual_seed(14)
+    vid = torch.randint(0, 512, (2, 2, 8, 8), generator=g)
+    frame_mask = torch.tensor([[True, True, True], [True, False, False]])
+    sample_noise = torch.rand(2, 128, 512, generator=g)
+    for kind in ("token", "self"):
+        parts = models(128, kind)  # (2, 8, 8) tokens
+        runs = {}
+        for device in ("cpu", "cuda"):
+            ph = phenaki(parts, kind, device)
+            ph._critic_sample_noise = lambda *a, device=device: sample_noise.to(device)
+            before = kernel_counts()
+            loss, metrics = ph.loss(video_codebook_ids=vid, text_embeds=emb, video_frame_mask=frame_mask,
+                                    generator=torch.Generator().manual_seed(15))
+            loss.backward()
+            torch.cuda.synchronize()
+            named = [*ph.maskgit.named_parameters(), *(("critic." + n, p) for n, p in ph.critic.named_parameters())]
+            runs[device] = ({k: v.item() for k, v in metrics.items()}, {n: p.grad.cpu() for n, p in named},
+                            nonzero(launched_since(before)))
+        (m_cpu, g_cpu, _), (m_gpu, g_gpu, launched) = runs["cpu"], runs["cuda"]
+        worst = max(((g_gpu[n] - r).abs().max() / max(r.abs().max().item(), 1e-5)).item()
+                    for n, r in g_cpu.items())
+        phase(f"small fp32 {kind} critic train card vs cpu", metrics_cpu=m_cpu, metrics_gpu=m_gpu,
+              worst_grad_rel_err=worst, kernel_launches=launched)
+        check(all(launched.get(k, 0) > 0 for k in (*TRAIN_PER_STEP, "proj")),
+              f"the small {kind} critic loss did not launch every kernel: {launched}")
+        for key, ref in m_cpu.items():
+            check(abs(m_gpu[key] - ref) <= 1e-4 * abs(ref), f"{kind} critic {key}: {m_gpu[key]} vs {ref}")
+        check(worst <= 1e-3, f"a {kind} critic-loss gradient differs between card and CPU by {worst} of its max")
 
 
 def check_gumbel(torch):
@@ -601,16 +848,18 @@ def check_learning(torch):
           f"the loss fell by {first - last} (margin {LEARN_MARGIN}, noise {noise})")
 
 
-def run_train_path(torch, profile_path=None):
-    """The flagship MaskGit (f32 parameters, bf16 compute) trained through
-    `PhenakiTrainer.train_step()` at b = 4 on seeded random token ids and
-    text embeddings: a warm-up step, then TRAIN_STEPS timed steps with the
-    exact kernel launches of each."""
+def run_train_path(torch, label, per_step, steps, profile_path=None, **preset):
+    """The flagship (f32 parameters, bf16 compute; `preset` adds a critic)
+    trained through `PhenakiTrainer.train_step()` at b = 4 on seeded random
+    token ids and text embeddings: a warm-up step, then `steps` timed steps,
+    each with exactly `per_step` kernel launches (counts set to 0 after the
+    warm-up, read after the last step); the losses finite and every
+    parameter, the MaskGit's and the critic's, moved."""
     from phenaki_tpu_torch.presets import flagship_train_phenaki
     from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
 
     t0 = time.perf_counter()
-    ph = flagship_train_phenaki(seed=0, device="cuda")
+    ph = flagship_train_phenaki(seed=0, device="cuda", **preset)
     torch.cuda.synchronize()
     build_model_s = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(20)
@@ -618,33 +867,38 @@ def run_train_path(torch, profile_path=None):
     emb = torch.randn(2 * TRAIN_BATCH, 50, 768, generator=gen)
     trainer = PhenakiTrainer(ph, dataset=torch.utils.data.TensorDataset(ids, emb),
                              batch_size=TRAIN_BATCH, seed=0, log_every=10**9)
-    before = {n: p.detach().clone() for n, p in ph.maskgit.named_parameters()}
+    params = {f"maskgit.{n}": p for n, p in ph.maskgit.named_parameters()}
+    if ph.critic is not None:
+        params.update({f"critic.{n}": p for n, p in ph.critic.named_parameters()})
+    before = {n: p.detach().clone() for n, p in params.items()}
     warmup_loss = trainer.train_step().item()
     torch.cuda.synchronize()
     reset_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
     seconds, losses = [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         counts = kernel_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         loss = trainer.train_step()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
-        per_step = launched_since(counts)
-        check(per_step == TRAIN_PER_STEP, f"train step {step}: launches {per_step} != {TRAIN_PER_STEP}")
+        launched = launched_since(counts)
+        check(launched == exact(per_step), f"{label} step {step}: launches {nonzero(launched)} != {per_step}")
         losses.append(loss.item())
     launches = kernel_counts()
-    check(all(map(math.isfinite, [warmup_loss, *losses])), f"non-finite train loss {losses}")
-    unchanged = [n for n, p in ph.maskgit.named_parameters() if torch.equal(p, before[n])]
-    check(not unchanged, f"parameters unchanged by training: {unchanged[:5]}")
+    check(all(map(math.isfinite, [warmup_loss, *losses])), f"{label}: non-finite train loss {losses}")
+    unchanged = [n for n, p in params.items() if torch.equal(p, before[n])]
+    check(not unchanged, f"{label}: parameters unchanged by training: {unchanged[:5]}")
     per_step_s = statistics.median(seconds)
-    phase("train path", build_model_s=build_model_s, batch=TRAIN_BATCH, tokens_per_step=TRAIN_BATCH * 1152,
+    phase(label, build_model_s=build_model_s, batch=TRAIN_BATCH, tokens_per_step=TRAIN_BATCH * 1152,
           seconds_per_step=per_step_s, step_seconds=seconds, tokens_per_s=TRAIN_BATCH * 1152 / per_step_s,
           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, warmup_loss=warmup_loss, losses=losses,
-          **launches)
+          parameters=len(params), launches=nonzero(launches))
     if profile_path:
         profile_train_steps(torch, trainer, profile_path)
+    del trainer, ph
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -692,31 +946,42 @@ def main() -> int:
 
     flash = check_flash(torch)
     bwd = check_flash_bwd(torch)["maskgit_self_bfloat16"]
-    proj = check_proj(torch)
+    proj = check_proj(torch)["d512_bfloat16"]
     ce = check_fused_ce(torch)["train_bfloat16"]
+    gumbel = check_gumbel_kernel(torch)["stacked_bfloat16"]
     check_small_model(torch)
     check_small_train(torch)
+    check_small_critic(torch)
     check_gumbel(torch)
     check_learning(torch)
-    launches = run_main_path(torch)
+    paths = run_sample_paths(torch)
     args = sys.argv[1:]
     profile_path = args[args.index("--profile-train") + 1] if "--profile-train" in args else None
-    train = run_train_path(torch, profile_path)
+    paths["train"] = run_train_path(torch, "train path", TRAIN_PER_STEP, TRAIN_STEPS, profile_path)
+    paths["token_critic_train"] = run_train_path(torch, "token critic train path", CRITIC_TRAIN_PER_STEP,
+                                                 CRITIC_TRAIN_STEPS, critic=True)
+    # each path ran with its counts set to 0 before it: a kernel's launches
+    # are its sum over the paths
+    launches = {key: sum(p[key] for p in paths.values()) for key in all_kernels()}
+    phase("launches by path", **{name: nonzero(p) for name, p in paths.items()})
+    check(all(launches.values()), f"a kernel was launched on no main path: {launches}")
 
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=FLASH_SRC, replaces=FLASH_TPU,
-             launches=launches["flash"], **flash["maskgit_self_bfloat16"]),
+             launches=launches["fwd"], **flash["maskgit_self_bfloat16"]),
         dict(name="proj_sample", route="cuda", source=PROJ_SRC, replaces=PROJ_TPU,
-             launches=launches["proj"], **proj["bfloat16"]),
+             launches=launches["proj"], **proj),
+        dict(name="gumbel_sample", route="cuda", source=GUMBEL_SRC, replaces=GUMBEL_TPU,
+             launches=launches["gumbel"], **gumbel),
     ]
     for name, errs in (("dq", ["dq"]), ("dkv", ["dk", "dv"]), ("dbias", ["dbias"])):
         kernels.append(dict(name=f"flash_attention_bwd_{name}", route="cuda", source=BWD_SRC,
-                            replaces=BWD_TPU[name], launches=train[name],
+                            replaces=BWD_TPU[name], launches=launches[name],
                             max_abs_err=max(bwd["abs_errs"][e] for e in errs), ms=bwd["ms"][name],
                             plain_ms=bwd["plain_ms"][name]))
     for name, errs in (("ce_fwd", ["loss", "lse"]), ("ce_dh", ["dh"]), ("ce_dw", ["dw", "db"])):
         kernels.append(dict(name=f"fused_{name}", route="cuda", source=CE_SRC, replaces=CE_TPU[name],
-                            launches=train[name], max_abs_err=max(ce["abs_errs"][e] for e in errs),
+                            launches=launches[name], max_abs_err=max(ce["abs_errs"][e] for e in errs),
                             ms=ce["ms"][name], plain_ms=ce["plain_ms"][name]))
     print(json.dumps({"kernels": kernels}))
     print(card)

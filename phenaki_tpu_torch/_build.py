@@ -93,12 +93,20 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "proj_sample": [
-        _P, _P, _P,  # h (rows, d), w (d, V), bias (V,) f32 or null
+        _P, _P, _P,  # h (rows, d), w (V, d), bias (V,) f32 or null
         _P,  # noise (rows, V) f32 or null
         _P, _P,  # ids (rows,) int32, score (rows,) f32
         _P,  # partials scratch (rows, chunks, 5) f32
         _I, _I, _I,  # rows, d, V
         _F, _U64, _I,  # temperature, seed, dtype (0 = f32, 1 = bf16)
+        _P,  # stream
+    ],
+    "gumbel_sample": [
+        _P, _P,  # logits (rows, V), or (2 * rows, V) stacked cond/null; noise (rows, V) f32 or null
+        _P, _P,  # ids (rows,) int32, score (rows,) f32
+        _I, _I,  # rows, V
+        _F, _I, _F,  # 1 / max(temperature, 1e-10), has_cfg, cond_scale
+        _U64, _I,  # seed, dtype (0 = f32, 1 = bf16)
         _P,  # stream
     ],
 }

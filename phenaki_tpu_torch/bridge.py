@@ -14,6 +14,10 @@ flax params), so this module needs no JAX. Mapping rules:
 * `net_hidden_{i}` -> `net_hidden.{i}`;
 * everything else (bias, gamma, beta, null_kv with the k rows first,
   q_scale, k_scale) keeps its name and layout.
+
+The same rules load a TokenCritic's tree and a SelfCritic's `{"to_pred"}`
+head; `load_phenaki_params` takes the `{"maskgit", "critic"}` dict of the
+TPU package's `Phenaki.init`.
 """
 
 from __future__ import annotations
@@ -88,3 +92,17 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> nn.Module:
             raise ValueError(f"{name}: flax {tuple(src.shape)} vs port {tuple(target.shape)}")
         target.copy_(src.to(target.dtype))
     return module
+
+
+def load_phenaki_params(phenaki, params: Mapping):
+    """Copy the TPU package's `Phenaki.init` parameters, `{"maskgit": ...,
+    "critic": ...}`, into a port `Phenaki`: the critic's tree is a
+    TokenCritic's, a SelfCritic's head `{"to_pred": ...}` (its trunk is the
+    MaskGit's), or None without a critic."""
+    load_flax_params(phenaki.maskgit, params["maskgit"])
+    tree = params.get("critic")
+    if (tree is None) != (phenaki.critic is None):
+        raise ValueError("the tree and the Phenaki disagree on having a critic")
+    if tree is not None:
+        load_flax_params(phenaki.critic, tree)
+    return phenaki

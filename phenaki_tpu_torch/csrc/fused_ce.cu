@@ -45,6 +45,15 @@
 // accumulate); f32 runs them on the CUDA cores in exact f32, for the card
 // checks. Register-tiled mma.sync or wgmma tiles streamed over D through a
 // cp.async/TMA pipeline, with larger logits tiles, are the next step.
+//
+// D beyond 512 (up to the TPU gate's 2432) does not fit shared memory whole.
+// There the kernels walk d in slices of 512 columns: a logits tile is the
+// sum of its slices' products, both operands staged a slice at a time. dh
+// and dW split their d-wide outputs into the same slices over one more grid
+// axis; each such block recomputes the whole logits tile and ends its slice
+// walk on its own output slice, so that the staged operand it multiplies
+// dlog by is already in shared memory. At D <= 512 every kernel runs as
+// before, one operand resident.
 
 #include <mma.h>
 
@@ -60,7 +69,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;  // 8 warps
 constexpr int RES = 32;       // resident rows of h (forward, dh) or of W (dW)
-constexpr int MAX_D = 512;    // all of D must fit shared memory
+constexpr int SLICE = 512;    // d columns staged at a time (all of D up to this)
 constexpr int LDR = RES + 8;  // row stride of the dW kernel's (STR x RES) tiles
 
 // the streamed tile: vocab ids (forward, dh) or rows of h (dW) per step. At
@@ -92,69 +101,121 @@ __device__ __forceinline__ void store16(float* p, uint4 v) {
   p[3] = __uint_as_float(v.w);
 }
 
-// rows [r0, r0 + n) of a (nrows, D) array into dst[n][ld], zero past nrows
+// columns [c0, c0 + K) of rows [r0, r0 + n) of a (nrows, D) array into
+// dst[n][ld], zero past nrows
 template <typename T>
 __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* __restrict__ src, int r0,
-                                           int n, int nrows, int D) {
+                                           int n, int nrows, int D, int c0, int K) {
   constexpr int VEC = 16 / sizeof(T);
-  const int per_row = D / VEC;
+  const int per_row = K / VEC;
   for (int e = threadIdx.x; e < n * per_row; e += THREADS) {
     const int r = e / per_row, c = (e % per_row) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c);
+    if (r0 + r < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c0 + c);
     store16(dst + r * ld + c, val);
   }
 }
 
-// L[m][n] = sum_k A[m][k] * B[n][k] for an (M x N) tile; A and B row-major
-// in shared memory with all of D. bf16: each warp owns one 16-row group and
-// FPW 16-column groups of WMMA fragments.
+// d-slices of a D-wide operand, and the width of slice s
+__host__ __device__ constexpr int num_slices(int D) { return (D + SLICE - 1) / SLICE; }
+__host__ __device__ constexpr int staged_d(int D) { return D < SLICE ? D : SLICE; }
+__device__ __forceinline__ int slice_width(int D, int s) { return min(SLICE, D - s * SLICE); }
+
+// L[m][n] = sum_k A[m][k] * B[n][k] for an (M x N) tile, accumulated over
+// slices of d; A and B row-major in shared memory.
+template <typename T, int M, int N>
+struct TileAcc;
+
+// bf16: each warp owns one 16-row group and FPW 16-column groups of WMMA
+// fragments
 template <int M, int N>
-__device__ __forceinline__ void logits_tile(const bf16* A, int lda, const bf16* B, int ldb,
-                                            float* L, int ldl, int D) {
-  constexpr int FPW = (M / 16) * (N / 16) / (THREADS / 32);
-  constexpr int WPM = (N / 16) / FPW;  // warps per 16-row group
+struct TileAcc<bf16, M, N> {
+  static constexpr int FPW = (M / 16) * (N / 16) / (THREADS / 32);
+  static constexpr int WPM = (N / 16) / FPW;  // warps per 16-row group
   static_assert(FPW >= 1 && (N / 16) % FPW == 0, "tile does not split over 8 warps");
-  const int warp = threadIdx.x >> 5;
-  const int fm = warp / WPM, fn0 = (warp % WPM) * FPW;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[FPW];
+
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-  for (int f = 0; f < FPW; ++f) wmma::fill_fragment(c[f], 0.f);
-  for (int k = 0; k < D; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, A + fm * 16 * lda + k, lda);
+    for (int f = 0; f < FPW; ++f) wmma::fill_fragment(c[f], 0.f);
+  }
+
+  __device__ __forceinline__ void add(const bf16* A, int lda, const bf16* B, int ldb, int K) {
+    const int warp = threadIdx.x >> 5;
+    const int fm = warp / WPM, fn0 = (warp % WPM) * FPW;
+    for (int k = 0; k < K; k += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, A + fm * 16 * lda + k, lda);
 #pragma unroll
-    for (int f = 0; f < FPW; ++f) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(b, B + (fn0 + f) * 16 * ldb + k, ldb);
-      wmma::mma_sync(c[f], a, b, c[f]);
+      for (int f = 0; f < FPW; ++f) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        wmma::load_matrix_sync(b, B + (fn0 + f) * 16 * ldb + k, ldb);
+        wmma::mma_sync(c[f], a, b, c[f]);
+      }
     }
   }
+
+  __device__ __forceinline__ void store(float* L, int ldl) const {
+    const int warp = threadIdx.x >> 5;
+    const int fm = warp / WPM, fn0 = (warp % WPM) * FPW;
 #pragma unroll
-  for (int f = 0; f < FPW; ++f)
-    wmma::store_matrix_sync(L + fm * 16 * ldl + (fn0 + f) * 16, c[f], ldl, wmma::mem_row_major);
-}
+    for (int f = 0; f < FPW; ++f)
+      wmma::store_matrix_sync(L + fm * 16 * ldl + (fn0 + f) * 16, c[f], ldl, wmma::mem_row_major);
+  }
+};
 
 // f32: thread t owns column t % N of rows t / N + (256 / N) * i
 template <int M, int N>
-__device__ __forceinline__ void logits_tile(const float* A, int lda, const float* B, int ldb,
-                                            float* L, int ldl, int D) {
-  constexpr int OPT = M * N / THREADS;
-  constexpr int RSTEP = THREADS / N;
-  const int n = threadIdx.x % N, m0 = threadIdx.x / N;
+struct TileAcc<float, M, N> {
+  static constexpr int OPT = M * N / THREADS;
+  static constexpr int RSTEP = THREADS / N;
   float acc[OPT];
+
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-  for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
-  for (int k = 0; k < D; ++k) {
-    const float b = B[n * ldb + k];
-#pragma unroll
-    for (int i = 0; i < OPT; ++i) acc[i] = fmaf(A[(m0 + RSTEP * i) * lda + k], b, acc[i]);
+    for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
   }
+
+  __device__ __forceinline__ void add(const float* A, int lda, const float* B, int ldb, int K) {
+    const int n = threadIdx.x % N, m0 = threadIdx.x / N;
+    for (int k = 0; k < K; ++k) {
+      const float b = B[n * ldb + k];
 #pragma unroll
-  for (int i = 0; i < OPT; ++i) L[(m0 + RSTEP * i) * ldl + n] = acc[i];
+      for (int i = 0; i < OPT; ++i) acc[i] = fmaf(A[(m0 + RSTEP * i) * lda + k], b, acc[i]);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* L, int ldl) const {
+    const int n = threadIdx.x % N, m0 = threadIdx.x / N;
+#pragma unroll
+    for (int i = 0; i < OPT; ++i) L[(m0 + RSTEP * i) * ldl + n] = acc[i];
+  }
+};
+
+// The (M x N) logits tile A[a0 : a0 + M] . B[b0 : b0 + N]^T of two (rows, D)
+// operands into L, over ns d-slices. With one d-slice the caller keeps one operand resident
+// (A where a_resident, else B) and this stages the other; with more, both
+// are staged slice by slice, in the order that ends on slice `last`, so
+// that As and Bs hold that slice afterwards. Starts with a barrier: every
+// reader of As, Bs and L is done when it stages or stores.
+template <typename T, int M, int N>
+__device__ __forceinline__ void logits_tile(T* As, const T* A, int a0, int a_rows, T* Bs,
+                                            const T* B, int b0, int b_rows, bool a_resident,
+                                            int ld, int D, int ns, int last, float* L, int ldl) {
+  TileAcc<T, M, N> acc;
+  acc.zero();
+  for (int i = 0; i < ns; ++i) {
+    const int sl = (last + 1 + i) % ns, c0 = sl * SLICE, K = slice_width(D, sl);
+    __syncthreads();
+    if (ns > 1 || !a_resident) stage_rows(As, ld, A, a0, M, a_rows, D, c0, K);
+    if (ns > 1 || a_resident) stage_rows(Bs, ld, B, b0, N, b_rows, D, c0, K);
+    __syncthreads();
+    acc.add(As, ld, Bs, ld, K);
+  }
+  acc.store(L, ldl);
 }
 
-// A block's (RES x D) f32 gradient, D <= 512: += P (RES x K) @ B (K x D),
+// A block's (RES x D) f32 gradient slice, D <= 512: += P (RES x K) @ B (K x D),
 // P row-major, or stored transposed as [K][RES] (TRANS); B row-major.
 template <typename T>
 struct Acc;
@@ -256,8 +317,9 @@ struct CE {
   int R, D, V;
 };
 
+// row stride of a staged operand slice
 template <typename T>
-__host__ __device__ constexpr int ld_op(int D) { return D + pad<T>(); }
+__host__ __device__ constexpr int ld_op(int D) { return staged_d(D) + pad<T>(); }
 
 // shared-memory layout of the forward and dh kernels: Hs [RES][ld],
 // Ws [STR][ld], Ls [RES][STR + 8] f32, Ps [RES][STR + 8] (dh only)
@@ -278,8 +340,12 @@ __host__ __device__ constexpr size_t vocab_smem(int D) {
          round128((size_t)STR * LDR * sizeof(float)) + (size_t)STR * LDR * sizeof(T);
 }
 
+// Each kernel is built twice: SLICED = false for D <= 512 (one slice, a
+// compile-time constant, so the flagship's code is the one-operand-resident
+// loop with nothing added), SLICED = true beyond.
+
 // ---- forward: one block per (32 rows, vocab split) ----
-template <typename T>
+template <typename T, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_fwd_kernel(CE a, int tiles_per_split, float* __restrict__ partials,
               float* __restrict__ label_logit) {
@@ -293,7 +359,10 @@ ce_fwd_kernel(CE a, int tiles_per_split, float* __restrict__ partials,
 
   const int r0 = blockIdx.x * RES, split = blockIdx.y, nsplit = gridDim.y;
   const int t0 = split * tiles_per_split, t1 = min(t0 + tiles_per_split, a.V / STR);
-  stage_rows(Hs, ld, static_cast<const T*>(a.h), r0, RES, a.R, a.D);
+  const T* h = static_cast<const T*>(a.h);
+  const T* w = static_cast<const T*>(a.w);
+  const int ns = SLICED ? num_slices(a.D) : 1;
+  if (!SLICED) stage_rows(Hs, ld, h, r0, RES, a.R, a.D, 0, a.D);
 
   // 8 threads a row; thread q of a row owns columns q + 8 c of each tile
   const int m = threadIdx.x >> 3, q = threadIdx.x & 7, row = r0 + m;
@@ -301,10 +370,7 @@ ce_fwd_kernel(CE a, int tiles_per_split, float* __restrict__ partials,
   float run_m = -INFINITY, run_se = 0.f;
   for (int t = t0; t < t1; ++t) {
     const int v0 = t * STR;
-    __syncthreads();  // the last tile's readers of Ws and Ls are done
-    stage_rows(Ws, ld, static_cast<const T*>(a.w), v0, STR, a.V, a.D);
-    __syncthreads();
-    logits_tile<RES, STR>(Hs, ld, Ws, ld, Ls, LDT, a.D);
+    logits_tile<T, RES, STR>(Hs, h, r0, a.R, Ws, w, v0, a.V, true, ld, a.D, ns, ns - 1, Ls, LDT);
     __syncthreads();
     float x[STR / 8];
     float tmax = -INFINITY;
@@ -352,8 +418,8 @@ ce_merge_kernel(const float* __restrict__ partials, const float* __restrict__ la
   loss[row] = l - ((y >= 0 && y < V) ? label_logit[row] : 0.f);
 }
 
-// ---- dh: one block per (32 rows, vocab split); a partial dh per split ----
-template <typename T>
+// ---- dh: one block per (32 rows, vocab split, d-slice); a partial dh per split ----
+template <typename T, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_dh_kernel(CE a, int tiles_per_split, int rows_pad, float* __restrict__ dh_part) {
   constexpr int LDT = STR + 8;
@@ -366,9 +432,13 @@ ce_dh_kernel(CE a, int tiles_per_split, int rows_pad, float* __restrict__ dh_par
   T* Ps = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ls) +
                                round128((size_t)RES * LDT * sizeof(float)));
 
-  const int r0 = blockIdx.x * RES, split = blockIdx.y;
+  // blockIdx.z: the d-slice of dh this block writes
+  const int r0 = blockIdx.x * RES, split = blockIdx.y, out = SLICED ? blockIdx.z : 0;
   const int t0 = split * tiles_per_split, t1 = min(t0 + tiles_per_split, a.V / STR);
-  stage_rows(Hs, ld, static_cast<const T*>(a.h), r0, RES, a.R, a.D);
+  const T* h = static_cast<const T*>(a.h);
+  const T* w = static_cast<const T*>(a.w);
+  const int ns = SLICED ? num_slices(a.D) : 1, K_out = SLICED ? slice_width(a.D, out) : a.D;
+  if (!SLICED) stage_rows(Hs, ld, h, r0, RES, a.R, a.D, 0, a.D);
 
   const int m = threadIdx.x >> 3, q = threadIdx.x & 7, row = r0 + m;
   const bool valid = row < a.R;
@@ -378,10 +448,8 @@ ce_dh_kernel(CE a, int tiles_per_split, int rows_pad, float* __restrict__ dh_par
   acc.zero();
   for (int t = t0; t < t1; ++t) {
     const int v0 = t * STR;
-    __syncthreads();  // the last tile's readers of Ws, Ls and Ps are done
-    stage_rows(Ws, ld, static_cast<const T*>(a.w), v0, STR, a.V, a.D);
-    __syncthreads();
-    logits_tile<RES, STR>(Hs, ld, Ws, ld, Ls, LDT, a.D);
+    // ends on slice `out`: Ws holds W[v0 : v0 + STR, out slice] below
+    logits_tile<T, RES, STR>(Hs, h, r0, a.R, Ws, w, v0, a.V, true, ld, a.D, ns, out, Ls, LDT);
     __syncthreads();
 #pragma unroll
     for (int c = 0; c < STR / 8; ++c) {
@@ -394,9 +462,9 @@ ce_dh_kernel(CE a, int tiles_per_split, int rows_pad, float* __restrict__ dh_par
       Ps[m * LDT + n] = from_f32<T>(d);
     }
     __syncthreads();
-    acc.template accumulate<false>(Ps, LDT, Ws, ld, STR, a.D);
+    acc.template accumulate<false>(Ps, LDT, Ws, ld, STR, K_out);
   }
-  acc.store(dh_part + ((size_t)split * rows_pad + r0) * a.D, a.D, a.D);
+  acc.store(dh_part + ((size_t)split * rows_pad + r0) * a.D + out * SLICE, a.D, K_out);
 }
 
 // dh = the splits' partials added in split order
@@ -417,8 +485,8 @@ ce_sum_kernel(const float4* __restrict__ part, int nsplit, size_t split_stride4,
   }
 }
 
-// ---- dW and dbias: one block per 32 vocab ids, a loop over the rows ----
-template <typename T>
+// ---- dW and dbias: one block per (32 vocab ids, d-slice), a loop over the rows ----
+template <typename T, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_dw_kernel(CE a, float* __restrict__ dw, float* __restrict__ db) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -430,8 +498,12 @@ ce_dw_kernel(CE a, float* __restrict__ dw, float* __restrict__ db) {
   T* Ps = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(Ls) +
                                round128((size_t)STR * LDR * sizeof(float)));
 
-  const int v0 = blockIdx.x * RES;
-  stage_rows(Ws, ld, static_cast<const T*>(a.w), v0, RES, a.V, a.D);
+  // blockIdx.y: the d-slice of dW this block writes
+  const int v0 = blockIdx.x * RES, out = SLICED ? blockIdx.y : 0;
+  const T* h = static_cast<const T*>(a.h);
+  const T* w = static_cast<const T*>(a.w);
+  const int ns = SLICED ? num_slices(a.D) : 1, K_out = SLICED ? slice_width(a.D, out) : a.D;
+  if (!SLICED) stage_rows(Ws, ld, w, v0, RES, a.V, a.D, 0, a.D);
 
   // thread t owns vocab id v0 + t % 32 of rows t / 32 + 8 i of each tile
   const int n = threadIdx.x & 31, m0 = threadIdx.x >> 5, v = v0 + n;
@@ -440,10 +512,8 @@ ce_dw_kernel(CE a, float* __restrict__ dw, float* __restrict__ db) {
   Acc<T> acc;
   acc.zero();
   for (int r0 = 0; r0 < a.R; r0 += STR) {
-    __syncthreads();  // the last tile's readers of Hs, Ls and Ps are done
-    stage_rows(Hs, ld, static_cast<const T*>(a.h), r0, STR, a.R, a.D);
-    __syncthreads();
-    logits_tile<STR, RES>(Hs, ld, Ws, ld, Ls, LDR, a.D);
+    // ends on slice `out`: Hs holds h[r0 : r0 + STR, out slice] below
+    logits_tile<T, STR, RES>(Hs, h, r0, a.R, Ws, w, v0, a.V, false, ld, a.D, ns, out, Ls, LDR);
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < STR / 8; ++i) {
@@ -457,15 +527,15 @@ ce_dw_kernel(CE a, float* __restrict__ dw, float* __restrict__ db) {
       Ps[mm * LDR + n] = from_f32<T>(d);
     }
     __syncthreads();
-    acc.template accumulate<true>(Ps, LDR, Hs, ld, STR, a.D);
+    acc.template accumulate<true>(Ps, LDR, Hs, ld, STR, K_out);
   }
-  acc.store(dw + (size_t)v0 * a.D, a.D, a.D);
+  acc.store(dw + (size_t)v0 * a.D + out * SLICE, a.D, K_out);
   __syncthreads();  // Ls is free: fold dbias over the 8 warps in order
   Ls[m0 * RES + n] = dbias;
   __syncthreads();
-  if (threadIdx.x < RES) {
+  if (out == 0 && threadIdx.x < RES) {  // every d-slice block computes the same dbias
     float s = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) s += Ls[w * RES + threadIdx.x];
+    for (int wp = 0; wp < THREADS / 32; ++wp) s += Ls[wp * RES + threadIdx.x];
     db[v0 + threadIdx.x] = s;
   }
 }
@@ -476,20 +546,20 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 bool shape_ok(int R, int D, int V, int dtype) {
-  return R > 0 && D > 0 && D % 128 == 0 && D <= MAX_D && V > 0 && V % STR == 0 && V % RES == 0 &&
+  return R > 0 && D > 0 && D % 128 == 0 && V > 0 && V % STR == 0 && V % RES == 0 &&
          (dtype == kBF16 || dtype == kF32);
 }
 
-template <typename T>
+template <typename T, bool SLICED>
 cudaError_t launch_fwd(const CE& a, int splits, float* partials, float* label_logit,
                        float* loss, float* lse, cudaStream_t s) {
   const int ntiles = a.V / STR;
   const int per = (ntiles + splits - 1) / splits;
   const size_t smem = rows_smem<T>(a.D, false);
-  cudaError_t err = allow_smem(ce_fwd_kernel<T>, smem);
+  cudaError_t err = allow_smem(ce_fwd_kernel<T, SLICED>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.R + RES - 1) / RES, splits);
-  ce_fwd_kernel<T><<<grid, THREADS, smem, s>>>(a, per, partials, label_logit);
+  ce_fwd_kernel<T, SLICED><<<grid, THREADS, smem, s>>>(a, per, partials, label_logit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ce_merge_kernel<<<(a.R + THREADS - 1) / THREADS, THREADS, 0, s>>>(
@@ -497,16 +567,16 @@ cudaError_t launch_fwd(const CE& a, int splits, float* partials, float* label_lo
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SLICED>
 cudaError_t launch_dh(const CE& a, int splits, float* partials, float* dh, cudaStream_t s) {
   const int ntiles = a.V / STR;
   const int per = (ntiles + splits - 1) / splits;
   const int rows_pad = (a.R + RES - 1) / RES * RES;
   const size_t smem = rows_smem<T>(a.D, true);
-  cudaError_t err = allow_smem(ce_dh_kernel<T>, smem);
+  cudaError_t err = allow_smem(ce_dh_kernel<T, SLICED>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(rows_pad / RES, splits);
-  ce_dh_kernel<T><<<grid, THREADS, smem, s>>>(a, per, rows_pad, partials);
+  const dim3 grid(rows_pad / RES, splits, num_slices(a.D));
+  ce_dh_kernel<T, SLICED><<<grid, THREADS, smem, s>>>(a, per, rows_pad, partials);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n4 = (size_t)a.R * a.D / 4;
@@ -517,12 +587,12 @@ cudaError_t launch_dh(const CE& a, int splits, float* partials, float* dh, cudaS
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SLICED>
 cudaError_t launch_dw(const CE& a, float* dw, float* db, cudaStream_t s) {
   const size_t smem = vocab_smem<T>(a.D);
-  cudaError_t err = allow_smem(ce_dw_kernel<T>, smem);
+  cudaError_t err = allow_smem(ce_dw_kernel<T, SLICED>, smem);
   if (err != cudaSuccess) return err;
-  ce_dw_kernel<T><<<a.V / RES, THREADS, smem, s>>>(a, dw, db);
+  ce_dw_kernel<T, SLICED><<<dim3(a.V / RES, num_slices(a.D)), THREADS, smem, s>>>(a, dw, db);
   return cudaGetLastError();
 }
 
@@ -539,11 +609,13 @@ extern "C" int fused_ce_fwd(const void* h, const void* w, const void* bias, cons
   if (!shape_ok(R, D, V, dtype) || splits < 1) return cudaErrorInvalidValue;
   const CE a{h, w, (const float*)bias, (const int*)labels, nullptr, nullptr, R, D, V};
   cudaStream_t s = (cudaStream_t)stream;
+  float *p = (float*)partials, *ll = (float*)label_logit, *lo = (float*)loss, *ls = (float*)lse;
+  const bool sliced = num_slices(D) > 1;
   if (dtype == kBF16)
-    return launch_fwd<bf16>(a, splits, (float*)partials, (float*)label_logit, (float*)loss,
-                            (float*)lse, s);
-  return launch_fwd<float>(a, splits, (float*)partials, (float*)label_logit, (float*)loss,
-                           (float*)lse, s);
+    return sliced ? launch_fwd<bf16, true>(a, splits, p, ll, lo, ls, s)
+                  : launch_fwd<bf16, false>(a, splits, p, ll, lo, ls, s);
+  return sliced ? launch_fwd<float, true>(a, splits, p, ll, lo, ls, s)
+                : launch_fwd<float, false>(a, splits, p, ll, lo, ls, s);
 }
 
 // lse and g (R,) f32; dh (R, D) f32; partials (splits, round_up(R, 32), D)
@@ -557,8 +629,12 @@ extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* bias,
   const CE a{h, w, (const float*)bias, (const int*)labels, (const float*)lse, (const float*)g,
              R, D, V};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kBF16) return launch_dh<bf16>(a, splits, (float*)partials, (float*)dh, s);
-  return launch_dh<float>(a, splits, (float*)partials, (float*)dh, s);
+  const bool sliced = num_slices(D) > 1;
+  if (dtype == kBF16)
+    return sliced ? launch_dh<bf16, true>(a, splits, (float*)partials, (float*)dh, s)
+                  : launch_dh<bf16, false>(a, splits, (float*)partials, (float*)dh, s);
+  return sliced ? launch_dh<float, true>(a, splits, (float*)partials, (float*)dh, s)
+                : launch_dh<float, false>(a, splits, (float*)partials, (float*)dh, s);
 }
 
 // dw (V, D) f32 and db (V,) f32
@@ -570,6 +646,10 @@ extern "C" int fused_ce_bwd_dw(const void* h, const void* w, const void* bias,
   const CE a{h, w, (const float*)bias, (const int*)labels, (const float*)lse, (const float*)g,
              R, D, V};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kBF16) return launch_dw<bf16>(a, (float*)dw, (float*)db, s);
-  return launch_dw<float>(a, (float*)dw, (float*)db, s);
+  const bool sliced = num_slices(D) > 1;
+  if (dtype == kBF16)
+    return sliced ? launch_dw<bf16, true>(a, (float*)dw, (float*)db, s)
+                  : launch_dw<bf16, false>(a, (float*)dw, (float*)db, s);
+  return sliced ? launch_dw<float, true>(a, (float*)dw, (float*)db, s)
+                : launch_dw<float, false>(a, (float*)dw, (float*)db, s);
 }

@@ -22,7 +22,10 @@
 //      tile of h (h is small and stays in L2). A tile's logits come from
 //      bf16 WMMA (16x16x16, f32 accumulate) into shared memory; one warp per
 //      row then folds the tile into five partials per (row, chunk): best y,
-//      its id, the logit at that id, the max logit and the sum-exp.
+//      its id, the logit at that id, the max logit and the sum-exp. Where
+//      the chunk's (64, D) slice of W does not fit shared memory (D > 768),
+//      the block stages it 512 columns of d at a time for every row tile and
+//      accumulates the tile's logits across the slices.
 //   2. proj_merge_kernel: one warp per row merges the chunk partials with
 //      the same (y desc, id asc) order, so ties go to the lowest id, and the
 //      online max/sum-exp rule.
@@ -66,67 +69,112 @@ __device__ __forceinline__ float uniform24(uint32_t bits) {
   return (float)(bits >> 8) * (1.0f / 16777216.0f);
 }
 
+constexpr int MAX_RESIDENT_D = 768;  // all of d of a W chunk in shared memory (f32: 197 KB)
+constexpr int SLICE = 512;            // d columns a staged slice holds beyond that
+
+// d columns of the staged W chunk: all of D, or a slice
+__host__ __device__ constexpr int staged_d(int D) { return D <= MAX_RESIDENT_D ? D : SLICE; }
+
 // shared-memory row stride of the W chunk: padded so that the tile loads
 // spread over the banks (a multiple of 8 elements for WMMA)
 template <typename T>
-__host__ __device__ constexpr int w_stride(int D) {
-  return sizeof(T) == 2 ? D + 8 : D + 1;
+__host__ __device__ constexpr int w_stride(int DC) {
+  return sizeof(T) == 2 ? DC + 8 : DC + 1;
 }
 
 // bytes of the W chunk, rounded up to 128 so that Ls stays aligned for WMMA
 template <typename T>
-__host__ __device__ constexpr size_t w_bytes(int D) {
-  return ((size_t)VC * w_stride<T>(D) * sizeof(T) + 127) / 128 * 128;
+__host__ __device__ constexpr size_t w_bytes(int DC) {
+  return ((size_t)VC * w_stride<T>(DC) * sizeof(T) + 127) / 128 * 128;
 }
 
-// logits tile Ls[RT][VC] = h[r0 : r0 + RT] @ Ws^T, bf16 on the tensor cores
-__device__ __forceinline__ void logits_tile(const bf16* h, const bf16* Ws,
-                                            float* Ls, int r0, int D) {
-  const int ldw = w_stride<bf16>(D);
-  const int warp = threadIdx.x >> 5;
-  const int rw = warp >> 1;        // 16-row group of the tile
-  const int cw0 = (warp & 1) * 2;  // first of two 16-column groups
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
-  wmma::fill_fragment(c0, 0.f);
-  wmma::fill_fragment(c1, 0.f);
-  const bf16* ha = h + (size_t)(r0 + rw * 16) * D;
-  for (int k0 = 0; k0 < D; k0 += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
-    wmma::load_matrix_sync(a, ha + k0, D);
-    wmma::load_matrix_sync(b0, Ws + (cw0 * 16) * ldw + k0, ldw);
-    wmma::load_matrix_sync(b1, Ws + ((cw0 + 1) * 16) * ldw + k0, ldw);
-    wmma::mma_sync(c0, a, b0, c0);
-    wmma::mma_sync(c1, a, b1, c1);
+// Ws[r][c] = w[v0 + r][c0 + c] for the chunk's VC rows, K columns of d
+template <typename T>
+__device__ __forceinline__ void stage_w(T* Ws, int ldw, const T* __restrict__ w, int v0, int c0,
+                                        int K, int D) {
+  for (int e = threadIdx.x; e < VC * K; e += THREADS) {
+    const int r = e / K, c = e % K;
+    Ws[r * ldw + c] = w[(size_t)(v0 + r) * D + c0 + c];
   }
-  __syncthreads();  // the previous tile's epilogue has read Ls
-  wmma::store_matrix_sync(Ls + (rw * 16) * VC + cw0 * 16, c0, VC, wmma::mem_row_major);
-  wmma::store_matrix_sync(Ls + (rw * 16) * VC + (cw0 + 1) * 16, c1, VC, wmma::mem_row_major);
 }
 
-// the f32 tile on the CUDA cores (f32 inputs make the card checks exact)
-__device__ __forceinline__ void logits_tile(const float* h, const float* Ws,
-                                            float* Ls, int r0, int D) {
-  const int ldw = w_stride<float>(D);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4] = {};
-  for (int k = 0; k < D; ++k) {
-    float hv[4], wv[4];
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) hv[rr] = h[(size_t)(r0 + ty + 16 * rr) * D + k];
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) wv[cc] = Ws[(tx + 16 * cc) * ldw + k];
+// a tile's logits h[r0 : r0 + RT] @ Ws^T, accumulated over slices of d
+template <typename T>
+struct TileLogits;
+
+// bf16 on the tensor cores: warp w owns 16-row group w / 2 and two
+// 16-column groups
+template <>
+struct TileLogits<bf16> {
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
+
+  __device__ __forceinline__ void zero() {
+    wmma::fill_fragment(c0, 0.f);
+    wmma::fill_fragment(c1, 0.f);
+  }
+
+  // += h[r0 : r0 + RT, col0 : col0 + K] @ Ws[:, :K]^T; h has row stride D
+  __device__ __forceinline__ void add(const bf16* h, const bf16* Ws, int r0, int col0, int K,
+                                      int D, int ldw) {
+    const int warp = threadIdx.x >> 5;
+    const int rw = warp >> 1, cw0 = (warp & 1) * 2;
+    const bf16* ha = h + (size_t)(r0 + rw * 16) * D + col0;
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
+      wmma::load_matrix_sync(a, ha + k0, D);
+      wmma::load_matrix_sync(b0, Ws + (cw0 * 16) * ldw + k0, ldw);
+      wmma::load_matrix_sync(b1, Ws + ((cw0 + 1) * 16) * ldw + k0, ldw);
+      wmma::mma_sync(c0, a, b0, c0);
+      wmma::mma_sync(c1, a, b1, c1);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* Ls) const {
+    const int warp = threadIdx.x >> 5;
+    const int rw = warp >> 1, cw0 = (warp & 1) * 2;
+    wmma::store_matrix_sync(Ls + (rw * 16) * VC + cw0 * 16, c0, VC, wmma::mem_row_major);
+    wmma::store_matrix_sync(Ls + (rw * 16) * VC + (cw0 + 1) * 16, c1, VC, wmma::mem_row_major);
+  }
+};
+
+// f32 on the CUDA cores (f32 inputs make the card checks exact): thread t
+// owns columns t % 16 + 16 c of rows t / 16 + 16 r
+template <>
+struct TileLogits<float> {
+  float acc[4][4];
+
+  __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) acc[rr][cc] = fmaf(hv[rr], wv[cc], acc[rr][cc]);
+      for (int cc = 0; cc < 4; ++cc) acc[rr][cc] = 0.f;
   }
-  __syncthreads();  // the previous tile's epilogue has read Ls
+
+  __device__ __forceinline__ void add(const float* h, const float* Ws, int r0, int col0, int K,
+                                      int D, int ldw) {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+    for (int k = 0; k < K; ++k) {
+      float hv[4], wv[4];
 #pragma unroll
-  for (int rr = 0; rr < 4; ++rr)
+      for (int rr = 0; rr < 4; ++rr) hv[rr] = h[(size_t)(r0 + ty + 16 * rr) * D + col0 + k];
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) Ls[(ty + 16 * rr) * VC + tx + 16 * cc] = acc[rr][cc];
-}
+      for (int cc = 0; cc < 4; ++cc) wv[cc] = Ws[(tx + 16 * cc) * ldw + k];
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) acc[rr][cc] = fmaf(hv[rr], wv[cc], acc[rr][cc]);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* Ls) const {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) Ls[(ty + 16 * rr) * VC + tx + 16 * cc] = acc[rr][cc];
+  }
+};
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -136,25 +184,36 @@ proj_partials_kernel(const T* __restrict__ h, const T* __restrict__ w,
                      float* __restrict__ partials, int rows, int rows_pad,
                      int D, int V, float inv_temp, uint2 key) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int ldw = w_stride<T>(D);
-  T* Ws = reinterpret_cast<T*>(smem_raw);                   // [VC][ldw]
-  float* Ls = reinterpret_cast<float*>(smem_raw + w_bytes<T>(D));  // [RT][VC]
+  const int DC = staged_d(D);
+  const int ldw = w_stride<T>(DC);
+  T* Ws = reinterpret_cast<T*>(smem_raw);                           // [VC][ldw]
+  float* Ls = reinterpret_cast<float*>(smem_raw + w_bytes<T>(DC));  // [RT][VC]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int chunk = blockIdx.x;
   const int nchunks = V / VC;
   const int v0 = chunk * VC;
+  const bool resident = DC == D;
 
-  // this block's W chunk: VC contiguous rows of the (V, D) weight
-  for (int e = tid; e < VC * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    Ws[r * ldw + c] = w[(size_t)(v0 + r) * D + c];
-  }
-  __syncthreads();
+  // this block's W chunk: VC contiguous rows of the (V, D) weight, all of d
+  // once, or slice by slice for every row tile below
+  if (resident) stage_w(Ws, ldw, w, v0, 0, D, D);
 
   for (int r0 = 0; r0 < rows_pad; r0 += RT) {
-    logits_tile(h, Ws, Ls, r0, D);
+    TileLogits<T> tile;
+    tile.zero();
+    for (int c0 = 0; c0 < D; c0 += DC) {
+      const int K = min(DC, D - c0);
+      if (!resident || r0 == 0) {
+        __syncthreads();  // the last slice's readers of Ws are done
+        if (!resident) stage_w(Ws, ldw, w, v0, c0, K, D);
+        __syncthreads();
+      }
+      tile.add(h, Ws, r0, c0, K, D, ldw);
+    }
+    __syncthreads();  // the previous tile's epilogue has read Ls
+    tile.store(Ls);
     __syncthreads();
 
     for (int rl = warp * 8; rl < warp * 8 + 8; ++rl) {
@@ -244,7 +303,7 @@ template <typename T>
 cudaError_t launch_partials(const void* h, const void* w, const void* bias,
                             const void* noise, void* partials, int rows, int D,
                             int V, float inv_temp, uint2 key, cudaStream_t s) {
-  const size_t smem = w_bytes<T>(D) + sizeof(float) * RT * VC;
+  const size_t smem = w_bytes<T>(staged_d(D)) + sizeof(float) * RT * VC;
   cudaError_t err = cudaFuncSetAttribute(
       proj_partials_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

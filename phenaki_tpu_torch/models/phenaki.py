@@ -1,12 +1,13 @@
-"""Phenaki: text-to-video sampling and the MaskGit training loss
+"""Phenaki: text-to-video sampling and the MaskGit + critic training loss
 (counterpart of phenaki_tpu/models/phenaki.py: `Phenaki.sample` without
-prime frames or a critic, and `Phenaki.loss` for the generator on
-pre-tokenized video ids; text comes in as `text_embeds`).
+prime frames, and `Phenaki.loss` on pre-tokenized video ids; text comes in
+as `text_embeds`).
 
 A sample: pad the text embeddings to `max_text_len` (text mask = rows that
 are not all zero) -> the MaskGit 3-D position bias, computed once -> the
-18-step decode loop (CFG in embedding space, `to_logits` feeding the fused
-projection-sampling kernel) -> C-ViViT decode of the ids to video.
+18-step decode loop (CFG in embedding space, `to_logits` feeding the
+projection sampler; with a critic, the critic's CFG-combined logits score
+the tokens for the re-mask) -> C-ViViT decode of the ids to video.
 
 The loss: a random step per sample gives the cosine mask fraction, that
 many valid tokens are replaced by the mask id, and the masked tokens'
@@ -15,42 +16,68 @@ shape (`can_fuse_ce`, the flagship's d = 512, V = 65,536 among them) the
 MaskGit returns its final embeddings and `fused_vocab_cross_entropy` takes
 the CE with the `to_logits` projection, so the (b, n, V) logits are never
 materialised on the card; otherwise the logits are materialised and the CE
-is plain torch in f32, as in the TPU package's non-fused branch. Training
-a critic is not ported yet.
+is plain torch in f32, as in the TPU package's non-fused branch. With a
+critic (a TokenCritic, or the SelfCritic on the MaskGit's own trunk), the
+generator's sample of every token (the projection sampler on the detached
+embeddings under the fused CE, `gumbel_sample` on the f32 logits otherwise)
+replaces the masked tokens, and the critic learns by sigmoid BCE which
+tokens differ from the video's.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from phenaki_tpu_torch.models.cvivit import CViViT
-from phenaki_tpu_torch.models.maskgit import MaskGit
+from phenaki_tpu_torch.models.maskgit import MaskGit, SelfCritic, TokenCritic
 from phenaki_tpu_torch.models.sampling_loop import maskgit_sample_loop
 from phenaki_tpu_torch.ops.fused_ce import can_fuse_ce, fused_vocab_cross_entropy
-from phenaki_tpu_torch.ops.sampling import get_mask_subset_with_prob, uniform
-
-CRITIC_NOT_PORTED = ("critic training and sampling are not ported yet (ROADMAP A10, the next "
-                     "training slice)")
+from phenaki_tpu_torch.ops.fused_sampling import project_sample
+from phenaki_tpu_torch.ops.sampling import get_mask_subset_with_prob, gumbel_sample, uniform
 
 
 class Phenaki:
     def __init__(self, *, maskgit: MaskGit, cvivit: CViViT, text_embed_dim: int,
                  steps: int = 18, max_text_len: int = 128, cond_drop_prob: float = 0.25,
-                 critic: Optional[nn.Module] = None, self_token_critic: bool = False):
+                 critic: Optional[TokenCritic] = None, self_token_critic: bool = False,
+                 critic_loss_weight: float = 1.0, critic_noise_anneal_schedule: str = "decay",
+                 critic_train_sample_temperature: float = 1.0):
+        """`critic` is a TokenCritic, with cross-attention exactly when the
+        MaskGit is conditional; `self_token_critic` builds a SelfCritic on
+        the MaskGit's trunk instead (its head `to_pred` drawn by torch's
+        default init, on the MaskGit's device and dtype)."""
         if not cond_drop_prob > 0:
             raise ValueError("cond_drop_prob must be > 0")
+        if self_token_critic and critic is not None:
+            raise ValueError("give a critic or self_token_critic=True, not both")
+        if critic is not None and (not maskgit.unconditional) != critic.has_cross_attn:
+            raise ValueError("the critic has cross-attention exactly when the MaskGit is conditional")
+        if self_token_critic:
+            weight = maskgit.to_logits.weight
+            critic = SelfCritic(maskgit).to(device=weight.device, dtype=weight.dtype)
         self.maskgit = maskgit
         self.cvivit = cvivit.eval()
+        self.critic = critic
+        self.self_token_critic = self_token_critic
+        self.critic_loss_weight = critic_loss_weight
+        self.critic_noise_anneal_schedule = critic_noise_anneal_schedule
+        self.critic_train_sample_temperature = critic_train_sample_temperature
         self.steps = steps
         self.text_embed_dim = text_embed_dim
         self.max_text_len = max_text_len
         self.cond_drop_prob = cond_drop_prob
-        self.has_critic = critic is not None or self_token_critic
+
+    def parameters(self) -> Iterator[nn.Parameter]:
+        """The trainable parameters: the MaskGit's, then the critic's (a
+        SelfCritic's are its head's; its trunk is the MaskGit)."""
+        yield from self.maskgit.parameters()
+        if self.critic is not None:
+            yield from self.critic.parameters()
 
     def pad_text_embeds(self, emb: torch.Tensor) -> torch.Tensor:
         """(b, L, d) -> (b, max_text_len, d), zero-padded or truncated."""
@@ -64,22 +91,22 @@ class Phenaki:
     @torch.inference_mode()
     def sample(self, *, num_frames: int, text_embeds: Optional[torch.Tensor] = None,
                batch_size: int = 1, cond_scale: float = 3.0, starting_temperature: float = 0.9,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               noise_K: float = 1.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Text-to-video sampling: (b, num_frames, H, W, c) in the C-ViViT pixel
-        space. `generator` (a CPU torch.Generator) seeds the sampling noise."""
+        space. `generator` (a CPU torch.Generator) seeds the sampling noise;
+        `noise_K` scales the critic's score noise."""
         ids = self.sample_ids(num_frames=num_frames, text_embeds=text_embeds,
                               batch_size=batch_size, cond_scale=cond_scale,
-                              starting_temperature=starting_temperature, generator=generator)
+                              starting_temperature=starting_temperature, noise_K=noise_K,
+                              generator=generator)
         return self.cvivit.decode_from_codebook_indices(ids)
 
     @torch.inference_mode()
     def sample_ids(self, *, num_frames: int, text_embeds: Optional[torch.Tensor] = None,
                    batch_size: int = 1, cond_scale: float = 3.0,
-                   starting_temperature: float = 0.9,
+                   starting_temperature: float = 0.9, noise_K: float = 1.0,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """The decode loop of `sample`: video token ids (b, n) int64."""
-        if self.has_critic:
-            raise NotImplementedError(CRITIC_NOT_PORTED)
         self.maskgit.eval()
         dtype = self.maskgit.compute_dtype
         weight = self.maskgit.to_logits.weight
@@ -101,9 +128,20 @@ class Phenaki:
                 cond_scale=cond_scale, attn_bias=rel_pos_bias,
             )
 
+        critic_fn = None
+        if self.critic is not None:
+            self.critic.eval()
+            # the critic sees the text only where it can attend to it; a
+            # SelfCritic runs the MaskGit trunk and reuses its hoisted bias
+            has_text = context is not None and (self.self_token_critic or self.critic.has_cross_attn)
+            critic_kw = {"attn_bias": rel_pos_bias} if self.self_token_critic else {}
+
+            def critic_fn(ids):
+                return self.critic.forward_with_cond_scale(
+                    ids, video_patch_shape=patch_shape, context=context if has_text else None,
+                    text_mask=text_mask if has_text else None, cond_scale=cond_scale, **critic_kw)
+
         return maskgit_sample_loop(
-            embeds_fn,
-            (weight.to(dtype), self.maskgit.to_logits.bias),
             batch=batch_size,
             num_tokens_seq=num_tokens,
             mask_id=self.maskgit.mask_id,
@@ -111,6 +149,11 @@ class Phenaki:
             steps=self.steps,
             starting_temperature=starting_temperature,
             generator=generator,
+            critic_fn=critic_fn,
+            noise_K=noise_K,
+            critic_noise_anneal_schedule=self.critic_noise_anneal_schedule,
+            embeds_fn=embeds_fn,
+            vocab_proj=(weight.to(dtype), self.maskgit.to_logits.bias),
         )
 
     def _loss_draws(self, b: int, n: int, generator: Optional[torch.Generator], device):
@@ -120,19 +163,33 @@ class Phenaki:
         rand_step = torch.randint(0, self.steps, (b,), generator=generator, device=gen_device)
         return rand_step.to(device), uniform((b, n), generator, device)
 
+    def _critic_sample_noise(self, b: int, n: int, v: int, generator: Optional[torch.Generator],
+                             device) -> Optional[torch.Tensor]:
+        """The uniforms (b, n, V) of the critic branch's generator sample, or
+        None: the sampler then draws its own from `generator` (a seed on the
+        card, the uniforms on the CPU)."""
+        return None
+
     def loss(self, *, video_codebook_ids: torch.Tensor, text_embeds: Optional[torch.Tensor] = None,
              video_frame_mask: Optional[torch.Tensor] = None,
-             cond_drop_prob: Optional[float] = None, train: bool = True,
+             cond_drop_prob: Optional[float] = None, only_train_generator: bool = False,
+             only_train_critic: bool = False, train: bool = True,
              generator: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Masked-token cross-entropy of the generator: (loss, metrics).
+        """Masked-token cross-entropy of the generator, plus the critic's BCE
+        when there is a critic: (loss, metrics) with metrics `maskgit_loss`,
+        `critic_loss` (with a critic) and `loss`.
 
         video_codebook_ids (b, t, h, w) int; text_embeds (b, L, d) with
         all-zero rows as padding; video_frame_mask (b, f) bool. Every random
-        draw (step, mask subset, conditioning dropout) comes from
-        `generator`; `train` turns conditioning, attention and FF dropout on."""
-        if self.has_critic:
-            raise NotImplementedError(CRITIC_NOT_PORTED)
+        draw comes from `generator`, in this order: the step, the mask
+        subset, the MaskGit's conditioning dropout, the generator's sample
+        for the critic, the critic's conditioning dropout. `train` turns
+        conditioning, attention and FF dropout on. `only_train_generator`
+        leaves the critic out; `only_train_critic` detaches the generator's
+        output and makes the loss the critic's alone."""
+        if only_train_generator and only_train_critic:
+            raise ValueError("only_train_generator and only_train_critic exclude each other")
         if text_embeds is None and not self.maskgit.unconditional:
             raise ValueError("text embeds must be given unless unconditional")
         if video_codebook_ids.ndim != 4:
@@ -147,6 +204,7 @@ class Phenaki:
             text_embeds = text_embeds.to(device)
             text_mask = (text_embeds != 0).any(dim=-1)
             drop_prob = cond_drop_prob if cond_drop_prob is not None else self.cond_drop_prob
+        drop_prob = drop_prob if train else 0.0
 
         if video_frame_mask is not None:
             video_mask = self.cvivit.calculate_video_token_mask(video_frame_mask.to(device))
@@ -160,14 +218,45 @@ class Phenaki:
 
         self.maskgit.train(train)
         proj = self.maskgit.to_logits
+        weight, bias = proj.weight, proj.bias
         fuse_ce = can_fuse_ce(proj.in_features, proj.out_features)
         out = self.maskgit(masked_input.reshape(b, *patch_shape), video_mask=video_mask,
-                           cond_drop_prob=drop_prob if train else 0.0, text_mask=text_mask,
+                           cond_drop_prob=drop_prob, text_mask=text_mask,
                            context=text_embeds, return_embeds=fuse_ce, generator=generator)
+        if only_train_critic:
+            out = out.detach()
+            weight, bias = weight.detach(), bias.detach() if bias is not None else None
         if fuse_ce:
-            ce = fused_vocab_cross_entropy(out, proj.weight, proj.bias, ids).reshape(-1)
+            ce = fused_vocab_cross_entropy(out, weight, bias, ids).reshape(-1)
         else:
-            ce = F.cross_entropy(out.float().reshape(b * n, -1), ids.reshape(-1), reduction="none")
+            out = out.float()
+            ce = F.cross_entropy(out.reshape(b * n, -1), ids.reshape(-1), reduction="none")
         w = mask_token_mask.reshape(-1).float()
         gen_loss = (ce * w).sum() / w.sum().clamp_min(1.0)
-        return gen_loss, {"maskgit_loss": gen_loss, "loss": gen_loss}
+        metrics = {"maskgit_loss": gen_loss}
+        if self.critic is None or only_train_generator:
+            metrics["loss"] = gen_loss
+            return gen_loss, metrics
+
+        # the critic: which tokens did the generator's sample change?
+        temperature = self.critic_train_sample_temperature
+        sample_noise = self._critic_sample_noise(b, n, proj.out_features, generator, device)
+        if fuse_ce:
+            embeds = out.detach()
+            pred_ids, _ = project_sample(
+                embeds, weight.detach().to(embeds.dtype), bias.detach() if bias is not None else None,
+                temperature, generator=generator, noise=sample_noise)
+        else:
+            pred_ids = gumbel_sample(out.detach(), temperature, generator, noise=sample_noise)
+        critic_input = torch.where(mask_token_mask, pred_ids, ids).reshape(b, *patch_shape)
+        has_text = self.self_token_critic or self.critic.has_cross_attn
+        self.critic.train(train)
+        critic_logits = self.critic(
+            critic_input, video_mask=video_mask, cond_drop_prob=drop_prob,
+            text_mask=text_mask if has_text else None, context=text_embeds if has_text else None,
+            generator=generator).float()
+        critic_loss = F.binary_cross_entropy_with_logits(critic_logits, (ids != pred_ids).float())
+        metrics["critic_loss"] = critic_loss
+        loss = critic_loss if only_train_critic else gen_loss + critic_loss * self.critic_loss_weight
+        metrics["loss"] = loss
+        return loss, metrics

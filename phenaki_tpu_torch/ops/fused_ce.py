@@ -25,14 +25,15 @@ import torch
 
 from phenaki_tpu_torch import _build
 
-MAX_DIM = 512  # the kernels keep all of d in shared memory (csrc/fused_ce.cu MAX_D)
+MAX_DIM = 2432  # the TPU gate's VMEM bound; the kernels walk d in 512-wide slices past 512
 RESIDENT_ROWS = 32  # rows of h a forward / dh block holds (csrc/fused_ce.cu RES)
 VOCAB_TILE = 64  # vocab ids a forward / dh block takes a step (csrc/fused_ce.cu STR)
 
 
 def can_fuse_ce(d: int, v: int) -> bool:
-    """Shape gate, the TPU wrapper's (`d % 128 == 0`, a vocab of 512-wide
-    blocks) with the kernels' shared-memory bound on d."""
+    """Shape gate, the TPU wrapper's: `d % 128 == 0`, a vocab of 512-wide
+    blocks, and the d whose smallest TPU blocks fit its VMEM budget
+    (d <= 2432 at every vocab)."""
     return d % 128 == 0 and d <= MAX_DIM and v % 512 == 0 and v >= 512
 
 

@@ -23,10 +23,12 @@ def uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor
 
 
 def gumbel_sample(logits: torch.Tensor, temperature: float = 1.0,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Temperature-annealed gumbel-max sample over the last axis."""
+                  generator: Optional[torch.Generator] = None, *,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Temperature-annealed gumbel-max sample over the last axis; `noise`
+    (the logits' shape) replaces the uniforms drawn from `generator`."""
     logits = logits.float()
-    u = uniform(logits.shape, generator, logits.device)
+    u = uniform(logits.shape, generator, logits.device) if noise is None else noise.to(logits.device)
     return (logits / max(float(temperature), 1e-10) + gumbel(u)).argmax(dim=-1)
 
 

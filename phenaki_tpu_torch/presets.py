@@ -5,19 +5,24 @@ C-ViViT: dim 512, 256x128 frames, patch 16, temporal patch 2, spatial and
 temporal depth 4, 8 heads x 64, LFQ with 65,536 codes: 17 frames decode from
 9 latent frames x 16x8 = 1152 tokens. MaskGit: dim 512, depth 6, 8 x 64,
 vocab 65,536, max_seq_len 1152, dim_context 768 (t5-v1_1-base), max text
-length 128. Sampling: 18 steps.
+length 128. TokenCritic: the MaskGit trunk's shape with cross-attention and
+a scalar head. Sampling: 18 steps.
 
 `flagship_phenaki` builds the sampling model (bf16 weights);
 `flagship_train_phenaki` the training one: f32 parameters with bf16
 compute, as the TPU package's flagship trains (`dtype=jnp.bfloat16`).
+`critic=True` adds a TokenCritic, `self_token_critic=True` a SelfCritic on
+the MaskGit's trunk; the C-ViViT and MaskGit weights do not change with
+either (the critic's are drawn after them).
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from phenaki_tpu_torch.models.cvivit import CViViT
-from phenaki_tpu_torch.models.maskgit import MaskGit
+from phenaki_tpu_torch.models.maskgit import MaskGit, TokenCritic
 from phenaki_tpu_torch.models.phenaki import Phenaki
 from phenaki_tpu_torch.ops.torch_init import init_parameters
 
@@ -40,36 +45,52 @@ def flagship_maskgit(max_seq_len: int = 1152, **overrides) -> MaskGit:
     return MaskGit(**cfg)
 
 
+def flagship_token_critic(max_seq_len: int = 1152, **overrides) -> TokenCritic:
+    cfg = dict(dim=512, num_tokens=65536, max_seq_len=max_seq_len, depth=6, has_cross_attn=True,
+               dim_context=FLAGSHIP_TEXT_DIM, heads=8, dim_head=64)
+    cfg.update(overrides)
+    return TokenCritic(**cfg)
+
+
 def flagship_phenaki(seed: int = 0, *, device="cuda", dtype=torch.bfloat16,
-                     num_frames: int = FLAGSHIP_NUM_FRAMES, steps: int = 18) -> Phenaki:
+                     num_frames: int = FLAGSHIP_NUM_FRAMES, steps: int = 18, critic: bool = False,
+                     self_token_critic: bool = False) -> Phenaki:
     """The flagship Phenaki with seeded random weights on `device`.
 
     Weights are drawn in f32 on the CPU from `torch.Generator().manual_seed(seed)`
     (so a seed gives the same weights on every machine), then moved to
     `device` and `dtype`."""
-    return _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype=None)
+    return _seeded_flagship(seed, device, dtype, num_frames, steps, None, critic, self_token_critic)
 
 
-def flagship_train_phenaki(seed: int = 0, *, device="cuda",
-                           num_frames: int = FLAGSHIP_NUM_FRAMES) -> Phenaki:
+def flagship_train_phenaki(seed: int = 0, *, device="cuda", num_frames: int = FLAGSHIP_NUM_FRAMES,
+                           critic: bool = False, self_token_critic: bool = False) -> Phenaki:
     """The flagship Phenaki for training: the same seeded weights as
-    `flagship_phenaki`, kept in f32, with the MaskGit computing in bf16."""
-    return _seeded_flagship(seed, device, torch.float32, num_frames, 18, compute_dtype=torch.bfloat16)
+    `flagship_phenaki`, kept in f32, with the MaskGit and the critic
+    computing in bf16."""
+    return _seeded_flagship(seed, device, torch.float32, num_frames, 18, torch.bfloat16, critic,
+                            self_token_critic)
 
 
-def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype) -> Phenaki:
+def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype, critic,
+                     self_token_critic) -> Phenaki:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("flagship_phenaki(device='cuda'): torch.cuda.is_available() is False")
     gen = torch.Generator().manual_seed(seed)
     with torch.device("meta"):
         cvivit = flagship_cvivit()
-        maskgit = flagship_maskgit(max_seq_len=cvivit.num_tokens_per_frames(num_frames),
-                                   dtype=compute_dtype)
-    models = []
-    for m in (cvivit, maskgit):
-        m = init_parameters(m.to_empty(device="cpu"), gen)
-        models.append(m.to(device=device, dtype=dtype))
-    cvivit, maskgit = models
-    return Phenaki(maskgit=maskgit, cvivit=cvivit, text_embed_dim=FLAGSHIP_TEXT_DIM,
-                   steps=steps, max_text_len=128)
+        n = cvivit.num_tokens_per_frames(num_frames)
+        modules = [cvivit, flagship_maskgit(max_seq_len=n, dtype=compute_dtype)]
+        if critic:
+            modules.append(flagship_token_critic(max_seq_len=n, dtype=compute_dtype))
+        elif self_token_critic:
+            modules.append(nn.Linear(512, 1))  # the SelfCritic's head, to_pred
+    modules = [init_parameters(m.to_empty(device="cpu"), gen).to(device=device, dtype=dtype)
+               for m in modules]
+    ph = Phenaki(maskgit=modules[1], cvivit=modules[0], text_embed_dim=FLAGSHIP_TEXT_DIM,
+                 steps=steps, max_text_len=128, critic=modules[2] if critic else None,
+                 self_token_critic=self_token_critic)
+    if self_token_critic:
+        ph.critic.to_pred.load_state_dict(modules[2].state_dict())
+    return ph

@@ -7,8 +7,14 @@ the TPU package (`determine_field`): pre-tokenized `video_codebook_ids`
 optional `video_frame_mask` (bool). One `train_step()` runs
 `grad_accum_every` micro-batches through `Phenaki.loss` and its backward,
 averaging their gradients as `optax.MultiSteps` does, then takes one
-optimizer step over the MaskGit parameters. Every random draw of the loss
-comes from one CPU generator seeded by `seed`.
+optimizer step over the MaskGit and critic parameters. Every random draw of
+the loss comes from one CPU generator seeded by `seed`.
+
+As `jax.value_and_grad` does, every parameter gets a gradient each step,
+zeros where the loss did not reach it, so Adam's moments and weight decay
+move every parameter every step. `only_train_critic` zeroes the MaskGit's
+gradients and `only_train_generator` a TokenCritic's, as the TPU step does;
+a SelfCritic shares the MaskGit's trunk, and nothing is zeroed for it.
 
 Not accepted yet, so that nothing diverges silently: raw `videos` (they need
 the C-ViViT encoder) and `texts` (they need T5); the mesh, FSDP and pipeline
@@ -78,7 +84,7 @@ class PhenakiTrainer:
         self.generator = torch.Generator().manual_seed(seed)
         self.dl = cycle(DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True,
                                    generator=torch.Generator().manual_seed(seed + 1)))
-        self.opt = get_optimizer(phenaki.maskgit.parameters(), lr=train_lr, wd=wd, betas=adam_betas,
+        self.opt = get_optimizer(phenaki.parameters(), lr=train_lr, wd=wd, betas=adam_betas,
                                  max_grad_norm=max_grad_norm)
 
     @staticmethod
@@ -96,16 +102,34 @@ class PhenakiTrainer:
             self.dataset_fields = fields
         return self.dataset_fields
 
-    def train_step(self) -> torch.Tensor:
+    def _complete_grads(self, only_train_generator: bool, only_train_critic: bool) -> None:
+        """Zeros for every parameter the loss did not reach, and for the half
+        that is not trained (a TokenCritic's or the MaskGit's)."""
+        ph = self.model
+        frozen = []
+        if ph.critic is not None and not ph.self_token_critic:
+            frozen = (list(ph.maskgit.parameters()) if only_train_critic else
+                      list(ph.critic.parameters()) if only_train_generator else [])
+        frozen_ids = {id(p) for p in frozen}
+        for p in ph.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif id(p) in frozen_ids:
+                p.grad.zero_()
+
+    def train_step(self, only_train_generator: bool = False, only_train_critic: bool = False
+                   ) -> torch.Tensor:
         """One optimizer step; returns the mean micro-batch loss as a device
         scalar (reading it on the host syncs with the card)."""
         total = 0.0
         for _ in range(self.grad_accum_every):
             data = next(self.dl)
             batch = dict(zip(self.data_tuple_to_fields(data), data))
-            loss, _ = self.model.loss(**batch, generator=self.generator)
+            loss, _ = self.model.loss(**batch, only_train_generator=only_train_generator,
+                                      only_train_critic=only_train_critic, generator=self.generator)
             (loss / self.grad_accum_every).backward()
             total = total + loss.detach() / self.grad_accum_every
+        self._complete_grads(only_train_generator, only_train_critic)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.step += 1

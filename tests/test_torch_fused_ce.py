@@ -7,11 +7,15 @@ the plain versions of the two backward kernels, so these tests pin the math
 contract the CUDA kernels are held to on the card (chip_smoke.py): the loss
 and the gradients of h, the weight and the bias against
 `fused_vocab_cross_entropy` and `jax.value_and_grad` of a weighted mean, the
--1 pad label, and `Phenaki.loss` through the fused branch against the JAX
-loss with its fused branch on. Tolerances, fp32: the JAX tests' own, atol
+-1 pad label, the shape gate over d up to 2560, the kernels reached for
+every gated d on a CUDA tensor (entry points stubbed), and `Phenaki.loss`
+through the fused branch (d = 128 and d = 768) against the JAX loss with
+its fused branch on. Tolerances, fp32: the JAX tests' own, atol
 and rtol 1e-4 on the loss and 2e-4 on the gradients (blockwise online
 log-sum-exp against one-shot); `Phenaki.loss` as in test_torch_train.py.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -28,6 +32,8 @@ from phenaki_tpu.models.cvivit import CViViT as JCViViT  # noqa: E402
 from phenaki_tpu.models.maskgit import MaskGit as JMaskGit  # noqa: E402
 from phenaki_tpu.models.phenaki import Phenaki as JPhenaki  # noqa: E402
 from phenaki_tpu.utils.jit_init import jit_init  # noqa: E402
+import phenaki_tpu_torch.ops.fused_ce as fce  # noqa: E402
+from phenaki_tpu_torch import _build  # noqa: E402
 from phenaki_tpu_torch.bridge import flax_to_state_dict, load_flax_params
 from phenaki_tpu_torch.models import phenaki as phenaki_module
 from phenaki_tpu_torch.models.cvivit import CViViT
@@ -109,10 +115,56 @@ def test_bf16_compute_keeps_f32_weight_gradient():
 
 
 def test_shape_gate_matches_pallas():
-    for d, v in [(512, 65536), (128, 512), (128, 1536), (64, 1024), (768, 65536), (512, 1000),
-                 (512, 256)]:
-        ported = can_fuse_ce(d, v)
-        assert ported == (pce.can_fuse_ce(d, v) and d <= 512), (d, v)
+    """The port's gate is the TPU wrapper's, d = 2432 the widest it admits."""
+    shapes = [(d, v) for d in range(64, 2561, 64) for v in (256, 512, 1000, 1536, 5000, 65536)]
+    for d, v in shapes:
+        assert can_fuse_ce(d, v) == pce.can_fuse_ce(d, v), (d, v)
+    assert can_fuse_ce(2432, 65536) and not can_fuse_ce(2560, 65536)
+
+
+class _StubCELibrary:
+    """Records each C call of the CE kernels; writes zeros to its outputs."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_ce_fwd(self, h, w, bias, labels, loss, lse, label_logit, partials, rows, d, v, splits,
+                     dtype, stream):
+        self.calls.append(("fwd", d, v))
+        for out in (loss, lse):
+            ctypes.memset(out.value, 0, 4 * rows)
+        return 0
+
+    def fused_ce_bwd_dh(self, h, w, bias, labels, lse, g, dh, partials, rows, d, v, splits, dtype,
+                        stream):
+        self.calls.append(("dh", d, v))
+        ctypes.memset(dh.value, 0, 4 * rows * d)
+        return 0
+
+    def fused_ce_bwd_dw(self, h, w, bias, labels, lse, g, dw, db, rows, d, v, dtype, stream):
+        self.calls.append(("dw", d, v))
+        ctypes.memset(dw.value, 0, 4 * v * d)
+        ctypes.memset(db.value, 0, 4 * v)
+        return 0
+
+
+@pytest.mark.parametrize("d", [128, 512, 640, 1024, 2432])
+def test_every_gated_width_launches_the_kernels(monkeypatch, d):
+    """On a (stubbed) card every d the gate admits reaches the three kernels;
+    d = 2560 is refused, as the TPU wrapper refuses it."""
+    lib = _StubCELibrary()
+    monkeypatch.setattr(fce, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(fce, "_splits", lambda rows, v, device: 4)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda device: ctypes.c_void_p(0))
+    v = 1024
+    h = torch.randn(2, 5, d, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(v, d, requires_grad=True)
+    fused_vocab_cross_entropy(h, w, torch.zeros(v), torch.randint(0, v, (2, 5))).sum().backward()
+    assert lib.calls == [("fwd", d, v), ("dh", d, v), ("dw", d, v)]
+    assert h.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+    with pytest.raises(ValueError, match="do not take"):
+        fce.fused_ce_fwd(torch.zeros(10, 2560), torch.zeros(v, 2560), None, torch.zeros(10))
 
 
 # ---------------------------------------------------------------------------
@@ -127,12 +179,12 @@ MASKGIT = dict(dim=128, num_tokens=512, max_seq_len=128, depth=1, heads=2, dim_h
 GRID = (2, 8, 8)
 
 
-def test_phenaki_loss_fused_branch_matches_jax(monkeypatch):
-    assert can_fuse_ce(MASKGIT["dim"], MASKGIT["num_tokens"])
+def _check_phenaki_loss_fused_branch(monkeypatch, maskgit):
+    assert can_fuse_ce(maskgit["dim"], maskgit["num_tokens"])
     monkeypatch.setattr(jphenaki_module, "use_fused_ce", lambda: True)
     jcv = JCViViT(**CVIVIT, scan_layers=True)
     cv_vars = jit_init(jcv, jax.random.PRNGKey(0), jnp.zeros((1, 3, 64, 64, 3)))
-    jph = JPhenaki(maskgit=JMaskGit(**MASKGIT, scan_layers=True), cvivit=jcv, cvivit_vars=cv_vars,
+    jph = JPhenaki(maskgit=JMaskGit(**maskgit, scan_layers=True), cvivit=jcv, cvivit_vars=cv_vars,
                    steps=STEPS, text_embed_dim=TEXT_DIM, max_text_len=8)
     jph.init(jax.random.PRNGKey(1))
     params = jax.tree_util.tree_map(np.asarray, jax.device_get(jph.params["maskgit"]))
@@ -154,7 +206,7 @@ def test_phenaki_loss_fused_branch_matches_jax(monkeypatch):
     rng_mask, rng_step = jax.random.split(rng, 7)[:2]
     step = np.asarray(jax.random.randint(rng_step, (2,), 0, STEPS))
     noise = np.asarray(jax.random.uniform(rng_mask, (2, ids[0].size)))
-    tph = Phenaki(maskgit=load_flax_params(MaskGit(**MASKGIT), params), cvivit=CViViT(**CVIVIT),
+    tph = Phenaki(maskgit=load_flax_params(MaskGit(**maskgit), params), cvivit=CViViT(**CVIVIT),
                   text_embed_dim=TEXT_DIM, steps=STEPS, max_text_len=8)
     monkeypatch.setattr(tph, "_loss_draws", lambda b, n, gen, device: (
         torch.from_numpy(step.copy()).long(), torch.from_numpy(noise.copy())))
@@ -168,7 +220,7 @@ def test_phenaki_loss_fused_branch_matches_jax(monkeypatch):
     loss, _ = tph.loss(video_codebook_ids=torch.from_numpy(ids), text_embeds=torch.from_numpy(emb),
                        cond_drop_prob=0.0)
     loss.backward()
-    assert calls == [(2, 128, MASKGIT["dim"])]
+    assert calls == [(2, 128, maskgit["dim"])]
     np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=1e-5)
     ref = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, jax.device_get(ref_grads)))
     named = dict(tph.maskgit.named_parameters())
@@ -177,3 +229,13 @@ def test_phenaki_loss_fused_branch_matches_jax(monkeypatch):
         r = ref[name].numpy()
         np.testing.assert_allclose(p.grad.numpy(), r, atol=1e-3 * max(np.abs(r).max(), 1e-5),
                                    rtol=0, err_msg=name)
+
+
+def test_phenaki_loss_fused_branch_matches_jax(monkeypatch):
+    _check_phenaki_loss_fused_branch(monkeypatch, MASKGIT)
+
+
+def test_phenaki_loss_fused_branch_at_d768_matches_jax(monkeypatch):
+    """d = 768 takes the fused branch, as on the TPU (the gate admits d up
+    to 2432; the kernels walk d in slices)."""
+    _check_phenaki_loss_fused_branch(monkeypatch, dict(MASKGIT, dim=768))

@@ -224,9 +224,14 @@ def test_loss_draws_follow_the_generator(phenakis):
         b, _ = tph.loss(**kw, generator=torch.Generator().manual_seed(0))
         c, _ = tph.loss(**kw, generator=torch.Generator().manual_seed(1))
     assert a.item() == b.item() and a.item() != c.item()
-    with pytest.raises(NotImplementedError, match="critic"):
-        Phenaki(maskgit=tph.maskgit, cvivit=tph.cvivit, text_embed_dim=TEXT_DIM,
-                self_token_critic=True).loss(**kw)
+    # with a critic the same seed gives the same loss, and the critic's draws
+    # come after the MaskGit's, so the generator's loss does not change
+    critic = Phenaki(maskgit=tph.maskgit, cvivit=tph.cvivit, text_embed_dim=TEXT_DIM, steps=tph.steps,
+                     max_text_len=tph.max_text_len, self_token_critic=True)
+    with torch.no_grad():
+        d, metrics = critic.loss(**kw, generator=torch.Generator().manual_seed(0))
+        e, _ = critic.loss(**kw, generator=torch.Generator().manual_seed(0))
+    assert d.item() == e.item() and metrics["maskgit_loss"].item() == a.item()
 
 
 @pytest.mark.parametrize("which", ["attn_dropout", "ff_dropout"])
