@@ -5,6 +5,8 @@ and without a critic, on one NVIDIA GPU.
     python3 chip_smoke.py                         # every check; the last line is the verdict
     python3 chip_smoke.py --profile-train OUT.txt  # the same, and a profile of two
                                                   # flagship train steps written to OUT.txt
+    python3 chip_smoke.py --profile-seq OUT.txt    # and a profile of one sequence-sharded
+                                                  # flagship sample (rank 0) written to OUT.txt
 
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc, holds
 each kernel against its plain PyTorch version at the flagship shapes (the
@@ -16,8 +18,15 @@ the logits path), and drives the flagship model (random weights from a
 seed) through its entry points: `flagship_phenaki(...).sample(...)` plain,
 with a TokenCritic and with a SelfCritic; the logits path of
 `maskgit_sample_loop`; and `PhenakiTrainer(...).train_step()` on seeded
-random token ids, without a critic and with a TokenCritic. Each main path
-is checked to have launched exactly its kernels. Every check raises on
+random token ids, without a critic and with a TokenCritic. Then the
+sequence-parallel paths on SP = 2 spawned ranks (NCCL with a GPU a rank
+when there are enough cards, otherwise gloo with both ranks on the one
+card): kernel 3 (the ring chunk) and the offset backward kernels against
+their plain versions, a small fp32 sequence-sharded model against dense,
+and `flagship_phenaki(seq_group=...).sample(...)` and
+`PhenakiTrainer.train_step()` on `flagship_train_phenaki(seq_group=...)`,
+with ids and parameters bit-identical across the ranks. Each main path is
+checked to have launched exactly its kernels. Every check raises on
 failure; the last line is the JSON verdict, printed only when all passed.
 Needs no JAX.
 """
@@ -46,6 +55,11 @@ CE_TPU = {"ce_fwd": "phenaki_tpu/ops/pallas_ce.py:123",  # _fwd_kernel
 
 GUMBEL_SRC = "phenaki_tpu_torch/csrc/gumbel_sample.cu"
 GUMBEL_TPU = "phenaki_tpu/ops/pallas_sampling.py:33"  # _kernel
+CHUNK_TPU = "phenaki_tpu/ops/pallas_attention.py:812"  # flash_attend_chunk (_flash_kernel, offs_ref)
+
+# the H100 SXM's published peaks (NVIDIA's data sheet; dense tensor-core rates)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 
 # kernel launches per flagship sample (every other kernel: none): 6 MaskGit
 # layers x (self + cross attention) x 18 steps + 4 C-ViViT spatial layers
@@ -65,6 +79,19 @@ LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18}
 TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
 CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1)
 TRAIN_BATCH, TRAIN_STEPS, CRITIC_TRAIN_STEPS = 4, 5, 3
+# the sequence-sharded flagship over SP ranks (1152 / 2 = 576 rows a rank):
+# a sample launches, on each rank, 2 ring chunks (kernel 3) for each of the 6
+# MaskGit self-attention layers on each of the 18 steps; cross-attention (6 x
+# 18) and the C-ViViT spatial layers (4) stay on kernel 1; the C-ViViT
+# temporal attention (9 frames, indivisible by 2) takes the dense path. A
+# train step: 12 chunks forward, each chunk's dq, dkv and dbias backward,
+# and the cross-attention's kernel 1 forward, dq and dkv
+SP = 2
+SEQ_SAMPLE_LAUNCHES = {"chunk": 18 * 6 * SP, "fwd": 18 * 6 + 4, "proj": 18}
+SEQ_TRAIN_PER_STEP = {"chunk": 6 * SP, "fwd": 6, "dq": 6 + 6 * SP, "dkv": 6 + 6 * SP, "dbias": 6 * SP,
+                      "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+SEQ_TRAIN_STEPS = 3
+RANK_TIMEOUT_S = 600  # the spawned ranks' join timeout
 LEARN_MARGIN = 3.0  # nats the learning check's loss must fall by
 
 
@@ -94,6 +121,18 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, kind: str = "bf16"):
+    """The least time the card could take: (ms, what bounds it), from the
+    bytes moved (each input read once, each output written once) and the
+    operations done at the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def qk(shape, gen, dtype):
@@ -162,6 +201,15 @@ def check_flash(torch):
             check(err <= tol[dtype], f"flash {tag}: max abs err {err} > {tol[dtype]}")
             check(lse_err <= 1e-3, f"flash {tag}: lse err {lse_err}")
             result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            if tag == "maskgit_self_bfloat16":
+                # the yardstick: one PyTorch call, SDPA with the bias as a float mask
+                b, h, i, d = q.shape
+                result[tag]["bound_ms"], result[tag]["bound_by"] = bound(
+                    nbytes(q, k, v, bias, out), 4 * b * h * i * k.shape[2] * d)
+                result[tag]["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias, scale=8.0))
+                phase(f"flash_attention {tag} yardsticks", bound_ms=result[tag]["bound_ms"],
+                      library_ms=result[tag]["library_ms"])
     return result
 
 
@@ -252,6 +300,8 @@ def check_flash_bwd(torch):
             phase(f"flash_attention_bwd {tag}", shape=list(q.shape), j=k.shape[2],
                   rel_err=errs, ms=ms, plain_ms=plain_ms)
             result[tag] = dict(abs_errs=abs_errs, ms=ms, plain_ms=plain_ms)
+            if tag == "maskgit_self_bfloat16":
+                result[tag].update(bwd_yardsticks(torch, q, k, v, bias, kmask, do, lse, delta, got))
 
     # autograd on the card: the Function launches the kernels and every
     # differentiable input gets a gradient equal to the plain backward's. f32
@@ -279,6 +329,182 @@ def check_flash_bwd(torch):
             check(errs[key] <= tol[dtype], f"autograd on the card ({dtype}): d{key} rel err {errs[key]}")
         phase(f"flash_attention autograd on the card {str(dtype).split('.')[-1]}", shape=list(out.shape),
               grad_fn=type(out.grad_fn).__name__, rel_err=errs)
+    return result
+
+
+def bwd_bounds(q, k, v, bias, kmask, do, lse, delta, got):
+    """Each backward kernel's bound: its inputs and outputs once, and the
+    products it must do (S and dP recomputed, then its own: dQ, or dK and
+    dV; dBias none)."""
+    b, h, i, d = q.shape
+    ijd = b * h * i * k.shape[2] * d
+    inputs = nbytes(q, k, v, bias, kmask, do, lse, delta)
+    return {"dq": bound(inputs + nbytes(got["dq"]), 6 * ijd),
+            "dkv": bound(inputs + nbytes(got["dk"], got["dv"]), 8 * ijd),
+            "dbias": bound(inputs + nbytes(got.get("dbias")), 4 * ijd)}
+
+
+def bwd_yardsticks(torch, q, k, v, bias, kmask, do, lse, delta, got):
+    """Bounds of kernels 4-6, and the yardstick: SDPA's whole backward (dq,
+    dk, dv and the bias's gradient in one autograd call) on the same inputs."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=8.0)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=10)
+    bounds = bwd_bounds(q, k, v, bias, kmask, do, lse, delta, got)
+    phase("flash_attention_bwd yardsticks", bound_ms={key: b[0] for key, b in bounds.items()},
+          library_whole_backward_ms=library_ms)
+    return dict(bounds=bounds, library_ms=library_ms)
+
+
+def chunk_cases(torch, dtype, gen, b):
+    """Kernel 3 at the sequence-sharded flagship (sp = 2: 576 rows a rank):
+    the chunk against the other rank's shard with its bias slice (8, 576,
+    576) read in place from the rows' (8, 576, 1152) bias; the same with a
+    key mask, against the rank's own shard; causal chunks at global offsets
+    (0, 0) (the diagonal), (576, 0) (wholly visible) and (0, 576) (wholly
+    masked: acc = l = 0). Each: (q, k, v, bias, kmask, causal, offsets)."""
+    from phenaki_tpu_torch.ops.attention import NEG_INF
+
+    q, k = qk((b, 8, 576, 64), gen, dtype), qk((b, 8, 576, 64), gen, dtype)
+    v = torch.randn(b, 8, 576, 64, generator=gen).to("cuda", dtype)
+    rows_bias = torch.randn(8, 576, 1152, generator=gen).to("cuda", dtype)
+    keep = torch.rand(b, 576, generator=gen) > 0.3
+    kmask = torch.where(keep, 0.0, NEG_INF).float().cuda()
+    return {"flagship_other_shard": (q, k, v, rows_bias[..., 576:], None, False, None),
+            "kmask_own_shard": (q, k, v, rows_bias[..., :576], kmask, False, None),
+            "causal_diagonal": (q, k, v, rows_bias[..., :576], None, True, (0, 0)),
+            "causal_below": (q, k, v, rows_bias[..., :576], None, True, (576, 0)),
+            "causal_above": (q, k, v, rows_bias[..., 576:], None, True, (0, 576))}
+
+
+def ring_bound(torch, q, k):
+    """The ring's c2 for these shards: max ||8 q|| max ||k|| log2(e)."""
+    return ((q.float() * 8.0).norm(dim=-1).max() * k.float().norm(dim=-1).max() * 1.4426950408889634)
+
+
+def check_chunk(torch):
+    """Kernel 3 (`flash_attend_chunk`) against `flash_attend_chunk_plain` on
+    the same inputs, bf16 and f32, at the sample shape (b = 2); acc and l
+    each within a tolerance of max |ref| (bf16 2e-2: the output sums bf16
+    products in another order; f32 5e-5), and exactly 0 where every key is
+    masked. The bias slice is read through its row stride (no copy)."""
+    import phenaki_tpu_torch.ops.flash_attention as fa
+
+    gen = torch.Generator().manual_seed(31)
+    tol = {torch.bfloat16: 2e-2, torch.float32: 5e-5}
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (q, k, v, bias, kmask, causal, offsets) in chunk_cases(torch, dtype, gen, 2).items():
+            check(bias.stride(1) == 1152, "the chunk's bias is not the in-place slice")
+            c2 = ring_bound(torch, q, k)
+            kw = dict(c2=c2, scale=8.0, causal=causal, offsets=offsets)
+            acc, l = fa.flash_attend_chunk(q, k, v, bias, kmask, **kw)
+            ref_acc, ref_l = fa.flash_attend_chunk_plain(q, k, v, bias, kmask, **kw)
+            torch.cuda.synchronize()
+            tag = f"{name}_{str(dtype).split('.')[-1]}"
+            errs = {}
+            for key, got, ref in (("acc", acc, ref_acc), ("l", l, ref_l)):
+                check(torch.isfinite(got).all().item(), f"chunk {tag}: non-finite {key}")
+                scale_ref = max(ref.abs().max().item(), 1e-30)
+                errs[key] = (got - ref).abs().max().item() / scale_ref
+                check(errs[key] <= tol[dtype], f"chunk {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
+            if name == "causal_above":
+                check(acc.abs().max().item() == 0.0 and l.abs().max().item() == 0.0,
+                      f"chunk {tag}: a wholly masked chunk is not 0")
+            entry = dict(rel_err=errs, max_abs_err=max((acc - ref_acc).abs().max().item(),
+                                                       (l - ref_l).abs().max().item()))
+            if tag == "flagship_other_shard_bfloat16":
+                entry["ms"] = cuda_ms(lambda: fa.flash_attend_chunk(q, k, v, bias, kmask, **kw))
+                entry["plain_ms"] = cuda_ms(lambda: fa.flash_attend_chunk_plain(q, k, v, bias, kmask, **kw))
+                b, h, i, d = q.shape
+                entry["bound_ms"], entry["bound_by"] = bound(
+                    nbytes(q, k, v, bias, acc, l), 4 * b * h * i * k.shape[2] * d)
+                entry["library_ms"] = None  # no one PyTorch call returns the raw (acc, l)
+            phase(f"flash_attend_chunk {tag}", shape=list(q.shape), causal=causal, offsets=offsets,
+                  **entry)
+            result[tag] = entry
+    return result
+
+
+def check_chunk_bwd(torch):
+    """Kernels 4-6 in the chunk's mode, at the train shape (b = 4): global
+    offsets, lse = c2 ln 2, dO = d(acc), delta = -d(l), the bias slice read
+    through its stride; each against its plain version on the same inputs,
+    within the tolerances of `check_flash_bwd` (relative to max |ref|). A
+    wholly masked chunk gives zero gradients. Then the autograd Function on
+    the card: every gradient equals the plain backward's."""
+    import phenaki_tpu_torch.ops.flash_attention as fa
+
+    gen = torch.Generator().manual_seed(32)
+    tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (q, k, v, bias, kmask, causal, offsets) in chunk_cases(torch, dtype, gen, 4).items():
+            c2 = ring_bound(torch, q, k).reshape(1)
+            dacc = torch.randn(q.shape, generator=gen).cuda()
+            dl = torch.randn(q.shape[:3], generator=gen).cuda()
+            lse = (c2 * fa.LN2).expand(q.shape[:3]).contiguous()
+            delta = (-dl).contiguous()
+            do = dacc.to(dtype)
+            args = (q, k, v, bias, kmask, do, lse, delta)
+            kw = dict(scale=8.0, causal=causal, offsets=offsets)
+            got = {"dq": fa.flash_attention_bwd_dq(*args, **kw)}
+            got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(*args, **kw)
+            got["dbias"] = fa.flash_attention_bwd_dbias(*args, **kw)
+            pargs = (q, k, v, bias, kmask, None, lse, do)
+            ref = dict(zip(("dq", "dk", "dv", "dbias"),
+                           fa.flash_attention_backward_plain(*pargs, delta=delta, **kw)))
+            torch.cuda.synchronize()
+            tag = f"{name}_{str(dtype).split('.')[-1]}"
+            errs, abs_errs = {}, {}
+            for key, g in got.items():
+                r = ref[key].float()
+                check(torch.isfinite(g).all().item(), f"chunk bwd {tag}: non-finite {key}")
+                abs_errs[key] = (g.float() - r).abs().max().item()
+                if name == "causal_above":
+                    check(g.abs().max().item() == 0.0, f"chunk bwd {tag}: {key} of a masked chunk is not 0")
+                    continue
+                errs[key] = abs_errs[key] / max(r.abs().max().item(), 1e-30)
+                check(errs[key] <= tol[dtype], f"chunk bwd {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
+            entry = dict(rel_err=errs, abs_errs=abs_errs)
+            if tag == "flagship_other_shard_bfloat16":
+                kernels = {"dq": (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain),
+                           "dkv": (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain),
+                           "dbias": (fa.flash_attention_bwd_dbias, fa.flash_attention_bwd_dbias_plain)}
+                entry["ms"] = {key: cuda_ms(lambda: kern(*args, **kw), reps=10)
+                               for key, (kern, _) in kernels.items()}
+                entry["plain_ms"] = {key: cuda_ms(lambda: plain(*pargs, delta=delta, **kw), reps=10)
+                                     for key, (_, plain) in kernels.items()}
+                entry["bound_ms"] = {key: b[0] for key, b in
+                                     bwd_bounds(q, k, v, bias, kmask, do, lse, delta, got).items()}
+            phase(f"flash_attend_chunk bwd {tag}", shape=list(q.shape), causal=causal, offsets=offsets,
+                  **entry)
+            result[tag] = entry
+
+    # autograd through the chunk on the card (bf16, an f32 bias slice as the
+    # CPB gives it): the Function launches kernels 3-6
+    q, k, v, bias, _, _, _ = chunk_cases(torch, torch.bfloat16, gen, 4)["causal_below"]
+    rows_bias = torch.randn(8, 576, 1152, generator=gen).cuda().requires_grad_()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    c2 = ring_bound(torch, q, k)
+    kw = dict(c2=c2, scale=8.0, causal=True, offsets=(576, 0))
+    acc, l = fa.flash_attend_chunk(*leaves, rows_bias[..., :576], **kw)
+    check(acc.grad_fn is not None, "flash_attend_chunk on the card records no grad_fn")
+    dacc, dl = torch.randn(acc.shape, generator=gen).cuda(), torch.randn(l.shape, generator=gen).cuda()
+    torch.autograd.backward([acc, l], [dacc, dl])
+    lse = (c2 * fa.LN2).expand(l.shape).contiguous()
+    plain = fa.flash_attention_backward_plain(
+        *(t.detach() for t in leaves), rows_bias.detach()[..., :576].to(q.dtype), None, None, lse,
+        dacc.to(q.dtype), scale=8.0, causal=True, offsets=(576, 0), delta=-dl)
+    errs = {}
+    for t, r, key in zip([*leaves, rows_bias], plain, ("q", "k", "v", "bias")):
+        check(t.grad is not None and t.grad.dtype == t.dtype, f"chunk autograd: no gradient of its dtype for {key}")
+        g = t.grad if key != "bias" else t.grad[..., :576]
+        errs[key] = ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+        check(errs[key] <= tol[torch.bfloat16], f"chunk autograd on the card: d{key} rel err {errs[key]}")
+    check(rows_bias.grad[..., 576:].abs().max().item() == 0.0, "chunk autograd: gradient outside the slice")
+    phase("flash_attend_chunk autograd on the card bfloat16", grad_fn=type(acc.grad_fn).__name__,
+          rel_err=errs)
     return result
 
 
@@ -341,6 +567,12 @@ def check_fused_ce(torch):
                 plain_ms = {key: cuda_ms(lambda: plain(*a), reps=5) for key, (_, plain, a) in pairs.items()}
             phase(f"fused_ce {tag}", rows=rows, d=d, vocab=v, err=errs, ms=ms, plain_ms=plain_ms)
             result[tag] = dict(abs_errs=abs_errs, ms=ms, plain_ms=plain_ms)
+            if tag == "train_bfloat16":
+                inputs = nbytes(h, w, bias, labels)
+                result[tag]["bounds"] = {
+                    "ce_fwd": bound(inputs + nbytes(loss, lse), 2 * rows * d * v),
+                    "ce_dh": bound(inputs + nbytes(ref_lse, g, got["dh"]), 4 * rows * d * v),
+                    "ce_dw": bound(inputs + nbytes(ref_lse, g, got["dw"], got["db"]), 4 * rows * d * v)}
             del got, ref
 
     rows, d, v = 4 * 1152, 512, 65536
@@ -413,6 +645,10 @@ def check_proj(torch):
         # `ms` against `plain_ms` on the same injected noise; the main paths
         # run the in-kernel Philox stream, timed as `ms_philox`
         result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_philox=ms_philox)
+        if tag == "d512_bfloat16":  # the bound of `ms`'s call: noise read, ids and scores written
+            result[tag]["bound_ms"], result[tag]["bound_by"] = bound(
+                nbytes(h, w, bias, noise) + b * rows * 8, 2 * b * rows * d * v)
+            result[tag]["library_ms"] = None  # no one PyTorch call samples from h W + b
         del h, w, noise
 
     # the in-kernel Philox stream: softmax frequencies and seed determinism
@@ -477,6 +713,12 @@ def check_gumbel_kernel(torch):
         check(agree == 1.0, f"gumbel_sample {tag}: ids agree on {agree} of rows, not all")
         check(err <= 1e-5, f"gumbel_sample {tag}: score err {err} > 1e-5")
         result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_philox=ms_philox)
+        if tag == "stacked_bfloat16":
+            # the logits and uniforms read, ids and scores written; about 8
+            # f32 operations a (row, vocab) element (combine, gumbel, max, exp)
+            result[tag]["bound_ms"], result[tag]["bound_by"] = bound(
+                nbytes(logits, noise) + b * n * 8, 8 * b * n * v, "f32")
+            result[tag]["library_ms"] = None  # no one PyTorch call samples with the score
         del logits, noise
 
     # Philox: 4096 rows of stacked logits whose CFG combine peaks three ids
@@ -633,14 +875,14 @@ def run_sample_paths(torch):
 
 
 def all_kernels():
-    """Every kernel's wrapper by key: the attention forward, its three
-    backward kernels, the fused CE's forward and two backward kernels, the
+    """Every kernel's wrapper by key: the attention forward, the ring chunk,
+    their three backward kernels, the fused CE's forward and two backward kernels, the
     projection sampler and the logits-path sampler."""
     import phenaki_tpu_torch.ops.flash_attention as fa
     import phenaki_tpu_torch.ops.fused_ce as ce
     import phenaki_tpu_torch.ops.fused_sampling as fs
 
-    return {"fwd": fa.flash_attention, "dq": fa.flash_attention_bwd_dq,
+    return {"fwd": fa.flash_attention, "chunk": fa.flash_attend_chunk, "dq": fa.flash_attention_bwd_dq,
             "dkv": fa.flash_attention_bwd_dkv, "dbias": fa.flash_attention_bwd_dbias,
             "ce_fwd": ce.fused_ce_fwd, "ce_dh": ce.fused_ce_bwd_dh, "ce_dw": ce.fused_ce_bwd_dw,
             "proj": fs.project_sample, "gumbel": fs.gumbel_sample_with_score}
@@ -902,6 +1144,248 @@ def run_train_path(torch, label, per_step, steps, profile_path=None, **preset):
     return launches
 
 
+def seq_parallel_rank(rank, world, profile_path=None):
+    """One rank of the sequence-parallel phases (spawned; every rank runs the
+    same calls with the same seeds): the small fp32 model against dense,
+    then the flagship sample path and train path, each with its counts set
+    to 0 before it. Returns plain numbers and numpy arrays; raises on a
+    failed check."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dist.get_backend() != "nccl":
+        torch.cuda.set_device(0)  # every gloo rank computes on the one card
+    group = dist.group.WORLD
+    return {"backend": dist.get_backend(), "device": torch.cuda.current_device(),
+            "small": ring_small_check(torch, group),
+            "sample": seq_sample_path(torch, group, profile_path),
+            "train": seq_train_path(torch, group)}
+
+
+def ring_small_check(torch, group):
+    """The small fp32 MaskGit (`small_train_models`, 128 tokens: 64 a rank,
+    the kernel ring) sequence-sharded against the same weights dense, both
+    on the card: logits within 1e-5 of max |ref|; `Phenaki.loss` (same ids,
+    frame mask, text, draws) within 1e-4 relative and every parameter
+    gradient within 1e-4 of its max |ref|, floored at 1e-4 (the CPB output
+    bias's true gradient is 0, the softmax cancels a per-head constant, and
+    both sides hold ~1e-9 of rounding noise there); greedy `sample_ids` (3
+    frames, 128 tokens) the same ids."""
+    from phenaki_tpu_torch.models.maskgit import MaskGit
+    from phenaki_tpu_torch.models.phenaki import Phenaki
+
+    mg, cv = small_train_models(torch, 5)
+    ring_mg = MaskGit(128, 512, 128, depth=2, heads=2, dim_head=64, dim_context=64, seq_group=group)
+    ring_mg.load_state_dict(mg.state_dict())
+    models = {"dense": mg.cuda(), "ring": ring_mg.cuda()}
+    cv = cv.cuda()
+    gen = torch.Generator().manual_seed(6)
+    ids = torch.randint(0, 512, (2, 2, 8, 8), generator=gen)
+    emb = torch.randn(2, 8, 64, generator=gen)
+    emb[:, 6:] = 0.0
+    frame_mask = torch.tensor([[True, True, True], [True, False, False]])
+    runs = {}
+    for name, model in models.items():
+        reset_kernel_counts()
+        with torch.no_grad():
+            logits = model(ids.cuda(), context=emb.cuda())
+        ph = Phenaki(maskgit=model, cvivit=cv, text_embed_dim=64, steps=6, max_text_len=16)
+        loss, _ = ph.loss(video_codebook_ids=ids, text_embeds=emb, video_frame_mask=frame_mask,
+                          generator=torch.Generator().manual_seed(7))
+        loss.backward()
+        sampled = ph.sample_ids(num_frames=3, text_embeds=emb, cond_scale=5.0, starting_temperature=0.0,
+                                generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        runs[name] = dict(logits=logits, loss=loss.item(), ids=sampled.cpu(), launches=nonzero(kernel_counts()),
+                          grads={n: p.grad for n, p in model.named_parameters()})
+    dense, ring = runs["dense"], runs["ring"]
+    fwd_err = ((ring["logits"] - dense["logits"]).abs().max() / dense["logits"].abs().max()).item()
+    loss_err = abs(ring["loss"] - dense["loss"]) / abs(dense["loss"])
+    worst = max(((ring["grads"][n] - r).abs().max() / max(r.abs().max().item(), 1e-4)).item()
+                for n, r in dense["grads"].items())
+    ids_equal = bool(torch.equal(ring["ids"], dense["ids"]))
+    check(ring["launches"].get("chunk", 0) > 0 and "chunk" not in dense["launches"],
+          f"the ring model did not run kernel 3: {ring['launches']} (dense {dense['launches']})")
+    check(fwd_err <= 1e-5, f"ring forward differs from dense by {fwd_err} of max |ref|")
+    check(loss_err <= 1e-4, f"ring loss {ring['loss']} vs dense {dense['loss']}")
+    check(worst <= 1e-4, f"a ring gradient differs from dense by {worst} of its max")
+    check(ids_equal, "greedy ids differ between the ring model and dense")
+    return dict(forward_rel_err=fwd_err, loss_dense=dense["loss"], loss_ring=ring["loss"],
+                loss_rel_err=loss_err, worst_grad_rel_err=worst, greedy_ids_equal=ids_equal,
+                ring_launches=ring["launches"], dense_launches=dense["launches"])
+
+
+def seq_sample_path(torch, group, profile_path=None):
+    """`flagship_phenaki(seq_group=...).sample(...)` at b = 1: a warm-up and
+    three requests, each with exactly SEQ_SAMPLE_LAUNCHES launches on this
+    rank; returns each request's ids (for the check across ranks), a digest
+    of its video, and its seconds. With `profile_path`, every rank samples
+    once more under `torch.profiler` (`profile_seq_sample`)."""
+    import hashlib
+
+    from phenaki_tpu_torch.presets import flagship_phenaki
+
+    t0 = time.perf_counter()
+    ph = flagship_phenaki(seed=0, device="cuda", seq_group=group)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    seen = []
+    sample_ids = ph.sample_ids
+    ph.sample_ids = lambda **kw: seen.append(sample_ids(**kw)) or seen[-1]
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    out = {"ids": {}, "video_sha": {}, "seconds": {}}
+    for name, emb, seed in sample_requests(torch)[:4]:
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        video = ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0,
+                          generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t
+        counts = launched_since(before)
+        check(tuple(video.shape) == (1, 17, 256, 128, 3), f"seq sample {name}: video shape {tuple(video.shape)}")
+        check(torch.isfinite(video).all().item(), f"seq sample {name}: non-finite video")
+        check(counts == exact(SEQ_SAMPLE_LAUNCHES),
+              f"seq sample {name}: launches {nonzero(counts)} != {SEQ_SAMPLE_LAUNCHES}")
+        out["ids"][name] = seen[-1].cpu().numpy()
+        out["video_sha"][name] = hashlib.sha256(video.contiguous().view(torch.int16).cpu().numpy()).hexdigest()
+    out.update(launches=kernel_counts(), build_model_s=build_s,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if profile_path is not None:
+        out["profile"] = profile_seq_sample(torch, ph, profile_path)
+    del ph
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_seq_sample(torch, ph, path):
+    """One more flagship sample under `torch.profiler`, on every rank (the
+    ring's collectives need them all); rank 0 writes its table of device
+    time by kernel and operator to `path`. Returns this rank's device
+    milliseconds (the sum of self device time over the table's rows) and
+    wall milliseconds. With the ranks sharing one GPU, the other rank's
+    kernels occupy the card too: the idle share is this rank's only."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    emb = sample_requests(torch)[1][1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0, generator=torch.Generator().manual_seed(11))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if torch.distributed.get_rank() == 0:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(
+            events.table(sort_by="self_device_time_total", row_limit=50, max_name_column_width=100)
+            + "\n" + events.table(sort_by="cpu_time_total", row_limit=40, max_name_column_width=100))
+    return dict(device_ms=device_ms, wall_ms=wall_ms, idle=1 - device_ms / wall_ms)
+
+
+def seq_train_path(torch, group):
+    """`PhenakiTrainer.train_step()` at b = 4 on `flagship_train_phenaki(
+    seq_group=...)`. Its first step (the warm-up) runs the batch and draws
+    of a dense trainer's first step with the same seeds, and its loss must
+    be within 1e-3 relative of the dense loss (bf16 compute: the ring and
+    kernel 1 round the attention output differently); then SEQ_TRAIN_STEPS
+    steps with exactly SEQ_TRAIN_PER_STEP launches each. Returns a digest
+    of every parameter after the steps (the check across ranks)."""
+    import hashlib
+
+    from phenaki_tpu_torch.presets import flagship_train_phenaki
+    from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
+
+    gen = torch.Generator().manual_seed(20)
+    data = torch.utils.data.TensorDataset(torch.randint(0, 65536, (2 * TRAIN_BATCH, 9, 16, 8), generator=gen),
+                                          torch.randn(2 * TRAIN_BATCH, 50, 768, generator=gen))
+
+    def trainer(ph):
+        return PhenakiTrainer(ph, dataset=data, batch_size=TRAIN_BATCH, seed=0, log_every=10**9)
+
+    dense_loss = trainer(flagship_train_phenaki(seed=0, device="cuda")).train_step().item()
+    torch.cuda.empty_cache()
+    ph = flagship_train_phenaki(seed=0, device="cuda", seq_group=group)
+    tr = trainer(ph)
+    first_loss = tr.train_step().item()
+    check(abs(first_loss - dense_loss) <= 1e-3 * abs(dense_loss),
+          f"seq train: first loss {first_loss} vs dense {dense_loss}")
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for step in range(SEQ_TRAIN_STEPS):
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = tr.train_step()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        launched = launched_since(before)
+        check(launched == exact(SEQ_TRAIN_PER_STEP),
+              f"seq train step {step}: launches {nonzero(launched)} != {SEQ_TRAIN_PER_STEP}")
+        losses.append(loss.item())
+    check(all(map(math.isfinite, losses)), f"seq train: non-finite loss {losses}")
+    digest = hashlib.sha256()
+    for _, p in ph.maskgit.named_parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    out = dict(dense_loss=dense_loss, first_loss=first_loss, losses=losses, step_seconds=seconds,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=kernel_counts(),
+               params_sha=digest.hexdigest())
+    del tr, ph
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_seq_parallel(torch, profile_path=None):
+    """Spawn SP ranks (NCCL with a GPU a rank when there are enough cards;
+    gloo with every rank on cuda:0 otherwise), the kernel library built
+    before. Checks across ranks: the same ids and videos, the same
+    parameters after training. Returns the main paths' launches summed over
+    the ranks."""
+    import numpy as np
+
+    from phenaki_tpu_torch.parallel.distributed import default_backend, spawn_ranks
+
+    backend = default_backend(SP)
+    t0 = time.perf_counter()
+    results = spawn_ranks(seq_parallel_rank, SP, profile_path, backend=backend, timeout=RANK_TIMEOUT_S)
+    phase("ring ranks", backend=backend, ranks=SP, devices=[r["device"] for r in results],
+          one_shared_gpu=backend != "nccl", wall_s=time.perf_counter() - t0)
+    check(all(r["backend"] == backend for r in results), "a rank ran another backend")
+    for rank, r in enumerate(results):
+        phase(f"ring, card vs dense, rank {rank}", **r["small"])
+    samples = [r["sample"] for r in results]
+    for name in samples[0]["ids"]:
+        check(all(np.array_equal(s["ids"][name], samples[0]["ids"][name]) for s in samples),
+              f"seq sample {name}: ids differ across ranks")
+        check(len({s["video_sha"][name] for s in samples}) == 1, f"seq sample {name}: videos differ across ranks")
+    for rank, smp in enumerate(samples):
+        per_sample = statistics.median(smp["seconds"][n] for n in ("req1", "req2", "req3"))
+        phase(f"seq-sharded flagship sample, rank {rank}", seconds_per_sample_b1=per_sample,
+              seconds=smp["seconds"], launches_per_sample=SEQ_SAMPLE_LAUNCHES, launches=nonzero(smp["launches"]),
+              ids_identical_across_ranks=True, build_model_s=smp["build_model_s"], peak_mem_gb=smp["peak_mem_gb"],
+              profile=smp.get("profile"))
+    trains = [r["train"] for r in results]
+    check(len({t["params_sha"] for t in trains}) == 1, "seq train: parameters differ across ranks")
+    check(all(t["losses"] == trains[0]["losses"] for t in trains), "seq train: losses differ across ranks")
+    for rank, tr in enumerate(trains):
+        per_step = statistics.median(tr["step_seconds"])
+        phase(f"seq-sharded flagship train, rank {rank}", seconds_per_step=per_step,
+              tokens_per_s=TRAIN_BATCH * 1152 / per_step, step_seconds=tr["step_seconds"],
+              dense_first_loss=tr["dense_loss"], first_loss=tr["first_loss"], losses=tr["losses"],
+              peak_mem_gb=tr["peak_mem_gb"], launches_per_step=SEQ_TRAIN_PER_STEP,
+              launches=nonzero(tr["launches"]), params_identical_across_ranks=True)
+    return {key: sum(r[path]["launches"][key] for r in results for path in ("sample", "train"))
+            for key in all_kernels()}
+
+
 def profile_train_steps(torch, trainer, path):
     """torch.profiler over two flagship train steps, written to `path`:
     device time by kernel, and by the operator (autograd node included)
@@ -946,6 +1430,8 @@ def main() -> int:
 
     flash = check_flash(torch)
     bwd = check_flash_bwd(torch)["maskgit_self_bfloat16"]
+    chunk = check_chunk(torch)["flagship_other_shard_bfloat16"]
+    check_chunk_bwd(torch)
     proj = check_proj(torch)["d512_bfloat16"]
     ce = check_fused_ce(torch)["train_bfloat16"]
     gumbel = check_gumbel_kernel(torch)["stacked_bfloat16"]
@@ -960,29 +1446,39 @@ def main() -> int:
     paths["train"] = run_train_path(torch, "train path", TRAIN_PER_STEP, TRAIN_STEPS, profile_path)
     paths["token_critic_train"] = run_train_path(torch, "token critic train path", CRITIC_TRAIN_PER_STEP,
                                                  CRITIC_TRAIN_STEPS, critic=True)
+    seq_profile = args[args.index("--profile-seq") + 1] if "--profile-seq" in args else None
+    paths["seq_sharded_sample_and_train"] = run_seq_parallel(torch, seq_profile)
     # each path ran with its counts set to 0 before it: a kernel's launches
     # are its sum over the paths
     launches = {key: sum(p[key] for p in paths.values()) for key in all_kernels()}
     phase("launches by path", **{name: nonzero(p) for name, p in paths.items()})
     check(all(launches.values()), f"a kernel was launched on no main path: {launches}")
 
+    # every number measured in this run; bound_ms from this run's shapes;
+    # library_ms the one PyTorch call computing the same function, or null
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=FLASH_SRC, replaces=FLASH_TPU,
-             launches=launches["fwd"], **flash["maskgit_self_bfloat16"]),
+             launches=launches["fwd"], **{k: flash["maskgit_self_bfloat16"][k] for k in keys}),
+        dict(name="flash_attend_chunk", route="cuda", source=FLASH_SRC, replaces=CHUNK_TPU,
+             launches=launches["chunk"], **{k: chunk[k] for k in keys}),
         dict(name="proj_sample", route="cuda", source=PROJ_SRC, replaces=PROJ_TPU,
-             launches=launches["proj"], **proj),
+             launches=launches["proj"], ms_philox=proj["ms_philox"], **{k: proj[k] for k in keys}),
         dict(name="gumbel_sample", route="cuda", source=GUMBEL_SRC, replaces=GUMBEL_TPU,
-             launches=launches["gumbel"], **gumbel),
+             launches=launches["gumbel"], ms_philox=gumbel["ms_philox"], **{k: gumbel[k] for k in keys}),
     ]
     for name, errs in (("dq", ["dq"]), ("dkv", ["dk", "dv"]), ("dbias", ["dbias"])):
+        # library_ms: SDPA's whole backward, which computes all three at once
         kernels.append(dict(name=f"flash_attention_bwd_{name}", route="cuda", source=BWD_SRC,
                             replaces=BWD_TPU[name], launches=launches[name],
                             max_abs_err=max(bwd["abs_errs"][e] for e in errs), ms=bwd["ms"][name],
-                            plain_ms=bwd["plain_ms"][name]))
+                            plain_ms=bwd["plain_ms"][name], bound_ms=bwd["bounds"][name][0],
+                            bound_by=bwd["bounds"][name][1], library_ms=bwd["library_ms"]))
     for name, errs in (("ce_fwd", ["loss", "lse"]), ("ce_dh", ["dh"]), ("ce_dw", ["dw", "db"])):
         kernels.append(dict(name=f"fused_{name}", route="cuda", source=CE_SRC, replaces=CE_TPU[name],
                             launches=launches[name], max_abs_err=max(ce["abs_errs"][e] for e in errs),
-                            ms=ce["ms"][name], plain_ms=ce["plain_ms"][name]))
+                            ms=ce["ms"][name], plain_ms=ce["plain_ms"][name], bound_ms=ce["bounds"][name][0],
+                            bound_by=ce["bounds"][name][1], library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

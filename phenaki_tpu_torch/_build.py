@@ -11,6 +11,7 @@ import time: the CPU tests import every module on a machine with no nvcc.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -57,14 +58,23 @@ _SIGNATURES = {
         _F, _I, _I,  # scale, causal, dtype (0 = f32, 1 = bf16)
         _P,  # stream
     ],
+    "flash_attend_chunk_fwd": [
+        _P, _P, _P,  # q, k, v
+        _P, _P,  # bias (h, i, ldb) read at columns [0, j), or null; kmask (b, j) f32 or null
+        _P,  # c2: one f32 on the device (the ring's shared bound, log2 units)
+        _P, _P,  # acc (b, h, i, d) f32, l (b, h, i) f32
+        _I, _I, _I, _I, _I, _I,  # b, h, i, j, d, ldb
+        _F, _I, _I, _I, _I,  # scale, causal, q_off, k_off, dtype (0 = f32, 1 = bf16)
+        _P,  # stream
+    ],
     **{
         f"flash_attention_bwd_{which}": [
             _P, _P, _P,  # q, k, v
-            _P, _P,  # bias (h, i, j) or null, kmask (b, j) f32 or null
+            _P, _P,  # bias (h, i, ldb) read at columns [0, j), or null; kmask (b, j) f32 or null
             _P, _P, _P,  # dout, lse (b, h, i) f32, delta (b, h, i) f32
             *outputs,
-            _I, _I, _I, _I, _I,  # b, h, i, j, d
-            _F, _I, _I,  # scale, causal, dtype (0 = f32, 1 = bf16)
+            _I, _I, _I, _I, _I, _I,  # b, h, i, j, d, ldb
+            _F, _I, _I, _I, _I,  # scale, causal, q_off, k_off, dtype (0 = f32, 1 = bf16)
             _P,  # stream
         ]
         for which, outputs in (("dq", [_P]),  # dq
@@ -135,8 +145,11 @@ def _source_key(cmd) -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernels' shared library."""
-    global _lib, build_seconds
+    """Compile (if needed) and load the kernels' shared library. Processes
+    that start together (the ranks of a process group) build it once: the
+    build runs under an exclusive file lock, and a process that waited for
+    the lock finds the library built."""
+    global _lib
     if _lib is not None:
         return _lib
     nvcc = _nvcc()
@@ -145,27 +158,13 @@ def load_library() -> ctypes.CDLL:
     so = _BUILD_DIR / f"libphenaki_kernels_{_source_key(base)}.so"
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{so.stem}.{os.getpid()}"
-        t0 = time.perf_counter()
-        objects = [str(_BUILD_DIR / f"{tag}.{Path(src).stem}.o") for src in sources]
-        procs = [
-            subprocess.Popen([*base, "-c", "-o", obj, src], stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(sources, objects)
-        ]
-        outputs = [p.communicate()[0] for p in procs]
-        for src, p, out in zip(sources, procs, outputs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{out}")
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([*base, "-shared", "-o", str(tmp), *objects],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        for obj in objects:
-            os.remove(obj)
-        os.replace(tmp, so)
-        build_seconds = time.perf_counter() - t0
+        with open(so.with_suffix(".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                if not so.exists():
+                    _compile(base, sources, so)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -175,6 +174,32 @@ def load_library() -> ctypes.CDLL:
     lib.phenaki_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def _compile(base, sources, so: Path) -> None:
+    """One nvcc per source in parallel, then the link, into `so`."""
+    global build_seconds
+    tag = f"{so.stem}.{os.getpid()}"
+    t0 = time.perf_counter()
+    objects = [str(_BUILD_DIR / f"{tag}.{Path(src).stem}.o") for src in sources]
+    procs = [
+        subprocess.Popen([*base, "-c", "-o", obj, src], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objects)
+    ]
+    outputs = [p.communicate()[0] for p in procs]
+    for src, p, out in zip(sources, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{out}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([*base, "-shared", "-o", str(tmp), *objects],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    for obj in objects:
+        os.remove(obj)
+    os.replace(tmp, so)
+    build_seconds = time.perf_counter() - t0
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

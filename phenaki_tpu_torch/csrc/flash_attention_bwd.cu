@@ -3,17 +3,25 @@
 //
 // Replace the TPU kernels of phenaki_tpu/ops/pallas_attention.py
 // (_bwd_dq_kernel, _bwd_dkv_kernel, _bwd_dbias_kernel, reached from
-// flash_qk_attention's custom VJP -> _flash_backward -> pl.pallas_call).
+// flash_qk_attention's and flash_attend_chunk's custom VJPs ->
+// _flash_backward -> pl.pallas_call).
 // Math contract, per (batch b, head h), with the forward's saved f32
 // lse (b, h, i) and delta = rowsum(dO * O) (b, h, i) computed by the wrapper:
 //   s[r, c]  = scale * q[r] . k[c] + bias[h, r, c] + kmask[b, c]
-//   p[r, c]  = exp(s[r, c] - lse[r]), 0 where causal and c > r + (j - i),
+//   p[r, c]  = exp(s[r, c] - lse[r]), 0 where causal and c + k_off > r + q_off
+//              (q_off = j - i, k_off = 0 over one sequence; a ring chunk's
+//              global positions otherwise),
 //              where kmask[b, c] <= -1e29 (a hard mask), past the ragged
 //              edge, and on a row with lse = -inf (no unmasked key: the
 //              forward defines out = 0 there, so every gradient is 0)
 //   dS[r, c] = p[r, c] * (dO[r] . v[c] - delta[r])
 //   dQ = scale * dS @ K,  dK = scale * dS^T @ Q,  dV = p^T @ dO,
 //   dBias[h] = sum_b dS (f32).
+// A ring chunk (kernel 3's raw acc = sum p v, l = sum p with p = 2^(s log2e
+// - c2)) rides the same kernels with lse = c2 ln 2, dO = d(acc) and
+// delta = -d(l): then dS = p * (dO . v + d(l)) is exactly the gradient of
+// the unnormalised sums. The bias is read with a row stride (ldb), so a
+// chunk's column slice of its rows' (h, i, N) bias needs no copy.
 //
 // What bounds it on the H100: the backward recomputes the scores, so every
 // (64 x 64) tile pair costs two d-deep products (Q K^T, dO V^T) before the
@@ -48,13 +56,13 @@ constexpr float MASKED = -1e29f;
 // part in the softmax at all
 template <typename T>
 __device__ __forceinline__ bool score_terms(const T* biasp, const float* kmaskp, int row,
-                                            int col, int I, int J, int q_offset, int causal,
-                                            float* extra) {
+                                            int col, int I, int J, int ldb, int q_offset,
+                                            int causal, float* extra) {
   bool valid = row < I && col < J;
   if (causal && col > row + q_offset) valid = false;
   float e = 0.f;
   if (valid) {
-    if (biasp) e += to_f32(biasp[(size_t)row * J + col]);
+    if (biasp) e += to_f32(biasp[(size_t)row * ldb + col]);
     if (kmaskp) {
       const float km = kmaskp[col];
       if (km <= MASKED) valid = false;
@@ -121,8 +129,9 @@ struct Bwd {
   const void* dout;
   const float *lse, *delta;
   int B, H, I, J, D;
+  int ldb;  // the bias's row stride (j, or N for a column slice of (h, i, N))
   float scale;
-  int causal;
+  int causal, q_off, k_off;  // causal iff col + k_off <= row + q_off
 };
 
 // ---- dQ: one block per (query tile, h, b), a loop over the key tiles ----
@@ -137,11 +146,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Bwd a, T* __restr
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * BQ, hh = blockIdx.y, bb = blockIdx.z;
-  const int I = a.I, J = a.J, D = a.D, q_offset = J - I;
+  const int I = a.I, J = a.J, D = a.D, q_offset = a.q_off - a.k_off;
   const size_t bh = (size_t)bb * a.H + hh;
   const T* kp = (const T*)a.k + bh * J * D;
   const T* vp = (const T*)a.v + bh * J * D;
-  const T* biasp = a.bias ? (const T*)a.bias + (size_t)hh * I * J : nullptr;
+  const T* biasp = a.bias ? (const T*)a.bias + (size_t)hh * I * a.ldb : nullptr;
   const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
 
   load_rows<T, DP>(Qs, (const T*)a.q + bh * I * D, q0, BQ, I, D);
@@ -162,7 +171,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Bwd a, T* __restr
     for (int oc = 0; oc < OC; ++oc) acc[rr][oc] = 0.f;
 
   int num_k_tiles = (J + BK - 1) / BK;
-  if (a.causal) num_k_tiles = min(num_k_tiles, min(J - 1, q0 + BQ - 1 + q_offset) / BK + 1);
+  if (a.causal) {
+    const int last_key = min(J - 1, q0 + BQ - 1 + q_offset);
+    num_k_tiles = last_key < 0 ? 0 : min(num_k_tiles, last_key / BK + 1);
+  }
 
   for (int kt = 0; kt < num_k_tiles; ++kt) {
     const int k0 = kt * BK;
@@ -179,7 +191,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Bwd a, T* __restr
       for (int cc = 0; cc < 4; ++cc) {
         const int row = q0 + ty + 16 * rr, col = k0 + tx + 16 * cc;
         float extra;
-        const bool valid = score_terms(biasp, kmaskp, row, col, I, J, q_offset, a.causal, &extra);
+        const bool valid = score_terms(biasp, kmaskp, row, col, I, J, a.ldb, q_offset, a.causal, &extra);
         const float p = recompute_p(s[rr][cc] * a.scale, extra, valid, lse[rr]);
         dSs[(ty + 16 * rr) * (BK + 1) + tx + 16 * cc] = p * (dp[rr][cc] - delta[rr]);
       }
@@ -228,11 +240,11 @@ flash_bwd_dkv_kernel(Bwd a, T* __restrict__ dk, T* __restrict__ dv) {
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = blockIdx.x * BK, hh = blockIdx.y, bb = blockIdx.z;
-  const int I = a.I, J = a.J, D = a.D, q_offset = J - I;
+  const int I = a.I, J = a.J, D = a.D, q_offset = a.q_off - a.k_off;
   const size_t bh = (size_t)bb * a.H + hh;
   const T* qp = (const T*)a.q + bh * I * D;
   const T* dop = (const T*)a.dout + bh * I * D;
-  const T* biasp = a.bias ? (const T*)a.bias + (size_t)hh * I * J : nullptr;
+  const T* biasp = a.bias ? (const T*)a.bias + (size_t)hh * I * a.ldb : nullptr;
   const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
 
   load_rows<T, DP>(Ks, (const T*)a.k + bh * J * D, k0, BK, J, D);
@@ -273,7 +285,7 @@ flash_bwd_dkv_kernel(Bwd a, T* __restrict__ dk, T* __restrict__ dv) {
         const int c = tx + 16 * cc;
         float extra;
         const bool valid =
-            score_terms(biasp, kmaskp, q0 + r, k0 + c, I, J, q_offset, a.causal, &extra);
+            score_terms(biasp, kmaskp, q0 + r, k0 + c, I, J, a.ldb, q_offset, a.causal, &extra);
         const float p = recompute_p(s[rr][cc] * a.scale, extra, valid, lse);
         Ps[r * (BK + 1) + c] = p;
         dSs[r * (BK + 1) + c] = p * (dp[rr][cc] - delta);
@@ -330,8 +342,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dbias_kernel(Bwd a, float* 
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = blockIdx.x * BK, q0 = blockIdx.y * BQ, hh = blockIdx.z;
-  const int I = a.I, J = a.J, D = a.D, q_offset = J - I;
-  const T* biasp = (const T*)a.bias + (size_t)hh * I * J;
+  const int I = a.I, J = a.J, D = a.D, q_offset = a.q_off - a.k_off;
+  const T* biasp = (const T*)a.bias + (size_t)hh * I * a.ldb;
 
   float acc[4][4];
 #pragma unroll
@@ -362,7 +374,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dbias_kernel(Bwd a, float* 
       for (int cc = 0; cc < 4; ++cc) {
         const int col = k0 + tx + 16 * cc;
         float extra;
-        const bool valid = score_terms(biasp, kmaskp, row, col, I, J, q_offset, a.causal, &extra);
+        const bool valid = score_terms(biasp, kmaskp, row, col, I, J, a.ldb, q_offset, a.causal, &extra);
         const float p = recompute_p(s[rr][cc] * a.scale, extra, valid, lse);
         acc[rr][cc] = fmaf(p, dp[rr][cc] - delta, acc[rr][cc]);
       }
@@ -424,18 +436,19 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, in
 // the (query rows q0.., keys k0..) 64 x 64 bias tile into [64][LDB], zero
 // past the edges
 __device__ __forceinline__ void load_bias_tile(bf16* dst, const bf16* biasp, int q0, int k0, int I,
-                                               int J) {
-  if (J % 8 == 0 && k0 + BK <= J) {
+                                               int J, int ldb) {
+  // 16-byte loads need an aligned base and row stride
+  if (ldb % 8 == 0 && (reinterpret_cast<uintptr_t>(biasp) & 15) == 0 && k0 + BK <= J) {
     for (int e = threadIdx.x; e < BQ * BK / 8; e += WMMA_THREADS) {
       const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < I) val = *reinterpret_cast<const uint4*>(biasp + (size_t)(q0 + r) * J + k0 + c);
+      if (q0 + r < I) val = *reinterpret_cast<const uint4*>(biasp + (size_t)(q0 + r) * ldb + k0 + c);
       *reinterpret_cast<uint4*>(dst + r * LDB + c) = val;
     }
   } else {
     for (int e = threadIdx.x; e < BQ * BK; e += WMMA_THREADS) {
       const int r = e / BK, c = e % BK;
-      dst[r * LDB + c] = (q0 + r < I && k0 + c < J) ? biasp[(size_t)(q0 + r) * J + k0 + c]
+      dst[r * LDB + c] = (q0 + r < I && k0 + c < J) ? biasp[(size_t)(q0 + r) * ldb + k0 + c]
                                                     : __float2bfloat16(0.f);
     }
   }
@@ -507,9 +520,9 @@ __global__ void __launch_bounds__(WMMA_THREADS) flash_bwd_dq_wmma(Bwd a, bf16* _
   bf16* dSs = reinterpret_cast<bf16*>(wbase + 2 * SCRATCH);
 
   const int q0 = blockIdx.x * BQ, hh = blockIdx.y, bb = blockIdx.z;
-  const int I = a.I, J = a.J, q_offset = J - I;
+  const int I = a.I, J = a.J, q_offset = a.q_off - a.k_off;
   const size_t bh = (size_t)bb * a.H + hh;
-  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * J : nullptr;
+  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * a.ldb : nullptr;
   const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
   load_tile(Qs, (const bf16*)a.q + bh * I * WD, q0, I);
   load_tile(dOs, (const bf16*)a.dout + bh * I * WD, q0, I);
@@ -522,14 +535,17 @@ __global__ void __launch_bounds__(WMMA_THREADS) flash_bwd_dq_wmma(Bwd a, bf16* _
   for (int n = 0; n < WD / 16; ++n) wm::fill_fragment(acc[n], 0.f);
 
   int num_k_tiles = (J + BK - 1) / BK;
-  if (a.causal) num_k_tiles = min(num_k_tiles, min(J - 1, q0 + BQ - 1 + q_offset) / BK + 1);
+  if (a.causal) {
+    const int last_key = min(J - 1, q0 + BQ - 1 + q_offset);
+    num_k_tiles = last_key < 0 ? 0 : min(num_k_tiles, last_key / BK + 1);
+  }
 
   for (int kt = 0; kt < num_k_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the previous K/V/bias tiles
     load_tile(Ks, (const bf16*)a.k + bh * J * WD, k0, J);
     load_tile(Vs, (const bf16*)a.v + bh * J * WD, k0, J);
-    if (biasp) load_bias_tile(Bs, biasp, q0, k0, I, J);
+    if (biasp) load_bias_tile(Bs, biasp, q0, k0, I, J, a.ldb);
     __syncthreads();
     mma_abt(Qs + warp * 16 * LDT, Ks, Ss);
     mma_abt(dOs + warp * 16 * LDT, Vs, dPs);
@@ -573,9 +589,9 @@ flash_bwd_dkv_wmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
   bf16* dSs = reinterpret_cast<bf16*>(wbase + 2 * SCRATCH + HALF_TILE);
 
   const int k0 = blockIdx.x * BK, hh = blockIdx.y, bb = blockIdx.z;
-  const int I = a.I, J = a.J, q_offset = J - I;
+  const int I = a.I, J = a.J, q_offset = a.q_off - a.k_off;
   const size_t bh = (size_t)bb * a.H + hh;
-  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * J : nullptr;
+  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * a.ldb : nullptr;
   load_tile(Ks, (const bf16*)a.k + bh * J * WD, k0, J);
   load_tile(Vs, (const bf16*)a.v + bh * J * WD, k0, J);
   const int key = k0 + warp * 16 + r;
@@ -603,7 +619,7 @@ flash_bwd_dkv_wmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
     __syncthreads();  // every warp is done with the previous Q/dO/bias tiles
     load_tile(Qs, (const bf16*)a.q + bh * I * WD, q0, I);
     load_tile(dOs, (const bf16*)a.dout + bh * I * WD, q0, I);
-    if (biasp) load_bias_tile(Bs, biasp, q0, k0, I, J);
+    if (biasp) load_bias_tile(Bs, biasp, q0, k0, I, J, a.ldb);
     for (int e = threadIdx.x; e < BQ; e += WMMA_THREADS) {
       lse_s[e] = q0 + e < I ? a.lse[bh * I + q0 + e] : -INFINITY;
       delta_s[e] = q0 + e < I ? a.delta[bh * I + q0 + e] : 0.f;
@@ -642,15 +658,15 @@ __global__ void __launch_bounds__(WMMA_THREADS) flash_bwd_dbias_wmma(Bwd a, floa
   float* dPs = reinterpret_cast<float*>(wbase + SCRATCH);
 
   const int k0 = blockIdx.x * BK, q0 = blockIdx.y * BQ, hh = blockIdx.z;
-  const int I = a.I, J = a.J, q_offset = J - I;
+  const int I = a.I, J = a.J, q_offset = a.q_off - a.k_off;
   const int row = q0 + warp * 16 + r;
-  const bf16* biasp = (const bf16*)a.bias + (size_t)hh * I * J;
+  const bf16* biasp = (const bf16*)a.bias + (size_t)hh * I * a.ldb;
   // the bias is the same for every batch row: read the lane's 32 values once
   float bias_v[BK / 2], acc[BK / 2];
 #pragma unroll
   for (int c = 0; c < BK / 2; ++c) {
     const int col = k0 + 2 * c + half;
-    bias_v[c] = (row < I && col < J) ? __bfloat162float(biasp[(size_t)row * J + col]) : 0.f;
+    bias_v[c] = (row < I && col < J) ? __bfloat162float(biasp[(size_t)row * a.ldb + col]) : 0.f;
     acc[c] = 0.f;
   }
 
@@ -770,12 +786,14 @@ cudaError_t dispatch_d(Which which, const Bwd& a, void* o1, void* o2, cudaStream
 
 int run(Which which, const void* q, const void* k, const void* v, const void* bias,
         const void* kmask, const void* dout, const void* lse, const void* delta, void* o1,
-        void* o2, int B, int H, int I, int J, int D, float scale, int causal, int dtype,
-        void* stream) {
+        void* o2, int B, int H, int I, int J, int D, int ldb, float scale, int causal, int q_off,
+        int k_off, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || I <= 0 || J <= 0 || D <= 0) return cudaErrorInvalidValue;
   if (which == kDBias && bias == nullptr) return cudaErrorInvalidValue;
+  if (bias == nullptr) ldb = J;
+  if (ldb < J) return cudaErrorInvalidValue;
   const Bwd a{q, k, v, bias, (const float*)kmask, dout, (const float*)lse, (const float*)delta,
-              B, H, I, J, D, scale, causal};
+              B, H, I, J, D, ldb, scale, causal, q_off, k_off};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32) return dispatch_d<float>(which, a, o1, o2, s);
   if (dtype == kBF16 && D == WD) return launch_wmma(which, a, o1, o2, s);
@@ -786,29 +804,30 @@ int run(Which which, const void* q, const void* k, const void* v, const void* bi
 }  // namespace
 }  // namespace phenaki
 
-extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                      const void* bias, const void* kmask, const void* dout,
-                                      const void* lse, const void* delta, void* dq, int B, int H,
-                                      int I, int J, int D, float scale, int causal, int dtype,
-                                      void* stream) {
+// The three entries share one argument list: q, k, v (b, h, i|j, d), bias
+// (h, i, ldb) read at columns [0, j) or null, kmask (b, j) f32 or null, dO,
+// lse and delta (b, h, i) f32, the outputs, then the sizes, the bias row
+// stride, scale, causal and the causal offsets (q_off, k_off): key c is seen
+// by row r iff c + k_off <= r + q_off. Attention over one whole sequence
+// passes (j - i, 0); a ring chunk passes its global positions.
+#define PHENAKI_BWD_ARGS                                                                      \
+  const void *q, const void *k, const void *v, const void *bias, const void *kmask,          \
+      const void *dout, const void *lse, const void *delta
+#define PHENAKI_BWD_SIZES                                                                     \
+  int B, int H, int I, int J, int D, int ldb, float scale, int causal, int q_off, int k_off, \
+      int dtype, void *stream
+
+extern "C" int flash_attention_bwd_dq(PHENAKI_BWD_ARGS, void* dq, PHENAKI_BWD_SIZES) {
   return phenaki::run(phenaki::kDQ, q, k, v, bias, kmask, dout, lse, delta, dq, nullptr, B, H, I,
-                      J, D, scale, causal, dtype, stream);
+                      J, D, ldb, scale, causal, q_off, k_off, dtype, stream);
 }
 
-extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                       const void* bias, const void* kmask, const void* dout,
-                                       const void* lse, const void* delta, void* dk, void* dv,
-                                       int B, int H, int I, int J, int D, float scale, int causal,
-                                       int dtype, void* stream) {
+extern "C" int flash_attention_bwd_dkv(PHENAKI_BWD_ARGS, void* dk, void* dv, PHENAKI_BWD_SIZES) {
   return phenaki::run(phenaki::kDKV, q, k, v, bias, kmask, dout, lse, delta, dk, dv, B, H, I, J,
-                      D, scale, causal, dtype, stream);
+                      D, ldb, scale, causal, q_off, k_off, dtype, stream);
 }
 
-extern "C" int flash_attention_bwd_dbias(const void* q, const void* k, const void* v,
-                                         const void* bias, const void* kmask, const void* dout,
-                                         const void* lse, const void* delta, void* dbias, int B,
-                                         int H, int I, int J, int D, float scale, int causal,
-                                         int dtype, void* stream) {
+extern "C" int flash_attention_bwd_dbias(PHENAKI_BWD_ARGS, void* dbias, PHENAKI_BWD_SIZES) {
   return phenaki::run(phenaki::kDBias, q, k, v, bias, kmask, dout, lse, delta, dbias, nullptr, B,
-                      H, I, J, D, scale, causal, dtype, stream);
+                      H, I, J, D, ldb, scale, causal, q_off, k_off, dtype, stream);
 }

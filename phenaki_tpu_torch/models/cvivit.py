@@ -5,6 +5,9 @@ shape arithmetic, `calculate_video_token_mask`,
 Decode: LFQ indices -> codes -> causal temporal transformer over the frame
 axis (PEG 'bhw_t', ALiBi) -> spatial transformer per frame (2-D continuous
 position bias) -> pixel heads for the first frame and for the rest.
+`seq_group` (a process group) runs the temporal self-attention as ring
+attention over the frame axis; spatial attention stays dense, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ class CViViT(nn.Module):
     def __init__(self, dim: int, codebook_size: int, image_size: Union[int, Tuple[int, int]],
                  patch_size: Union[int, Tuple[int, int]], temporal_patch_size: int,
                  spatial_depth: int, temporal_depth: int, *, dim_head: int = 64, heads: int = 8,
-                 channels: int = 3):
+                 channels: int = 3, seq_group=None):
         super().__init__()
         self.image_hw = pair(image_size)
         self.patch_hw = pair(patch_size)
@@ -38,7 +41,8 @@ class CViViT(nn.Module):
         common = dict(dim_head=dim_head, heads=heads)
         self.spatial_rel_pos_bias = ContinuousPositionBias(dim, heads, num_dims=2)
         self.dec_temporal_transformer = Transformer(
-            dim, temporal_depth, causal=True, peg=True, peg_causal=True, peg_layout="bhw_t", **common
+            dim, temporal_depth, causal=True, peg=True, peg_causal=True, peg_layout="bhw_t",
+            seq_group=seq_group, **common
         )
         self.dec_spatial_transformer = Transformer(dim, spatial_depth, **common)
         self.vq = LFQ(dim, codebook_size)

@@ -19,7 +19,11 @@ parameters are the head's.
 `dtype` is the compute dtype, as flax's module `dtype`: the embeddings and
 the text context are cast to it, and every layer computes in its input's
 dtype (weights cast at use), so f32 parameters can train in bf16. None
-computes in the parameters' dtype. Training adds a video (key) mask,
+computes in the parameters' dtype. `seq_group` (a process group) runs the
+MaskGit's self-attention as ring attention over the group's ranks, each of
+which runs the same forward (the JAX package's `seq_shard_mesh`); a
+SelfCritic shares that trunk, and the TokenCritic has no such option, as in
+the JAX package. Training adds a video (key) mask,
 conditioning dropout drawn from an explicit generator, and attention and
 FF dropout in training mode; `unconditional` builds no cross-attention.
 """
@@ -70,7 +74,7 @@ class MaskGit(nn.Module):
     def __init__(self, dim: int, num_tokens: int, max_seq_len: int, *, heads: int = 8,
                  dim_head: int = 64, depth: int = 6, dim_context: Optional[int] = None,
                  unconditional: bool = False, attn_dropout: float = 0.0,
-                 ff_dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+                 ff_dropout: float = 0.0, dtype: Optional[torch.dtype] = None, seq_group=None):
         super().__init__()
         self.num_tokens = num_tokens
         self.max_seq_len = max_seq_len
@@ -81,7 +85,8 @@ class MaskGit(nn.Module):
         self.continuous_pos_bias = ContinuousPositionBias(dim_head, heads, num_dims=3)
         self.transformer = Transformer(dim, depth, dim_context=dim_context, dim_head=dim_head,
                                        heads=heads, peg=True, has_cross_attn=not unconditional,
-                                       attn_dropout=attn_dropout, ff_dropout=ff_dropout)
+                                       attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                                       seq_group=seq_group)
         self.to_logits = nn.Linear(dim, num_tokens)
 
     @property

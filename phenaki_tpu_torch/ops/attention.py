@@ -6,18 +6,18 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from phenaki_tpu_torch.ops.feedforward import linear
-from phenaki_tpu_torch.ops.flash_attention import MAX_DIM_HEAD, flash_attention
+from phenaki_tpu_torch.ops.flash_attention import MAX_DIM_HEAD, MIN_FLASH_SEQ, flash_attention
 from phenaki_tpu_torch.ops.norms import LayerNorm, l2norm_scaled
 from phenaki_tpu_torch.ops.positional import alibi_bias
+from phenaki_tpu_torch.parallel.ring_attention import sequence_sharded_attention
 
 NEG_INF = -1e30
 SCALE = 8.0  # the fixed cosine-attention temperature
-# the TPU package's cutoff, kept until it is measured on the card
-MIN_FLASH_SEQ = 64
 
 
 def flash_applies(q_shape, attn_bias: Optional[torch.Tensor]) -> bool:
@@ -83,13 +83,22 @@ class Attention(nn.Module):
     pre-norm input (the reference checkpoints' quirk). Weights are cast to
     the activations' dtype at use; `dropout` acts on the attention
     probabilities in training mode.
+
+    `seq_group` (a `torch.distributed` process group) makes self-attention
+    sequence-parallel: where the sequence divides by the group's size, it
+    runs as ring attention over the group
+    (`parallel.ring_attention.sequence_sharded_attention`), on every rank of
+    the group with the same inputs. Cross-attention, null key/values, active
+    attention dropout, a group of one and an indivisible sequence take the
+    dense path, as in the JAX package (`seq_shard_mesh`).
     """
 
     def __init__(self, dim: int, *, dim_context: Optional[int] = None, dim_head: int = 64,
                  heads: int = 8, causal: bool = False, num_null_kv: int = 0, cross: bool = False,
-                 reference_self_kv: bool = False, dropout: float = 0.0):
+                 reference_self_kv: bool = False, dropout: float = 0.0, seq_group=None):
         super().__init__()
         self.dropout = dropout
+        self.seq_group = seq_group
         inner = dim_head * heads
         kv_dim = (dim_context or dim) if cross else dim
         self.heads, self.dim_head, self.causal = heads, dim_head, causal
@@ -105,6 +114,15 @@ class Attention(nn.Module):
         self.q_scale = nn.Parameter(torch.ones(dim_head))
         self.k_scale = nn.Parameter(torch.ones(dim_head))
         self.to_out = nn.Linear(inner, dim, bias=False)
+
+    def _sequence_sharded(self, context, attn_bias, dropout: float, n: int) -> bool:
+        """The ring route's gate (the JAX package's, `attention.py:264-273`)."""
+        if self.seq_group is None or context is not None or self.null_kv is not None:
+            return False
+        if dropout > 0 or (attn_bias is not None and attn_bias.ndim != 3):
+            return False
+        sp = dist.get_world_size(self.seq_group)
+        return sp > 1 and n % sp == 0
 
     def forward(self, x, mask=None, context=None, attn_bias=None) -> torch.Tensor:
         """x (b, n, dim); mask (b, j) bool key mask; context (b, m, dim_context);
@@ -145,8 +163,16 @@ class Attention(nn.Module):
             if mask is not None:
                 mask = F.pad(mask, (self.num_null_kv, 0), value=True)
 
-        out = qk_norm_attention(q, k, v, attn_bias=attn_bias, key_mask=mask,
-                                causal=self.causal, use_alibi=self.causal,
-                                dropout=self.dropout if self.training else 0.0)
+        dropout = self.dropout if self.training else 0.0
+        if self._sequence_sharded(context, attn_bias, dropout, n):
+            ring_bias = attn_bias
+            if self.causal:
+                ab = alibi_bias(self.heads, n, n, device=q.device)
+                ring_bias = ab if ring_bias is None else ring_bias + ab
+            out = sequence_sharded_attention(q, k, v, self.seq_group, scale=SCALE,
+                                             attn_bias=ring_bias, key_mask=mask, causal=self.causal)
+        else:
+            out = qk_norm_attention(q, k, v, attn_bias=attn_bias, key_mask=mask,
+                                    causal=self.causal, use_alibi=self.causal, dropout=dropout)
         out = out.transpose(1, 2).reshape(batch, n, inner)
         return linear(out, self.to_out)

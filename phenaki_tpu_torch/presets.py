@@ -54,26 +54,30 @@ def flagship_token_critic(max_seq_len: int = 1152, **overrides) -> TokenCritic:
 
 def flagship_phenaki(seed: int = 0, *, device="cuda", dtype=torch.bfloat16,
                      num_frames: int = FLAGSHIP_NUM_FRAMES, steps: int = 18, critic: bool = False,
-                     self_token_critic: bool = False) -> Phenaki:
+                     self_token_critic: bool = False, seq_group=None) -> Phenaki:
     """The flagship Phenaki with seeded random weights on `device`.
 
     Weights are drawn in f32 on the CPU from `torch.Generator().manual_seed(seed)`
     (so a seed gives the same weights on every machine), then moved to
-    `device` and `dtype`."""
-    return _seeded_flagship(seed, device, dtype, num_frames, steps, None, critic, self_token_critic)
+    `device` and `dtype`. `seq_group` makes the MaskGit's self-attention
+    sequence-parallel over that process group (every rank builds the same
+    model and runs the same calls)."""
+    return _seeded_flagship(seed, device, dtype, num_frames, steps, None, critic, self_token_critic,
+                            seq_group)
 
 
 def flagship_train_phenaki(seed: int = 0, *, device="cuda", num_frames: int = FLAGSHIP_NUM_FRAMES,
-                           critic: bool = False, self_token_critic: bool = False) -> Phenaki:
+                           critic: bool = False, self_token_critic: bool = False,
+                           seq_group=None) -> Phenaki:
     """The flagship Phenaki for training: the same seeded weights as
     `flagship_phenaki`, kept in f32, with the MaskGit and the critic
-    computing in bf16."""
+    computing in bf16; `seq_group` as for `flagship_phenaki`."""
     return _seeded_flagship(seed, device, torch.float32, num_frames, 18, torch.bfloat16, critic,
-                            self_token_critic)
+                            self_token_critic, seq_group)
 
 
 def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype, critic,
-                     self_token_critic) -> Phenaki:
+                     self_token_critic, seq_group) -> Phenaki:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("flagship_phenaki(device='cuda'): torch.cuda.is_available() is False")
@@ -81,7 +85,7 @@ def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype, crit
     with torch.device("meta"):
         cvivit = flagship_cvivit()
         n = cvivit.num_tokens_per_frames(num_frames)
-        modules = [cvivit, flagship_maskgit(max_seq_len=n, dtype=compute_dtype)]
+        modules = [cvivit, flagship_maskgit(max_seq_len=n, dtype=compute_dtype, seq_group=seq_group)]
         if critic:
             modules.append(flagship_token_critic(max_seq_len=n, dtype=compute_dtype))
         elif self_token_critic:

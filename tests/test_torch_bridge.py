@@ -143,3 +143,16 @@ def test_port_imports_no_jax():
         for name in _imported_modules(path):
             top = name.split(".")[0]
             assert top not in banned, f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("name", ["test_torch_ring_attention.py", "test_torch_seq_parallel.py"])
+def test_rank_test_modules_import_no_jax_at_module_level(name):
+    """A spawned rank imports its test module by name: the module's own
+    imports (module level) must pull no JAX; the tests import it inside."""
+    tree = ast.parse((Path(__file__).resolve().parent / name).read_text())
+    banned = ("jax", "flax", "optax", "phenaki_tpu")
+    for node in tree.body:
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+        for mod in names:
+            assert mod.split(".")[0] not in banned, f"{name} imports {mod} at module level"

@@ -36,3 +36,52 @@ def test_flagship_on_cuda_needs_a_card(preset):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         preset(seed=0, device="cuda")
+
+
+def test_concurrent_loaders_build_once(monkeypatch, tmp_path):
+    """Two loaders that start together (the ranks of a process group) build
+    the library once: the second waits for the first's lock, then finds the
+    library built. Mocked: the compile writes the file, the loader is a stub."""
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "k.cu").write_text("// kernel")
+    monkeypatch.setattr(_build, "_CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_lib", None)
+    builds, inside = [], []
+
+    def compile_(base, sources, so):
+        inside.append(1)
+        assert len(inside) == 1, "two builds ran at once"
+        time.sleep(0.3)
+        so.write_text("library")
+        builds.append(so)
+        inside.pop()
+
+    class _Lib:
+        def __getattr__(self, name):
+            fn = SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_compile", compile_)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: _Lib())
+    loaded, errors = [], []
+
+    def loader():
+        try:
+            loaded.append(_build.load_library())
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=loader) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and len(loaded) == 2
+    assert len(builds) == 1 and builds[0].read_text() == "library"
