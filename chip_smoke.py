@@ -7,9 +7,12 @@ and without a critic, on one NVIDIA GPU.
                                                   # flagship train steps written to OUT.txt
     python3 chip_smoke.py --profile-seq OUT.txt    # and a profile of one sequence-sharded
                                                   # flagship sample (rank 0) written to OUT.txt
+    python3 chip_smoke.py --profile-sample OUT.txt # and a profile of three b = 1 flagship
+                                                  # samples written to OUT.txt
 
-Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc, holds
-each kernel against its plain PyTorch version at the flagship shapes (the
+Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc (and
+checks that the bf16 attention forward's SASS holds wgmma), holds each
+kernel against its plain PyTorch version at the flagship shapes (the
 flash-attention forward and its three backward kernels, the projection
 sampler, the fused cross-entropy forward and its two backward kernels, the
 logits-path sampler), checks small fp32 models sampled and trained on the
@@ -123,6 +126,37 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device milliseconds of `fn`, replayed from one CUDA graph of
+    `reps` calls: the launches without the host's cost of issuing them. The
+    Python wrapper of a forward kernel takes about as long to issue a call as
+    the card takes to run it, so `cuda_ms` of back-to-back calls measures the
+    host there."""
+    import torch
+
+    side = torch.cuda.Stream()  # warm up off the default stream, as torch.cuda.graphs asks
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def bound(nbytes: float, ops: float, kind: str = "bf16"):
     """The least time the card could take: (ms, what bounds it), from the
     bytes moved (each input read once, each output written once) and the
@@ -144,11 +178,18 @@ def qk(shape, gen, dtype):
     return t.to("cuda", dtype)
 
 
+# kernel 1's main-path shapes: each is timed beside its bound and one SDPA
+# call on the same inputs
+FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self")
+
+
 def flash_cases(torch, dtype, gen):
     """The flagship shapes at b = 1 (CFG stacks 2 rows): MaskGit
     self-attention with the CPB bias, the TokenCritic's self-attention
-    without one, cross-attention; a causal case, and d = 128 with ragged
-    tiles."""
+    without one, cross-attention, the C-ViViT's spatial attention; the
+    cross-attention with every key of one batch row hard-masked (out = 0,
+    lse = -inf), a causal case, ragged tiles (i = j = 1000 with a bias), and
+    d = 128 with ragged tiles."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
     from phenaki_tpu_torch.ops.positional import alibi_bias
 
@@ -164,24 +205,65 @@ def flash_cases(torch, dtype, gen):
     keep[1, 2:] = False  # the null branch of CFG: only the null-KV columns
     kmask = torch.where(keep, 0.0, NEG_INF).float().cuda()
     cases["maskgit_cross"] = (q, kc, vc, None, kmask, False)
+    dead = kmask.clone()
+    dead[1] = NEG_INF  # batch row 1 attends no key
+    cases["masked_batch_row"] = (q, kc, vc, None, dead, False)
     qs, ks = qk((9, 8, 128, 64), gen, dtype), qk((9, 8, 128, 64), gen, dtype)
     vs = torch.randn(9, 8, 128, 64, generator=gen).to("cuda", dtype)
     cases["cvivit_spatial"] = (qs, ks, vs, torch.randn(8, 128, 128, generator=gen).to("cuda", dtype), None, False)
     qa, ka = qk((2, 8, 256, 64), gen, dtype), qk((2, 8, 320, 64), gen, dtype)
     va = torch.randn(2, 8, 320, 64, generator=gen).to("cuda", dtype)
     cases["causal_alibi"] = (qa, ka, va, alibi_bias(8, 256, 320, device="cuda").to(dtype), None, True)
+    qr, kr = qk((2, 8, 1000, 64), gen, dtype), qk((2, 8, 1000, 64), gen, dtype)
+    vr = torch.randn(2, 8, 1000, 64, generator=gen).to("cuda", dtype)
+    cases["ragged_1000"] = (qr, kr, vr, torch.randn(8, 1000, 1000, generator=gen).to("cuda", dtype), None, False)
     qd, kd = qk((1, 4, 200, 128), gen, dtype), qk((1, 4, 200, 128), gen, dtype)
     vd = torch.randn(1, 4, 200, 128, generator=gen).to("cuda", dtype)
     cases["dim_head_128"] = (qd, kd, vd, torch.randn(4, 200, 200, generator=gen).to("cuda", dtype), None, False)
     return cases
 
 
+def check_wgmma_build():
+    """The bf16 forward as built: ptxas's registers, spills and shared memory
+    for its four instances (d = 64, 128; kernels 1 and 3), from the build
+    log, and the wgmma instructions (HGMMA) in each one's SASS, from
+    cuobjdump. Fails if an instance holds none."""
+    import shutil
+
+    from phenaki_tpu_torch import _build
+
+    kernel = "flash_fwd_wgmma_kernel"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if kernel in fn:
+                hgmma[fn] = 0
+        elif fn in hgmma and "HGMMA" in line:
+            hgmma[fn] += 1
+    ptxas = _build.ptxas_report(kernel)
+    phase("flash forward build", ptxas=ptxas, hgmma=hgmma)
+    check(len(hgmma) == 4 and all(hgmma.values()), f"{kernel}: HGMMA by instance {hgmma}")
+
+
 def check_flash(torch):
+    """Kernel 1 against its plain version on every case, bf16 and f32: the
+    output within a tolerance, the lse within 1e-3 where finite and -inf on
+    the same rows. `ms` and `plain_ms` time back-to-back calls from Python,
+    as every other kernel is timed; `graph_ms` replays the kernel's calls
+    from one CUDA graph, its device time alone. At the main-path shapes in
+    bf16 also the bound and SDPA's time by both methods (`library_ms`,
+    `library_graph_ms`; the bias, or the key mask as a (b, 1, 1, j) mask in
+    q's dtype, as its float mask)."""
     from phenaki_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     gen = torch.Generator().manual_seed(1)
-    # bf16: the plain version rounds the probabilities to bf16 before the PV
-    # product, the kernel keeps them in f32; outputs are bf16 (2^-8 relative)
+    # bf16: the plain version rounds the normalised probabilities to bf16
+    # before the PV product, the kernel the unnormalised ones; outputs are
+    # bf16 (2^-8 relative)
     tol = {torch.bfloat16: 2e-2, torch.float32: 5e-5}
     result = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -190,26 +272,31 @@ def check_flash(torch):
             out, lse = flash_attention(q, k, v, bias, kmask, return_lse=True, **kw)
             ref, ref_lse = flash_attention_plain(q, k, v, bias, kmask, return_lse=True, **kw)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
-            ms = cuda_ms(lambda: flash_attention(q, k, v, bias, kmask, **kw))
-            plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, bias, kmask, **kw))
             tag = f"{name}_{str(dtype).split('.')[-1]}"
-            phase(f"flash_attention {tag}", shape=list(q.shape), j=k.shape[2], max_abs_err=err,
-                  lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms)
+            err = (out.float() - ref.float()).abs().max().item()
+            dead = torch.isneginf(ref_lse)
+            check(torch.equal(torch.isneginf(lse), dead), f"flash {tag}: lse is -inf on other rows")
+            lse_err = (lse - ref_lse)[~dead].abs().max().item()
+            if name == "masked_batch_row":
+                check(bool(dead[1].all()) and not dead[0].any() and out[1].abs().max().item() == 0.0,
+                      f"flash {tag}: the masked batch row is not out = 0, lse = -inf")
+            entry = dict(max_abs_err=err, lse_max_abs_err=lse_err,
+                         ms=cuda_ms(lambda: flash_attention(q, k, v, bias, kmask, **kw)),
+                         graph_ms=graph_ms(lambda: flash_attention(q, k, v, bias, kmask, **kw)),
+                         plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, bias, kmask, **kw), reps=5))
+            if dtype == torch.bfloat16 and name in FLASH_MAIN_SHAPES:
+                b, h, i, d = q.shape
+                mask = bias if kmask is None else kmask[:, None, None, :].to(q.dtype)
+                entry["bound_ms"], entry["bound_by"] = bound(
+                    nbytes(q, k, v, bias, kmask, out), 4 * b * h * i * k.shape[2] * d)
+                sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=mask, scale=8.0)
+                entry["library_ms"], entry["library_graph_ms"] = cuda_ms(sdpa), graph_ms(sdpa)
+            phase(f"flash_attention {tag}", shape=list(q.shape), j=k.shape[2], **entry)
             check(torch.isfinite(out).all().item(), f"flash {tag}: non-finite output")
             check(err <= tol[dtype], f"flash {tag}: max abs err {err} > {tol[dtype]}")
             check(lse_err <= 1e-3, f"flash {tag}: lse err {lse_err}")
-            result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-            if tag == "maskgit_self_bfloat16":
-                # the yardstick: one PyTorch call, SDPA with the bias as a float mask
-                b, h, i, d = q.shape
-                result[tag]["bound_ms"], result[tag]["bound_by"] = bound(
-                    nbytes(q, k, v, bias, out), 4 * b * h * i * k.shape[2] * d)
-                result[tag]["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=bias, scale=8.0))
-                phase(f"flash_attention {tag} yardsticks", bound_ms=result[tag]["bound_ms"],
-                      library_ms=result[tag]["library_ms"])
+            result[tag] = entry
     return result
 
 
@@ -305,9 +392,10 @@ def check_flash_bwd(torch):
 
     # autograd on the card: the Function launches the kernels and every
     # differentiable input gets a gradient equal to the plain backward's. f32
-    # on a slice of the self-attention case; bf16 (the WMMA kernels) at the
-    # whole train shape with an f32 bias, as the CPB gives it, so the
-    # Function's casts (bias to bf16 and back, dO to bf16) are on the path
+    # on a slice of the self-attention case; bf16 (the wgmma forward and the
+    # WMMA backward) at the whole train shape with an f32 bias, as the CPB
+    # gives it, so the Function's casts (bias to bf16 and back, dO to bf16)
+    # are on the path
     q, k, v, bias, kmask, _ = flash_bwd_cases(torch, torch.float32, gen)["maskgit_self"]
     f32_leaves = [t[:1, :2].clone() for t in (q, k, v)] + [bias[:2].clone()]
     q, k, v, _, _, _ = flash_bwd_cases(torch, torch.bfloat16, gen)["maskgit_self"]
@@ -362,7 +450,10 @@ def chunk_cases(torch, dtype, gen, b):
     576) read in place from the rows' (8, 576, 1152) bias; the same with a
     key mask, against the rank's own shard; causal chunks at global offsets
     (0, 0) (the diagonal), (576, 0) (wholly visible) and (0, 576) (wholly
-    masked: acc = l = 0). Each: (q, k, v, bias, kmask, causal, offsets)."""
+    masked: acc = l = 0); and d = 128 with ragged tiles (200 rows and keys),
+    its bias slice read in place from (4, 200, 400) rows and a causal mask at
+    offsets (37, 0) that cuts through tiles. Each bias is a slice of rows
+    twice its width. Each: (q, k, v, bias, kmask, causal, offsets)."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
 
     q, k = qk((b, 8, 576, 64), gen, dtype), qk((b, 8, 576, 64), gen, dtype)
@@ -370,11 +461,15 @@ def chunk_cases(torch, dtype, gen, b):
     rows_bias = torch.randn(8, 576, 1152, generator=gen).to("cuda", dtype)
     keep = torch.rand(b, 576, generator=gen) > 0.3
     kmask = torch.where(keep, 0.0, NEG_INF).float().cuda()
+    qd, kd = qk((b, 4, 200, 128), gen, dtype), qk((b, 4, 200, 128), gen, dtype)
+    vd = torch.randn(b, 4, 200, 128, generator=gen).to("cuda", dtype)
+    rows_d = torch.randn(4, 200, 400, generator=gen).to("cuda", dtype)
     return {"flagship_other_shard": (q, k, v, rows_bias[..., 576:], None, False, None),
             "kmask_own_shard": (q, k, v, rows_bias[..., :576], kmask, False, None),
             "causal_diagonal": (q, k, v, rows_bias[..., :576], None, True, (0, 0)),
             "causal_below": (q, k, v, rows_bias[..., :576], None, True, (576, 0)),
-            "causal_above": (q, k, v, rows_bias[..., 576:], None, True, (0, 576))}
+            "causal_above": (q, k, v, rows_bias[..., 576:], None, True, (0, 576)),
+            "dim_head_128_causal": (qd, kd, vd, rows_d[..., 200:], None, True, (37, 0))}
 
 
 def ring_bound(torch, q, k):
@@ -395,7 +490,7 @@ def check_chunk(torch):
     result = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, (q, k, v, bias, kmask, causal, offsets) in chunk_cases(torch, dtype, gen, 2).items():
-            check(bias.stride(1) == 1152, "the chunk's bias is not the in-place slice")
+            check(bias.stride(1) == 2 * k.shape[2], "the chunk's bias is not the in-place slice")
             c2 = ring_bound(torch, q, k)
             kw = dict(c2=c2, scale=8.0, causal=causal, offsets=offsets)
             acc, l = fa.flash_attend_chunk(q, k, v, bias, kmask, **kw)
@@ -414,8 +509,11 @@ def check_chunk(torch):
             entry = dict(rel_err=errs, max_abs_err=max((acc - ref_acc).abs().max().item(),
                                                        (l - ref_l).abs().max().item()))
             if tag == "flagship_other_shard_bfloat16":
+                # timed as kernel 1 is (see check_flash)
                 entry["ms"] = cuda_ms(lambda: fa.flash_attend_chunk(q, k, v, bias, kmask, **kw))
-                entry["plain_ms"] = cuda_ms(lambda: fa.flash_attend_chunk_plain(q, k, v, bias, kmask, **kw))
+                entry["graph_ms"] = graph_ms(lambda: fa.flash_attend_chunk(q, k, v, bias, kmask, **kw))
+                entry["plain_ms"] = cuda_ms(lambda: fa.flash_attend_chunk_plain(q, k, v, bias, kmask, **kw),
+                                            reps=5)
                 b, h, i, d = q.shape
                 entry["bound_ms"], entry["bound_by"] = bound(
                     nbytes(q, k, v, bias, acc, l), 4 * b * h * i * k.shape[2] * d)
@@ -840,12 +938,53 @@ def run_sample_path(torch, label, sample, per_sample):
     return launches
 
 
-def run_sample_paths(torch):
+def device_shares(torch, events, kernel="flash_fwd_wgmma"):
+    """From a profiler's `key_averages()`: the device milliseconds (the self
+    time of the rows that are device events other than user annotations,
+    the table's "Self CUDA time total"; an operator's row repeats its
+    kernels' time) and those of the kernels whose name holds `kernel`."""
+    rows = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in rows if kernel in e.key) / 1e3
+    return device_ms, kernel_ms
+
+
+def profile_samples(torch, sample, path, n=3):
+    """`torch.profiler` over `n` more b = 1 flagship samples (the path has
+    warmed up), written to `path`: device time by kernel and operator. The
+    phase line gives device and wall milliseconds a sample, the idle share
+    (1 - device / wall) and kernel 1's device time and share."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    emb = sample_requests(torch)[1][1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            sample(emb, torch.Generator().manual_seed(11 + i))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / n
+    events = prof.key_averages()
+    device_ms, flash_ms = (x / n for x in device_shares(torch, events))
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(
+        events.table(sort_by="self_device_time_total", row_limit=50, max_name_column_width=100)
+        + "\n" + events.table(sort_by="cpu_time_total", row_limit=40, max_name_column_width=100))
+    phase("sample profile", path=str(path), samples=n, device_ms_per_sample=device_ms,
+          wall_ms_per_sample=wall_ms, idle=1 - device_ms / wall_ms, flash_fwd_ms_per_sample=flash_ms,
+          flash_fwd_share=flash_ms / device_ms)
+
+
+def run_sample_paths(torch, profile_path=None):
     """The flagship sampled four ways, each model built by its preset: plain
     (`flagship_phenaki(...).sample`), on the logits path (its MaskGit through
     `maskgit_sample_loop(logits_fn=..., stacked_cfg_scale=5)`), and
     critic-guided with a TokenCritic and with a SelfCritic. Returns each
-    path's launches."""
+    path's launches. With `profile_path`, the plain path is profiled after
+    its run (`profile_samples`)."""
     from phenaki_tpu_torch.presets import flagship_phenaki
 
     paths = {}
@@ -861,6 +1000,8 @@ def run_sample_paths(torch):
 
         per_sample = SAMPLE_LAUNCHES if not kw else CRITIC_SAMPLE_LAUNCHES
         paths[label] = run_sample_path(torch, label, sample, per_sample)
+        if not kw and profile_path:
+            profile_samples(torch, sample, profile_path)
         if not kw:
             def logits_sample(emb, gen):
                 ids = logits_path_ids(torch, ph, emb, gen, num_frames=17)
@@ -1265,9 +1406,9 @@ def profile_seq_sample(torch, ph, path):
     """One more flagship sample under `torch.profiler`, on every rank (the
     ring's collectives need them all); rank 0 writes its table of device
     time by kernel and operator to `path`. Returns this rank's device
-    milliseconds (the sum of self device time over the table's rows) and
-    wall milliseconds. With the ranks sharing one GPU, the other rank's
-    kernels occupy the card too: the idle share is this rank's only."""
+    milliseconds (`device_shares`) and wall milliseconds. With the ranks
+    sharing one GPU, the other rank's kernels occupy the card too: the idle
+    share is this rank's only."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
@@ -1280,7 +1421,7 @@ def profile_seq_sample(torch, ph, path):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    device_ms = device_shares(torch, events)[0]
     if torch.distributed.get_rank() == 0:
         Path(path).parent.mkdir(parents=True, exist_ok=True)
         Path(path).write_text(
@@ -1403,7 +1544,9 @@ def profile_train_steps(torch, trainer, path):
     Path(path).write_text(
         events.table(sort_by="self_device_time_total", row_limit=60, max_name_column_width=100)
         + "\n" + events.table(sort_by="device_time_total", row_limit=80, max_name_column_width=100))
-    phase("train profile", path=str(path))
+    device_ms, flash_ms = device_shares(torch, events)
+    phase("train profile", path=str(path), steps=2, device_ms_per_step=device_ms / 2,
+          flash_fwd_ms_per_step=flash_ms / 2, flash_fwd_share=flash_ms / device_ms)
 
 
 def main() -> int:
@@ -1427,6 +1570,7 @@ def main() -> int:
     _build.load_library()
     phase("device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
           nvcc_build_s=_build.build_seconds, load_s=time.perf_counter() - t)
+    check_wgmma_build()
 
     flash = check_flash(torch)
     bwd = check_flash_bwd(torch)["maskgit_self_bfloat16"]
@@ -1440,8 +1584,9 @@ def main() -> int:
     check_small_critic(torch)
     check_gumbel(torch)
     check_learning(torch)
-    paths = run_sample_paths(torch)
     args = sys.argv[1:]
+    sample_profile = args[args.index("--profile-sample") + 1] if "--profile-sample" in args else None
+    paths = run_sample_paths(torch, sample_profile)
     profile_path = args[args.index("--profile-train") + 1] if "--profile-train" in args else None
     paths["train"] = run_train_path(torch, "train path", TRAIN_PER_STEP, TRAIN_STEPS, profile_path)
     paths["token_critic_train"] = run_train_path(torch, "token critic train path", CRITIC_TRAIN_PER_STEP,
@@ -1456,12 +1601,19 @@ def main() -> int:
 
     # every number measured in this run; bound_ms from this run's shapes;
     # library_ms the one PyTorch call computing the same function, or null
+    # (every ms timed by back-to-back calls; the forward's graph_ms and
+    # library_graph_ms by CUDA-graph replay, the device time alone)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    shape_keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
+    self_bf16 = flash["maskgit_self_bfloat16"]
     kernels = [
         dict(name="flash_attention_fwd", route="cuda", source=FLASH_SRC, replaces=FLASH_TPU,
-             launches=launches["fwd"], **{k: flash["maskgit_self_bfloat16"][k] for k in keys}),
+             launches=launches["fwd"], **{k: self_bf16[k] for k in keys}, graph_ms=self_bf16["graph_ms"],
+             library_graph_ms=self_bf16["library_graph_ms"],
+             shapes={name: {k: flash[f"{name}_bfloat16"][k] for k in shape_keys}
+                     for name in FLASH_MAIN_SHAPES}),
         dict(name="flash_attend_chunk", route="cuda", source=FLASH_SRC, replaces=CHUNK_TPU,
-             launches=launches["chunk"], **{k: chunk[k] for k in keys}),
+             launches=launches["chunk"], **{k: chunk[k] for k in keys}, graph_ms=chunk["graph_ms"]),
         dict(name="proj_sample", route="cuda", source=PROJ_SRC, replaces=PROJ_TPU,
              launches=launches["proj"], ms_philox=proj["ms_philox"], **{k: proj[k] for k in keys}),
         dict(name="gumbel_sample", route="cuda", source=GUMBEL_SRC, replaces=GUMBEL_TPU,

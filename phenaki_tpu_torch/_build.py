@@ -32,12 +32,14 @@ NVCC_FLAGS = [
     "-O3",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas=-v",  # each kernel's registers, spills and shared memory, into the build log
 ]
 
 # dtype codes of the C entry points
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None
+_so: Optional[Path] = None  # the loaded library; nvcc's output is beside it (.log)
 # wall seconds of the last nvcc run in this process (0.0 when the cached
 # library was reused)
 build_seconds: float = 0.0
@@ -52,9 +54,9 @@ _U64 = ctypes.c_ulonglong
 _SIGNATURES = {
     "flash_attention_fwd": [
         _P, _P, _P,  # q, k, v
-        _P, _P,  # bias (h, i, j) or null, kmask (b, j) f32 or null
+        _P, _P,  # bias (h, i, ldb) read at columns [0, j), or null; kmask (b, j) f32 or null
         _P, _P,  # out, lse (b, h, i) f32 or null
-        _I, _I, _I, _I, _I,  # b, h, i, j, d
+        _I, _I, _I, _I, _I, _I,  # b, h, i, j, d, ldb (the bias row stride)
         _F, _I, _I,  # scale, causal, dtype (0 = f32, 1 = bf16)
         _P,  # stream
     ],
@@ -149,7 +151,7 @@ def load_library() -> ctypes.CDLL:
     that start together (the ranks of a process group) build it once: the
     build runs under an exclusive file lock, and a process that waited for
     the lock finds the library built."""
-    global _lib
+    global _lib, _so
     if _lib is not None:
         return _lib
     nvcc = _nvcc()
@@ -172,7 +174,7 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.phenaki_error_string.argtypes = [ctypes.c_int]
     lib.phenaki_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _lib, _so = lib, so
     return lib
 
 
@@ -191,6 +193,7 @@ def _compile(base, sources, so: Path) -> None:
     for src, p, out in zip(sources, procs, outputs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src} ({p.returncode}):\n{out}")
+    so.with_suffix(".log").write_text("".join(f"== {src}\n{out}" for src, out in zip(sources, outputs)))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([*base, "-shared", "-o", str(tmp), *objects],
                           capture_output=True, text=True)
@@ -200,6 +203,27 @@ def _compile(base, sources, so: Path) -> None:
         os.remove(obj)
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
+
+
+def library_path() -> Path:
+    """The loaded library's file (after `load_library()`)."""
+    return _so
+
+
+def ptxas_report(kernel: str) -> list:
+    """The build log's ptxas lines (registers, spills, shared memory) of the
+    kernels whose mangled names contain `kernel`, one string a kernel."""
+    log = _so.with_suffix(".log") if _so is not None else None
+    lines = log.read_text().splitlines() if log is not None and log.exists() else []
+    report, current = [], None
+    for line in lines:
+        if "Compiling entry function" in line:
+            current = [line.split("'")[1]] if kernel in line else None
+            if current is not None:
+                report.append(current)
+        elif current is not None and line.strip() and "Function properties" not in line:
+            current.append(line.replace("ptxas info    :", "").strip())
+    return [" | ".join(r) for r in report]
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

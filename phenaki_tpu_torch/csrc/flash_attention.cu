@@ -19,28 +19,57 @@
 // An additive kmask value <= -1e29 is a hard mask (weight exactly 0). A row
 // whose keys are all masked is defined as out = 0, lse = -inf (kernel 1, as
 // the TPU kernel's max(l, 1e-37) normalisation gives), and acc = 0, l = 0
-// (kernel 3). The bias is read with a row stride `ldb` (j for kernel 1), so
-// kernel 3 reads its (h, i, j) column slice of the local rows' (h, i, N)
-// bias in place.
+// (kernel 3). The bias is read with a row stride `ldb`, so kernel 3 reads
+// its (h, i, j) column slice of the local rows' (h, i, N) bias in place.
 //
-// What bounds it on the H100: at the flagship shapes (d = 64, i up to 1152)
-// the score and PV products are 4*i*j*d FLOPs against i*j bias bytes, so the
-// kernel is bound by arithmetic, and by the softmax epilogue between the two
-// products. The TPU design's bounded-shift softmax and ones-augmented V were
-// MXU/VPU workarounds; kernel 1 uses a standard online softmax (running max
-// and sum per row), which is exact and cheap. Kernel 3 keeps the bounded
-// shift because it is the ring's contract (chunks add without a max), and
-// returns acc and l as two tensors instead of the TPU's 128-lane
-// [acc | l | 0...] block. The design keeps the (i, j) score matrix out of
-// device memory: one block owns one (b, h, 64-query tile) and loops over
-// 64-key tiles, holding Q, the K/V (and bias) tile and the tile's
-// probabilities in shared memory. bf16 at d = 64 or 128 runs both products on
-// the tensor cores (WMMA, flash_fwd_wmma_kernel); f32 and other head sizes
-// run them on the CUDA cores in f32 (flash_fwd_kernel). Both kernels take
-// the chunk mode as the template flag RAW. wgmma/TMA and a register-resident
-// accumulator are the next steps for speed.
-
-#include <mma.h>
+// What bounds it on the H100: at the flagship self-attention (2, 8, 1152,
+// 64) with its (8, 1152, 1152) bf16 bias, the call must move 30.7 MB, 21.2
+// MB of it the bias (9.2 us at 3.35 TB/s), against 5.4 GFLOP of products
+// (5.5 us at 989 TFLOP/s): bound by bytes, the bias first. Between the two
+// products sits the softmax, an exp per score on the multi-function unit
+// (16 a clock an SM) and a handful of ALU instructions per score, which at
+// d = 64 cost more issue slots than the products.
+//
+// The design (bf16, d = 64 or 128: flash_fwd_wgmma_kernel): one warpgroup
+// (128 threads) owns 64 query rows of one (b, h) and walks the key tiles.
+//  - S = Q K^T is one wgmma m64n64k16 chain per 64-key tile, Q and K read by
+//    the tensor cores from shared memory in the 128-byte-swizzled K-major
+//    layout; S stays in registers (32 f32 a thread).
+//  - The epilogue runs on the accumulator registers: the scale with log2(e)
+//    folded in; the bias tile read from shared memory by ldmatrix straight
+//    into the accumulator layout; the kmask, causal and ragged-edge masks
+//    only on a tile that one of them reaches; the online softmax's row max
+//    (4 lanes share a row: two xor shuffles) and ex2. Kernel 3 (template
+//    flag RAW) shifts by the fixed c2 instead of the running max.
+//  - P never leaves registers: the accumulator layout of S is the register
+//    A-operand layout of the next wgmma, so P is packed to bf16 in place and
+//    O += P V runs as wgmma m64n{64,128}k16 with V (keys x d, d contiguous)
+//    read from shared memory as an MN-major B (the transpose flag). O stays
+//    in registers and is rescaled there.
+//  - K, V and the bias tile stream through a two-stage ring in shared
+//    memory, filled with 16-byte cp.async (zero-filled past the ragged
+//    edges, which the masks then hide): tile t + 1's copies are in flight
+//    while tile t computes. Shared memory is 59 KB a block at d = 64 (Q 8
+//    KB, two stages of K 8 KB + V 8 KB + bias 9 KB, 1 KB alignment slack),
+//    and the registers stay under 168 (__launch_bounds__), so three blocks
+//    (twelve warps) fit on an SM and the flagship grid of 288 blocks runs in
+//    one wave on 132 SMs (396 slots). d = 128 takes 99 KB: two blocks an SM.
+//    Overlapping tile t's softmax with tile t - 1's P V inside the
+//    warpgroup (a software pipeline) measured no faster on the card at the
+//    flagship shapes, with more registers, and was left out.
+//  - The bias, the largest operand, moves from HBM once per (h, query
+//    tile): the batch is the fastest grid index (blockIdx.x), so the blocks
+//    of one (h, query tile) run side by side and L2 serves every batch row
+//    after the first. One block walking the batch rows over a resident bias
+//    tile was the other choice; it would put the batch rows in series inside
+//    a block and cut the grid (and the blocks that hide each other's
+//    softmax) by the batch size.
+// The wrapper guarantees what the 16-byte copies need: q, k, v, out and the
+// bias 16-byte aligned, and the bias row stride a multiple of 8 (it copies
+// an operand that is not); the entry points return cudaErrorMisalignedAddress
+// otherwise. f32 and other head sizes run both products on the CUDA cores in
+// f32 (flash_fwd_kernel, 64 x 64 tiles in shared memory), also with the RAW
+// flag; no main path runs it.
 
 #include "common.cuh"
 
@@ -52,6 +81,7 @@ constexpr int BK = 64;       // keys per inner tile
 constexpr int THREADS = 256; // 16 x 16 thread grid
 constexpr float MASKED = -1e29f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Fwd {
   const void *q, *k, *v, *bias;
@@ -244,214 +274,400 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Fwd a) {
 
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64 or 128: the two products on the tensor cores (WMMA
-// 16x16x16, f32 accumulate). Four warps; each owns 16 query rows of the
-// block's 64, computes its 16x64 score tile into shared memory, runs the
-// softmax there (two lanes per row, on interleaved columns so that the
-// shared-memory accesses do not collide on banks), rounds the probabilities to bf16
-// (as the plain version does before its PV product) and accumulates P @ V
-// into an f32 output tile in shared memory.
+// bf16 at d = 64 or 128: wgmma with register-resident scores (see the note
+// at the top). Thread t of the warpgroup (warp w = t / 32, lane g * 4 + c)
+// holds, in every m64nN accumulator, rows 16 w + g and 16 w + g + 8 at
+// columns 8 n + 2 c and 8 n + 2 c + 1 of each 8-column block n: registers
+// 4 n + {0, 1} (first row) and 4 n + {2, 3} (second row).
 // ---------------------------------------------------------------------------
 
-constexpr int WMMA_THREADS = 128;
+using bf16 = __nv_bfloat16;
+
+constexpr int WG_THREADS = 128;
+constexpr int BIAS_LD = BK + 8;  // bf16 a bias row in shared memory: 144 B, so the
+                                 // accumulator-layout reads hit 32 distinct banks
+constexpr int SW_BLOCK = BK * 128;  // bytes of one swizzled block: 64 rows of 64 bf16
 
 template <int DP>
-struct WmmaSmem {
-  static constexpr int LDT = DP + 8;                  // bf16 Q, K, V tiles
-  static constexpr int LDB = BK + 8;                  // bf16 bias tile and P
-  static constexpr int LDS = (DP > BK ? DP : BK) + 4;  // f32 scores / PV scratch
-  static constexpr int LDO = DP + 2;                  // f32 output accumulator
-  static constexpr size_t tile = (size_t)BK * LDT * 2;
-  static constexpr size_t bias = (size_t)BQ * LDB * 2;
-  static constexpr size_t warp_s = (size_t)16 * LDS * 4;
-  static constexpr size_t warp_p = (size_t)16 * LDB * 2;
-  static constexpr size_t warp_o = (size_t)16 * LDO * 4;
-  static constexpr size_t per_warp = warp_s + warp_p + warp_o;
-  static constexpr size_t total = 3 * tile + bias + 4 * per_warp;
+struct WgSmem {
+  static constexpr int tile = BK * DP * 2;      // Q, K or V: 64 rows of DP bf16
+  static constexpr int bias = BQ * BIAS_LD * 2;  // one 64 x 64 bias tile, padded rows
+  static constexpr int stage = 2 * tile + bias;  // K, V, bias
+  static constexpr int total = tile + 2 * stage + 1024;  // Q, two stages, 1 KB to align
 };
 
-// rows [r0, r0 + 64) of a (nrows, DP) bf16 array into a padded smem tile,
-// zero past nrows
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; bytes past src_bytes are zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + 64) of a row-major (nrows, DP) bf16 array into shared
+// memory as DP / 64 blocks of 64 rows x 128 bytes, each 16-byte chunk of a
+// row at chunk index (chunk ^ row % 8): the layout of a TMA copy with
+// 128-byte swizzle, which wgmma reads through a SW128 descriptor. Rows past
+// nrows are zeros.
 template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int r0, int nrows) {
-  constexpr int PER_ROW = DP / 8;
-  for (int e = threadIdx.x; e < BK * PER_ROW; e += WMMA_THREADS) {
-    const int r = e / PER_ROW, c = (e % PER_ROW) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * DP + c);
-    *reinterpret_cast<uint4*>(dst + r * WmmaSmem<DP>::LDT + c) = val;
+__device__ __forceinline__ void load_sw128(uint32_t dst, const bf16* src, int r0, int nrows) {
+  constexpr int CH = DP / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int it = 0; it < BK * CH / WG_THREADS; ++it) {
+    const int e = threadIdx.x + it * WG_THREADS;
+    const int r = e / CH, ch = e % CH;
+    const bool ok = r0 + r < nrows;
+    const bf16* g = src + (size_t)(ok ? r0 + r : 0) * DP + ch * 8;
+    cp_async16(dst + (ch / 8) * SW_BLOCK + r * 128 + (((ch & 7) ^ (r & 7)) << 4), g, ok ? 16 : 0);
   }
 }
 
-template <int DP, bool RAW>
-__global__ void __launch_bounds__(WMMA_THREADS) flash_fwd_wmma_kernel(Fwd a) {
-  using namespace nvcuda;
-  using bf16 = __nv_bfloat16;
-  using L = WmmaSmem<DP>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + L::tile);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + 2 * L::tile);
-  bf16* Bs = reinterpret_cast<bf16*>(smem_raw + 3 * L::tile);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  unsigned char* wbase = smem_raw + 3 * L::tile + L::bias + warp * L::per_warp;
-  float* Ss = reinterpret_cast<float*>(wbase);
-  bf16* Ps = reinterpret_cast<bf16*>(wbase + L::warp_s);
-  float* Os = reinterpret_cast<float*>(wbase + L::warp_s + L::warp_p);
+// the (64 x 64) bias tile at (q0, k0) into rows of BIAS_LD; zeros past I and J
+__device__ __forceinline__ void load_bias(uint32_t dst, const bf16* biasp, int ldb, int q0,
+                                          int k0, int I, int J) {
+#pragma unroll
+  for (int it = 0; it < BQ * 8 / WG_THREADS; ++it) {
+    const int e = threadIdx.x + it * WG_THREADS;
+    const int r = e / 8, ch = e % 8;
+    const int row = q0 + r, col = k0 + ch * 8;
+    const int bytes = (row < I && col < J) ? 2 * min(8, J - col) : 0;
+    const bf16* g = bytes ? biasp + (size_t)row * ldb + col : biasp;
+    cp_async16(dst + r * (BIAS_LD * 2) + ch * 16, g, bytes);
+  }
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int hh = blockIdx.y, bb = blockIdx.z;
+// a shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets in 16-byte units, layout type 1 (bits 62-63)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins the accumulator registers in program order around the asynchronous
+// wgmma window, so the compiler neither reads them early nor moves writes
+// into it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define PH_F8(d, i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define PH_F32(d) PH_F8(d, 0), PH_F8(d, 8), PH_F8(d, 16), PH_F8(d, 24)
+#define PH_F64(d) PH_F32(d), PH_F8(d, 32), PH_F8(d, 40), PH_F8(d, 48), PH_F8(d, 56)
+
+// d (64 x 64 f32) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PH_F32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N f32) += A (64 x 16, bf16 in registers) . B (16 x N, shared,
+// MN-major: the transpose flag)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : PH_F32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : PH_F64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x on the multi-function unit (one instruction; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// four 8 x 8 bf16 blocks from shared memory; lane l gives the address of
+// row l % 8 of block l / 8 and receives, of each block, row (l / 4) at
+// columns 2 (l % 4) and 2 (l % 4) + 1: the accumulator layout
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int DP, bool RAW>
+__global__ void __launch_bounds__(WG_THREADS, DP == 64 ? 3 : 2) flash_fwd_wgmma_kernel(Fwd a) {
+  using L = WgSmem<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes: blocks start on that grid
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int bb = blockIdx.x, q0 = blockIdx.y * BQ, hh = blockIdx.z;
   const int I = a.I, J = a.J, ldb = a.ldb;
-  const float scale = a.scale;
   const size_t bh = (size_t)bb * a.H + hh;
+  const bf16* qp = (const bf16*)a.q + bh * I * DP;
+  const bf16* kp = (const bf16*)a.k + bh * J * DP;
+  const bf16* vp = (const bf16*)a.v + bh * J * DP;
   const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * ldb : nullptr;
   const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
+  const float scale2 = a.scale * LOG2E;
   const float c2 = RAW ? *a.c2 : 0.f;
-  // 16-byte bias loads need an aligned base and row stride
-  const bool bias_vec = biasp && ldb % 8 == 0 && (reinterpret_cast<uintptr_t>(biasp) & 15) == 0;
+  const int lr0 = warp * 16 + g;  // this thread's two rows within the tile: lr0, lr0 + 8
+  const int row0 = q0 + lr0, row1 = row0 + 8;
 
-  load_tile<DP>(Qs, (const bf16*)a.q + bh * I * DP, q0, I);
-  for (int e = lane; e < 16 * L::LDO; e += 32) Os[e] = 0.f;
+  float o[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
+  // running max (log2 units; c2 in RAW mode) and this thread's share of the row sums
+  float m0 = RAW ? c2 : -INFINITY, m1 = m0, l0 = 0.f, l1 = 0.f;
 
-  const int r = lane >> 1, half = lane & 1;  // two lanes per query row
-  const int row = q0 + warp * 16 + r;
-  float m = -INFINITY, l = 0.f;
+  // K, V and the bias of tile t into stage t & 1
+  auto load_stage = [&](int t) {
+    const uint32_t st = base + L::tile + (t & 1) * L::stage;
+    load_sw128<DP>(st, kp, t * BK, J);
+    load_sw128<DP>(st + L::tile, vp, t * BK, J);
+    if (biasp) load_bias(st + 2 * L::tile, biasp, ldb, q0, t * BK, I, J);
+  };
 
-  const int num_k_tiles = key_tiles(a, q0);
-  for (int kt = 0; kt < num_k_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V/bias tiles
-    load_tile<DP>(Ks, (const bf16*)a.k + bh * J * DP, k0, J);
-    load_tile<DP>(Vs, (const bf16*)a.v + bh * J * DP, k0, J);
-    if (bias_vec && k0 + BK <= J) {
-      for (int e = threadIdx.x; e < BQ * BK / 8; e += WMMA_THREADS) {
-        const int br = e / (BK / 8), bc = (e % (BK / 8)) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (q0 + br < I) val = *reinterpret_cast<const uint4*>(biasp + (size_t)(q0 + br) * ldb + k0 + bc);
-        *reinterpret_cast<uint4*>(Bs + br * L::LDB + bc) = val;
-      }
-    } else if (biasp) {
-      for (int e = threadIdx.x; e < BQ * BK; e += WMMA_THREADS) {
-        const int br = e / BK, bc = e % BK;
-        const int gr = q0 + br, gc = k0 + bc;
-        Bs[br * L::LDB + bc] = (gr < I && gc < J) ? biasp[(size_t)gr * ldb + gc] : __float2bfloat16(0.f);
-      }
-    }
+  // Tile t + 1's copies are issued before tile t's products, into the stage
+  // tile t - 1 left (the barrier at the end of each tile frees it), so the
+  // copies of one tile run under the products and softmax of the one before.
+  const int n_tiles = key_tiles(a, q0);
+  if (n_tiles > 0) {
+    load_sw128<DP>(sQ, qp, q0, I);
+    load_stage(0);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile t (and Q) have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
     __syncthreads();
 
-    {  // S = Q K^T for this warp's 16 rows
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[BK / 16];
+    float s[32];
+    const uint32_t sK = base + L::tile + (t & 1) * L::stage;
+    wg_fence();
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sf[n], 0.f);
-#pragma unroll
-      for (int kd = 0; kd < DP; kd += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Qs + (warp * 16) * L::LDT + kd, L::LDT);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, Ks + (n * 16) * L::LDT + kd, L::LDT);
-          wmma::mma_sync(sf[n], fa, fb, sf[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(Ss + n * 16, sf[n], L::LDS, wmma::mem_row_major);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk / 4) * SW_BLOCK + (kk % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(sQ + off, 16, 1024), sw128_desc(sK + off, 16, 1024), kk > 0);
     }
-    __syncwarp();
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
 
-    float sv[BK / 2];
-    float tile_max = -INFINITY;
+    // scores in log2 units: s * scale * log2(e) + (bias + kmask) * log2(e),
+    // -inf where masked; only a tile that a key mask, causal masking or the
+    // ragged edge reaches pays for the mask
+    const int k0 = t * BK;
+    if (biasp) {
+      const uint32_t sb = base + L::tile + (t & 1) * L::stage + 2 * L::tile;
 #pragma unroll
-    for (int c = 0; c < BK / 2; ++c) {
-      const int cl = 2 * c + half;
-      const int col = k0 + cl;
-      bool valid = col < J && row < I;
-      if (a.causal && col + a.k_off > row + a.q_off) valid = false;
-      float x = Ss[r * L::LDS + cl] * scale;
-      if (valid) {
-        if (biasp) x += __bfloat162float(Bs[(warp * 16 + r) * L::LDB + cl]);
-        if (kmaskp) {
-          const float km = kmaskp[col];
-          if (km <= MASKED) valid = false;
-          x += km;
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int nq = 0; nq < 2; ++nq) {
+          uint32_t bv[4];  // column blocks 4 nq .. 4 nq + 3 of this thread's row lr0 + 8 half
+          ldmatrix_x4(bv, sb + ((warp * 16 + half * 8 + (lane & 7)) * BIAS_LD + (nq * 4 + (lane >> 3)) * 8) * 2);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 b = bf16x2_to_float2(bv[j]);
+            float* sp = s + 4 * (nq * 4 + j) + 2 * half;
+            sp[0] = fmaf(sp[0], scale2, b.x * LOG2E);
+            sp[1] = fmaf(sp[1], scale2, b.y * LOG2E);
+          }
         }
       }
-      sv[c] = valid ? x : -INFINITY;
-      tile_max = fmaxf(tile_max, sv[c]);
+    } else {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) s[x] *= scale2;
     }
-    float alpha = 1.f, m_new = 0.f;
+    if (kmaskp || a.causal || k0 + BK > J) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * n + 2 * c + e;
+          bool ok = col < J;
+          float km = 0.f;
+          if (kmaskp && ok) {
+            km = __ldg(kmaskp + col);
+            ok = km > MASKED;
+          }
+          bool ok0 = ok, ok1 = ok;
+          if (a.causal) {
+            ok0 = ok0 && col + a.k_off <= row0 + a.q_off;
+            ok1 = ok1 && col + a.k_off <= row1 + a.q_off;
+          }
+          s[4 * n + e] = ok0 ? fmaf(km, LOG2E, s[4 * n + e]) : -INFINITY;
+          s[4 * n + 2 + e] = ok1 ? fmaf(km, LOG2E, s[4 * n + 2 + e]) : -INFINITY;
+        }
+      }
+    }
+    float tmax0 = -INFINITY, tmax1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      tmax0 = fmaxf(tmax0, fmaxf(s[4 * n], s[4 * n + 1]));
+      tmax1 = fmaxf(tmax1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+    // the shift: the running row max (a row with no key yet shifts by 0),
+    // or the ring's c2; O and the row sums are rescaled by alpha
+    float sh0 = c2, sh1 = c2, al0 = 1.f, al1 = 1.f;
     if (!RAW) {
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      m_new = fmaxf(m, tile_max);
-      alpha = (m == -INFINITY) ? 0.f : expf(m - m_new);
+      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 1));
+      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 2));
+      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 1));
+      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 2));
+      const float mn0 = fmaxf(m0, tmax0), mn1 = fmaxf(m1, tmax1);
+      sh0 = mn0 == -INFINITY ? 0.f : mn0;
+      sh1 = mn1 == -INFINITY ? 0.f : mn1;
+      al0 = ex2(m0 - sh0);
+      al1 = ex2(m1 - sh1);
+      m0 = mn0;
+      m1 = mn1;
     }
-    float psum = 0.f;
+    l0 *= al0;
+    l1 *= al1;
 #pragma unroll
-    for (int c = 0; c < BK / 2; ++c) {
-      float p;
-      if (RAW)
-        p = (sv[c] == -INFINITY) ? 0.f : exp2f(sv[c] * LOG2E - c2);
-      else
-        p = (sv[c] == -INFINITY) ? 0.f : expf(sv[c] - m_new);
-      Ps[r * L::LDB + 2 * c + half] = __float2bfloat16(p);
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    if (!RAW) m = m_new;
-    __syncwarp();
-
-    {  // this tile's P @ V into the scratch, then O = O * alpha + P @ V
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[DP / 16];
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int n = 0; n < DP / 16; ++n) wmma::fill_fragment(of[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Ps + kk, L::LDB);
-#pragma unroll
-        for (int n = 0; n < DP / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, Vs + kk * L::LDT + n * 16, L::LDT);
-          wmma::mma_sync(of[n], fa, fb, of[n]);
-        }
+      for (int e = 0; e < 2; ++e) {
+        s[4 * n + e] = ex2(s[4 * n + e] - sh0);
+        s[4 * n + 2 + e] = ex2(s[4 * n + 2 + e] - sh1);
+        l0 += s[4 * n + e];
+        l1 += s[4 * n + 2 + e];
       }
-#pragma unroll
-      for (int n = 0; n < DP / 16; ++n)
-        wmma::store_matrix_sync(Ss + n * 16, of[n], L::LDS, wmma::mem_row_major);
     }
-    __syncwarp();
-#pragma unroll 8
-    for (int c = half; c < DP; c += 2)
-      Os[r * L::LDO + c] = Os[r * L::LDO + c] * alpha + Ss[r * L::LDS + c];
-    __syncwarp();  // Ss is overwritten by the next tile's scores
+
+    if (!RAW) {
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[4 * n] *= al0;
+        o[4 * n + 1] *= al0;
+        o[4 * n + 2] *= al1;
+        o[4 * n + 3] *= al1;
+      }
+    }
+    // P (bf16) as the A operand of O += P V: the accumulator's key columns
+    // [16 kk, 16 kk + 16) are registers 8 kk .. 8 kk + 7, in the A layout's
+    // order; V (keys x d) is an MN-major B: 16 keys (two 8-row groups, 1024 B
+    // apart) from key 16 kk, the next 64 d-columns (d = 128) one swizzled
+    // block (SW_BLOCK) further
+    const uint32_t sV = sK + L::tile;
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]), pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                              pack_bf16(s[8 * kk + 4], s[8 * kk + 5]), pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+      wgmma_rs(o, pa, sw128_desc(sV + kk * 16 * 128, SW_BLOCK, 1024));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // every thread is done with stage t & 1 before it is refilled
   }
 
-  if (row < I) {
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    if (row >= I) continue;
+    const float l = half ? l1 : l0;
     if (RAW) {
       float* op = (float*)a.out + (bh * I + row) * DP;
-      for (int c = half; c < DP; c += 2) op[c] = Os[r * L::LDO + c];
-      if (half == 0) a.lse[bh * I + row] = l;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        *reinterpret_cast<float2*>(op + 8 * n + 2 * c) = make_float2(o[4 * n + 2 * half], o[4 * n + 2 * half + 1]);
+      if (c == 0) a.lse[bh * I + row] = l;
     } else {
       const float inv = l > 0.f ? 1.f / l : 0.f;
       bf16* op = (bf16*)a.out + (bh * I + row) * DP;
-      for (int c = half; c < DP; c += 2) op[c] = __float2bfloat16(Os[r * L::LDO + c] * inv);
-      if (a.lse && half == 0) a.lse[bh * I + row] = l > 0.f ? m + logf(l) : -INFINITY;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * n + 2 * c) =
+            __floats2bfloat162_rn(o[4 * n + 2 * half] * inv, o[4 * n + 2 * half + 1] * inv);
+      if (a.lse && c == 0)
+        a.lse[bh * I + row] = l > 0.f ? ((half ? m1 : m0) + log2f(l)) * LN2 : -INFINITY;
     }
   }
 }
 
+#undef PH_F8
+#undef PH_F32
+#undef PH_F64
+
+__host__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 template <int DP, bool RAW>
-cudaError_t launch_wmma(const Fwd& a, cudaStream_t stream) {
-  const size_t smem = WmmaSmem<DP>::total;
-  auto kern = flash_fwd_wmma_kernel<DP, RAW>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+cudaError_t launch_wgmma(const Fwd& a, cudaStream_t stream) {
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.out) ||
+      (a.bias && (!aligned16(a.bias) || a.ldb % 8 != 0)))
+    return cudaErrorMisalignedAddress;
+  const int smem = WgSmem<DP>::total;
+  auto kern = flash_fwd_wgmma_kernel<DP, RAW>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.I + BQ - 1) / BQ, a.H, a.B);
-  kern<<<grid, WMMA_THREADS, smem, stream>>>(a);
+  // the batch fastest: the blocks that share a bias tile run together
+  dim3 grid(a.B, (a.I + BQ - 1) / BQ, a.H);
+  kern<<<grid, WG_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -482,8 +698,8 @@ int run(const Fwd& a, int dtype, void* stream) {
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32) return dispatch_d<float, RAW>(a, s);
-  if (dtype == kBF16 && a.D == 64) return launch_wmma<64, RAW>(a, s);
-  if (dtype == kBF16 && a.D == 128) return launch_wmma<128, RAW>(a, s);
+  if (dtype == kBF16 && a.D == 64) return launch_wgmma<64, RAW>(a, s);
+  if (dtype == kBF16 && a.D == 128) return launch_wgmma<128, RAW>(a, s);
   if (dtype == kBF16) return dispatch_d<__nv_bfloat16, RAW>(a, s);
   return cudaErrorInvalidValue;
 }
@@ -491,13 +707,15 @@ int run(const Fwd& a, int dtype, void* stream) {
 }  // namespace
 }  // namespace phenaki
 
+// kernel 1: out (b, h, i, d) and lse (b, h, i) f32 (or null); the bias (h,
+// i, ldb) is read at columns [0, j) of each row
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, const void* kmask,
                                    void* out, void* lse, int B, int H, int I,
-                                   int J, int D, float scale, int causal,
+                                   int J, int D, int ldb, float scale, int causal,
                                    int dtype, void* stream) {
   const phenaki::Fwd a{q, k, v, bias, (const float*)kmask, nullptr, out, (float*)lse,
-                       B, H, I, J, D, J, scale, causal, J - I, 0};
+                       B, H, I, J, D, bias ? ldb : J, scale, causal, J - I, 0};
   return phenaki::run<false>(a, dtype, stream);
 }
 

@@ -155,8 +155,10 @@ def flash_attention_bwd_dbias_plain(q, k, v, bias, kmask, out, lse, do, *, scale
 
 
 def _kernel_operands(q, k, v, bias, kmask):
-    """Validate shapes and dtypes; return the contiguous operands the kernel
-    takes (bias in q's dtype, kmask in f32)."""
+    """Validate shapes and dtypes; return the operands the kernels take:
+    q, k, v contiguous, the bias as `_bias_operand` gives it, kmask in f32.
+    On the bf16 wgmma route (`_wgmma_route`) q, k and v also start on a
+    16-byte boundary, copied when they do not."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k, v must be (b, h, seq, d)")
     b, h, i, d = q.shape
@@ -167,15 +169,45 @@ def _kernel_operands(q, k, v, bias, kmask):
         raise ValueError(f"dim_head {d} > {MAX_DIM_HEAD}")
     if q.dtype not in _build.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q/k/v must share a dtype in {list(_build.DTYPES)}")
-    if bias is not None:
-        if bias.shape != (h, i, j):
-            raise ValueError(f"bias must be (h, i, j) = {(h, i, j)}, got {tuple(bias.shape)}")
-        bias = bias.to(q.dtype).contiguous()
+    if bias is not None and bias.shape != (h, i, j):
+        raise ValueError(f"bias must be (h, i, j) = {(h, i, j)}, got {tuple(bias.shape)}")
     if kmask is not None:
         if kmask.shape != (b, j):
             raise ValueError(f"kmask must be (b, j) = {(b, j)}, got {tuple(kmask.shape)}")
         kmask = kmask.to(torch.float32).contiguous()
-    return q.contiguous(), k.contiguous(), v.contiguous(), bias, kmask
+    wgmma = _wgmma_route(q)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if wgmma:
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    return q, k, v, _bias_operand(bias, q.dtype, wgmma), kmask
+
+
+def _wgmma_route(q) -> bool:
+    """True where the call goes to the bf16 wgmma forward (d = 64 or 128 on a
+    card), which moves q, k, v and the bias in 16-byte copies."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128) and _on_card(q)
+
+
+def _bias_operand(bias, dtype, wgmma: bool):
+    """The (h, i, j) bias in `dtype` as the kernels read it: unit column
+    stride, rows `stride(1)` apart. A view that has these (a ring chunk's
+    column slice of wider rows) is read in place; on the wgmma route only if
+    its row stride is also a multiple of 8 and it starts on a 16-byte
+    boundary. Any other bias is copied: contiguous, or on the wgmma route
+    into rows padded to a multiple of 8, of which the first j columns are
+    passed."""
+    if bias is None:
+        return None
+    h, i, j = bias.shape
+    row = bias.stride(1)
+    if (bias.dtype == dtype and bias.stride(2) == 1 and row >= j and bias.stride(0) == i * row
+            and (not wgmma or (row % 8 == 0 and bias.data_ptr() % 16 == 0))):
+        return bias
+    if not wgmma:
+        return bias.to(dtype).contiguous()
+    padded = bias.new_empty((h, i, -(-j // 8) * 8), dtype=dtype)
+    padded[..., :j] = bias
+    return padded[..., :j]
 
 
 def _on_card(q, *others) -> bool:
@@ -203,8 +235,8 @@ def _forward(q, k, v, bias, kmask, scale, causal, return_lse):
     lse = torch.empty((b, h, i), dtype=torch.float32, device=q.device) if return_lse else None
     p = _build.ptr
     err = lib.flash_attention_fwd(
-        p(q), p(k), p(v), p(bias), p(kmask), p(out), p(lse), b, h, i, j, d, float(scale),
-        int(bool(causal)), _build.DTYPES[q.dtype], _build.stream(q.device),
+        p(q), p(k), p(v), p(bias), p(kmask), p(out), p(lse), b, h, i, j, d, _bias_ld(bias, j),
+        float(scale), int(bool(causal)), _build.DTYPES[q.dtype], _build.stream(q.device),
     )
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
@@ -338,19 +370,10 @@ def flash_attend_chunk_plain(q, k, v, bias=None, kmask=None, *, c2, scale: float
     return acc, p.sum(-1)
 
 
-
 def _chunk_operands(q, k, v, bias, kmask, c2):
-    """Validate the chunk's operands. The bias keeps its column-slice view
-    when it is in q's dtype with unit column stride (the kernel reads it
-    with its row stride); anything else is copied."""
-    q, k, v, _, kmask = _kernel_operands(q, k, v, None, kmask)
-    if bias is not None:
-        h, i, j = q.shape[1], q.shape[2], k.shape[2]
-        if bias.shape != (h, i, j):
-            raise ValueError(f"bias must be (h, i, j) = {(h, i, j)}, got {tuple(bias.shape)}")
-        bias = bias.to(q.dtype)
-        if bias.stride(2) != 1 or bias.stride(0) != i * bias.stride(1):
-            bias = bias.contiguous()
+    """Validate the chunk's operands as `_kernel_operands` does (the bias's
+    column slice is read in place where the kernels can), and c2 as one f32."""
+    q, k, v, bias, kmask = _kernel_operands(q, k, v, bias, kmask)
     c2 = torch.as_tensor(c2, dtype=torch.float32, device=q.device).reshape(1)
     return q, k, v, bias, kmask, c2
 

@@ -1,0 +1,93 @@
+"""A stand-in for the port's CUDA library, for tests on a machine with no
+card: CPU tensors are sent down the card's route (`stub_card`) into a
+`StubLibrary`, which records each C call of the attention kernels (for the
+two forward entries also the inputs' addresses and the tensors the kernel
+would read there, through the row stride it is given) and writes zeros to
+the outputs."""
+
+import ctypes
+
+import torch
+
+import phenaki_tpu_torch.ops.flash_attention as fa
+from phenaki_tpu_torch import _build
+
+
+class StubLibrary:
+    """Records each C call of the attention kernels; writes zeros."""
+
+    def __init__(self, fail: bool = False):
+        self.calls, self.fail = [], fail
+
+    @staticmethod
+    def _zero(ptr, n):
+        ctypes.memset(ptr.value, 0, n)
+
+    @staticmethod
+    def _operands(q, k, v, bias, b, h, i, j, d, ldb, dtype):
+        """Each input's address, and the tensor the kernel would read there:
+        q, k, v (b, h, n, d) contiguous; the bias h * i rows of j, ldb apart."""
+        tdtype = next(t for t, code in _build.DTYPES.items() if code == dtype)
+        size = torch.empty((), dtype=tdtype).element_size()
+
+        def read(ptr, rows, cols, stride):
+            raw = bytearray(ctypes.string_at(ptr.value, ((rows - 1) * stride + cols) * size))
+            return torch.frombuffer(raw, dtype=tdtype).as_strided((rows, cols), (stride, 1)).clone()
+
+        seen = {"q": q.value, "k": k.value, "v": v.value, "bias": bias.value}
+        data = {"q": read(q, b * h * i, d, d).view(b, h, i, d),
+                "k": read(k, b * h * j, d, d).view(b, h, j, d),
+                "v": read(v, b * h * j, d, d).view(b, h, j, d)}
+        if bias.value:
+            data["bias"] = read(bias, h * i, j, ldb).view(h, i, j)
+        return seen, data
+
+    def flash_attention_fwd(self, q, k, v, bias, kmask, out, lse, b, h, i, j, d, ldb, scale, causal,
+                            dtype, stream):
+        seen, data = self._operands(q, k, v, bias, b, h, i, j, d, ldb, dtype)
+        self.calls.append(("fwd", dict(seen, kmask=kmask.value, b=b, h=h, i=i, j=j, d=d, ldb=ldb,
+                                       causal=causal, dtype=dtype, data=data)))
+        self._zero(out, (2 if dtype == _build.DTYPES[torch.bfloat16] else 4) * b * h * i * d)
+        if lse.value:
+            self._zero(lse, 4 * b * h * i)
+        return int(self.fail)
+
+    def flash_attend_chunk_fwd(self, q, k, v, bias, kmask, c2, acc, l, b, h, i, j, d, ldb, scale,
+                               causal, q_off, k_off, dtype, stream):
+        seen, data = self._operands(q, k, v, bias, b, h, i, j, d, ldb, dtype)
+        self.calls.append(("chunk", dict(seen, b=b, h=h, i=i, j=j, d=d, ldb=ldb, causal=causal,
+                                         q_off=q_off, k_off=k_off, dtype=dtype, data=data)))
+        self._zero(acc, 4 * b * h * i * d)
+        self._zero(l, 4 * b * h * i)
+        return int(self.fail)
+
+    def _bwd(self, name, outputs, b, h, i, j, d, ldb, causal, q_off, k_off):
+        self.calls.append((name, dict(i=i, j=j, ldb=ldb, causal=causal, q_off=q_off, k_off=k_off)))
+        for ptr, n in outputs:
+            self._zero(ptr, n)
+        return 0
+
+    def flash_attention_bwd_dq(self, q, k, v, bias, kmask, do, lse, delta, dq, b, h, i, j, d, ldb,
+                               scale, causal, q_off, k_off, dtype, stream):
+        return self._bwd("dq", [(dq, 4 * b * h * i * d)], b, h, i, j, d, ldb, causal, q_off, k_off)
+
+    def flash_attention_bwd_dkv(self, q, k, v, bias, kmask, do, lse, delta, dk, dv, b, h, i, j, d,
+                                ldb, scale, causal, q_off, k_off, dtype, stream):
+        return self._bwd("dkv", [(dk, 4 * b * h * j * d), (dv, 4 * b * h * j * d)], b, h, i, j, d,
+                         ldb, causal, q_off, k_off)
+
+    def flash_attention_bwd_dbias(self, q, k, v, bias, kmask, do, lse, delta, dbias, b, h, i, j, d,
+                                  ldb, scale, causal, q_off, k_off, dtype, stream):
+        return self._bwd("dbias", [(dbias, 4 * h * i * j)], b, h, i, j, d, ldb, causal, q_off, k_off)
+
+
+def stub_card(lib):
+    """Send CPU tensors down the card's route, into `lib`; returns an undo."""
+    saved = (fa._on_card, _build.load_library, _build.stream)
+    fa._on_card = lambda *t: True
+    _build.load_library = lambda: lib
+    _build.stream = lambda device: ctypes.c_void_p(0)
+
+    def undo():
+        fa._on_card, _build.load_library, _build.stream = saved
+    return undo

@@ -25,8 +25,6 @@ The rank functions import no JAX (a spawned rank imports this module by
 name): JAX is imported inside the tests and fixtures only.
 """
 
-import ctypes
-
 import numpy as np
 import pytest
 import torch
@@ -36,6 +34,8 @@ import phenaki_tpu_torch.ops.flash_attention as fa
 import phenaki_tpu_torch.parallel.ring_attention as ra
 from phenaki_tpu_torch import _build
 from phenaki_tpu_torch.parallel.distributed import spawn_ranks
+
+from _torch_card_stub import StubLibrary, stub_card
 
 torch.set_num_threads(1)
 
@@ -178,60 +178,11 @@ def _four_rank_cases(rank, world, x):
     return {"bias_kmask": out.numpy(), "causal": causal.numpy()}
 
 
-class _StubLibrary:
-    """Records each C call of the attention kernels; writes zeros."""
-
-    def __init__(self, fail: bool = False):
-        self.calls, self.fail = [], fail
-
-    @staticmethod
-    def _zero(ptr, n):
-        ctypes.memset(ptr.value, 0, n)
-
-    def flash_attend_chunk_fwd(self, q, k, v, bias, kmask, c2, acc, l, b, h, i, j, d, ldb, scale,
-                               causal, q_off, k_off, dtype, stream):
-        self.calls.append(("chunk", dict(i=i, j=j, ldb=ldb, causal=causal, q_off=q_off, k_off=k_off)))
-        self._zero(acc, 4 * b * h * i * d)
-        self._zero(l, 4 * b * h * i)
-        return int(self.fail)
-
-    def _bwd(self, name, outputs, b, h, i, j, d, ldb, causal, q_off, k_off):
-        self.calls.append((name, dict(i=i, j=j, ldb=ldb, causal=causal, q_off=q_off, k_off=k_off)))
-        for ptr, n in outputs:
-            self._zero(ptr, n)
-        return 0
-
-    def flash_attention_bwd_dq(self, q, k, v, bias, kmask, do, lse, delta, dq, b, h, i, j, d, ldb,
-                               scale, causal, q_off, k_off, dtype, stream):
-        return self._bwd("dq", [(dq, 4 * b * h * i * d)], b, h, i, j, d, ldb, causal, q_off, k_off)
-
-    def flash_attention_bwd_dkv(self, q, k, v, bias, kmask, do, lse, delta, dk, dv, b, h, i, j, d,
-                                ldb, scale, causal, q_off, k_off, dtype, stream):
-        return self._bwd("dkv", [(dk, 4 * b * h * j * d), (dv, 4 * b * h * j * d)], b, h, i, j, d,
-                         ldb, causal, q_off, k_off)
-
-    def flash_attention_bwd_dbias(self, q, k, v, bias, kmask, do, lse, delta, dbias, b, h, i, j, d,
-                                  ldb, scale, causal, q_off, k_off, dtype, stream):
-        return self._bwd("dbias", [(dbias, 4 * h * i * j)], b, h, i, j, d, ldb, causal, q_off, k_off)
-
-
-def _stub_card(lib):
-    """Send CPU tensors down the card's route, into `lib`; returns an undo."""
-    saved = (fa._on_card, _build.load_library, _build.stream)
-    fa._on_card = lambda *t: True
-    _build.load_library = lambda: lib
-    _build.stream = lambda device: ctypes.c_void_p(0)
-
-    def undo():
-        fa._on_card, _build.load_library, _build.stream = saved
-    return undo
-
-
 def _stubbed_ring_calls(t):
     """A causal ring with a bias and its backward on a stubbed card: the
     C calls this rank made, and the chunk's launch count."""
-    lib = _StubLibrary()
-    undo = _stub_card(lib)
+    lib = StubLibrary()
+    undo = stub_card(lib)
     fa.flash_attend_chunk.launches = 0
     try:
         leaves = [a.clone().requires_grad_() for a in (t["q"], t["k"], t["v"], t["bias"])]
@@ -361,8 +312,8 @@ def test_stubbed_ring_launches_a_chunk_per_shard_with_global_offsets(two_ranks):
 
 
 def test_failing_chunk_kernel_raises():
-    lib = _StubLibrary(fail=True)
-    undo = _stub_card(lib)
+    lib = StubLibrary(fail=True)
+    undo = stub_card(lib)
     try:
         q = torch.randn(1, 2, 64, 16)
         with pytest.raises(RuntimeError, match="flash_attend_chunk_fwd"):
