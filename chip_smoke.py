@@ -11,7 +11,8 @@ and without a critic, on one NVIDIA GPU.
                                                   # samples written to OUT.txt
 
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc (and
-checks that the bf16 attention forward's SASS holds wgmma), holds each
+checks that the SASS of the bf16 attention forward and of its dQ and dK/dV
+kernels holds wgmma), holds each
 kernel against its plain PyTorch version at the flagship shapes (the
 flash-attention forward and its three backward kernels, the projection
 sampler, the fused cross-entropy forward and its two backward kernels, the
@@ -223,30 +224,38 @@ def flash_cases(torch, dtype, gen):
     return cases
 
 
+# the wgmma kernels and their instances: the forward at d = 64 and 128 for
+# kernels 1 and 3, the backward's dQ and dK/dV (kernels 4 and 5) at d = 64
+WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 4, "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 1}
+
+
 def check_wgmma_build():
-    """The bf16 forward as built: ptxas's registers, spills and shared memory
-    for its four instances (d = 64, 128; kernels 1 and 3), from the build
-    log, and the wgmma instructions (HGMMA) in each one's SASS, from
-    cuobjdump. Fails if an instance holds none."""
+    """The wgmma kernels as built: ptxas's registers, spills and shared
+    memory for each instance, from the build log, and the wgmma instructions
+    (HGMMA) in each one's SASS, from cuobjdump. Fails if an instance is
+    missing or holds none."""
     import shutil
 
     from phenaki_tpu_torch import _build
 
-    kernel = "flash_fwd_wgmma_kernel"
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library_path())], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    hgmma, fn = {}, None
+    hgmma, fn = {kernel: {} for kernel in WGMMA_KERNELS}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if kernel in fn:
-                hgmma[fn] = 0
-        elif fn in hgmma and "HGMMA" in line:
-            hgmma[fn] += 1
-    ptxas = _build.ptxas_report(kernel)
-    phase("flash forward build", ptxas=ptxas, hgmma=hgmma)
-    check(len(hgmma) == 4 and all(hgmma.values()), f"{kernel}: HGMMA by instance {hgmma}")
+            for kernel in WGMMA_KERNELS:
+                if kernel in fn:
+                    hgmma[kernel][fn] = 0
+        elif "HGMMA" in line:
+            for found in hgmma.values():
+                if fn in found:
+                    found[fn] += 1
+    for kernel, instances in WGMMA_KERNELS.items():
+        phase(f"{kernel} build", ptxas=_build.ptxas_report(kernel), hgmma=hgmma[kernel])
+        check(len(hgmma[kernel]) == instances and all(hgmma[kernel].values()),
+              f"{kernel}: HGMMA by instance {hgmma[kernel]}")
 
 
 def check_flash(torch):
@@ -369,33 +378,36 @@ def check_flash_bwd(torch):
                 for key in ("dq", "dk", "dv"):
                     check(got[key][2].abs().max().item() == 0.0, f"flash bwd {tag}: {key} of the masked row")
                 check(torch.isneginf(lse[2]).all().item(), f"flash bwd {tag}: lse of the masked row")
-            ms = plain_ms = None
+            ms = graph = plain_ms = None
             if dtype == torch.bfloat16 and name in ("maskgit_self", "critic_self", "maskgit_cross"):
-                # timed at the train shapes only: each kernel against the plain
-                # version of that kernel alone (which recomputes p and dS, as
-                # the kernel does), and the whole plain backward
+                # timed at the train shapes only: each kernel back to back
+                # (`ms`) and by CUDA-graph replay (`graph_ms`, the device time
+                # alone), against the plain version of that kernel alone
+                # (which recomputes p and dS, as the kernel does), and the
+                # whole plain backward
                 pargs = (q, k, v, bias, kmask, out, lse, do)
                 kernels = {"dq": (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_plain),
                            "dkv": (fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_plain)}
                 if bias is not None:
                     kernels["dbias"] = (fa.flash_attention_bwd_dbias, fa.flash_attention_bwd_dbias_plain)
                 ms = {key: cuda_ms(lambda: kern(*args, **kw), reps=10) for key, (kern, _) in kernels.items()}
+                graph = {key: graph_ms(lambda: kern(*args, **kw)) for key, (kern, _) in kernels.items()}
                 plain_ms = {key: cuda_ms(lambda: plain(*pargs, **kw), reps=10)
                             for key, (_, plain) in kernels.items()}
                 plain_ms["whole_backward"] = cuda_ms(
                     lambda: fa.flash_attention_backward_plain(*pargs, **kw), reps=10)
             phase(f"flash_attention_bwd {tag}", shape=list(q.shape), j=k.shape[2],
-                  rel_err=errs, ms=ms, plain_ms=plain_ms)
-            result[tag] = dict(abs_errs=abs_errs, ms=ms, plain_ms=plain_ms)
+                  rel_err=errs, ms=ms, graph_ms=graph, plain_ms=plain_ms)
+            result[tag] = dict(abs_errs=abs_errs, ms=ms, graph_ms=graph, plain_ms=plain_ms)
             if tag == "maskgit_self_bfloat16":
                 result[tag].update(bwd_yardsticks(torch, q, k, v, bias, kmask, do, lse, delta, got))
 
     # autograd on the card: the Function launches the kernels and every
     # differentiable input gets a gradient equal to the plain backward's. f32
-    # on a slice of the self-attention case; bf16 (the wgmma forward and the
-    # WMMA backward) at the whole train shape with an f32 bias, as the CPB
-    # gives it, so the Function's casts (bias to bf16 and back, dO to bf16)
-    # are on the path
+    # on a slice of the self-attention case; bf16 (the wgmma forward, dQ and
+    # dK/dV, the WMMA dBias) at the whole train shape with an f32 bias, as
+    # the CPB gives it, so the Function's casts (bias to bf16 and back, dO to
+    # bf16) are on the path
     q, k, v, bias, kmask, _ = flash_bwd_cases(torch, torch.float32, gen)["maskgit_self"]
     f32_leaves = [t[:1, :2].clone() for t in (q, k, v)] + [bias[:2].clone()]
     q, k, v, _, _, _ = flash_bwd_cases(torch, torch.bfloat16, gen)["maskgit_self"]
@@ -1601,8 +1613,9 @@ def main() -> int:
 
     # every number measured in this run; bound_ms from this run's shapes;
     # library_ms the one PyTorch call computing the same function, or null
-    # (every ms timed by back-to-back calls; the forward's graph_ms and
-    # library_graph_ms by CUDA-graph replay, the device time alone)
+    # (every ms timed by back-to-back calls; graph_ms of the forward and
+    # kernels 4-6, and the forward's library_graph_ms, by CUDA-graph replay,
+    # the device time alone)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape_keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     self_bf16 = flash["maskgit_self_bfloat16"]
@@ -1624,6 +1637,7 @@ def main() -> int:
         kernels.append(dict(name=f"flash_attention_bwd_{name}", route="cuda", source=BWD_SRC,
                             replaces=BWD_TPU[name], launches=launches[name],
                             max_abs_err=max(bwd["abs_errs"][e] for e in errs), ms=bwd["ms"][name],
+                            graph_ms=bwd["graph_ms"][name],
                             plain_ms=bwd["plain_ms"][name], bound_ms=bwd["bounds"][name][0],
                             bound_by=bwd["bounds"][name][1], library_ms=bwd["library_ms"]))
     for name, errs in (("ce_fwd", ["loss", "lse"]), ("ce_dh", ["dh"]), ("ce_dw", ["dw", "db"])):

@@ -71,16 +71,12 @@
 // f32 (flash_fwd_kernel, 64 x 64 tiles in shared memory), also with the RAW
 // flag; no main path runs it.
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace phenaki {
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per inner tile
 constexpr int THREADS = 256; // 16 x 16 thread grid
-constexpr float MASKED = -1e29f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 struct Fwd {
@@ -275,18 +271,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Fwd a) {
 
 // ---------------------------------------------------------------------------
 // bf16 at d = 64 or 128: wgmma with register-resident scores (see the note
-// at the top). Thread t of the warpgroup (warp w = t / 32, lane g * 4 + c)
-// holds, in every m64nN accumulator, rows 16 w + g and 16 w + g + 8 at
-// columns 8 n + 2 c and 8 n + 2 c + 1 of each 8-column block n: registers
-// 4 n + {0, 1} (first row) and 4 n + {2, 3} (second row).
+// at the top; the accumulator layout and the helpers are in wgmma.cuh).
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr int WG_THREADS = 128;
-constexpr int BIAS_LD = BK + 8;  // bf16 a bias row in shared memory: 144 B, so the
-                                 // accumulator-layout reads hit 32 distinct banks
-constexpr int SW_BLOCK = BK * 128;  // bytes of one swizzled block: 64 rows of 64 bf16
 
 template <int DP>
 struct WgSmem {
@@ -296,160 +282,11 @@ struct WgSmem {
   static constexpr int total = tile + 2 * stage + 1024;  // Q, two stages, 1 KB to align
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; bytes past src_bytes are zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [r0, r0 + 64) of a row-major (nrows, DP) bf16 array into shared
-// memory as DP / 64 blocks of 64 rows x 128 bytes, each 16-byte chunk of a
-// row at chunk index (chunk ^ row % 8): the layout of a TMA copy with
-// 128-byte swizzle, which wgmma reads through a SW128 descriptor. Rows past
-// nrows are zeros.
-template <int DP>
-__device__ __forceinline__ void load_sw128(uint32_t dst, const bf16* src, int r0, int nrows) {
-  constexpr int CH = DP / 8;  // 16-byte chunks a row
-#pragma unroll
-  for (int it = 0; it < BK * CH / WG_THREADS; ++it) {
-    const int e = threadIdx.x + it * WG_THREADS;
-    const int r = e / CH, ch = e % CH;
-    const bool ok = r0 + r < nrows;
-    const bf16* g = src + (size_t)(ok ? r0 + r : 0) * DP + ch * 8;
-    cp_async16(dst + (ch / 8) * SW_BLOCK + r * 128 + (((ch & 7) ^ (r & 7)) << 4), g, ok ? 16 : 0);
-  }
-}
-
-// the (64 x 64) bias tile at (q0, k0) into rows of BIAS_LD; zeros past I and J
-__device__ __forceinline__ void load_bias(uint32_t dst, const bf16* biasp, int ldb, int q0,
-                                          int k0, int I, int J) {
-#pragma unroll
-  for (int it = 0; it < BQ * 8 / WG_THREADS; ++it) {
-    const int e = threadIdx.x + it * WG_THREADS;
-    const int r = e / 8, ch = e % 8;
-    const int row = q0 + r, col = k0 + ch * 8;
-    const int bytes = (row < I && col < J) ? 2 * min(8, J - col) : 0;
-    const bf16* g = bytes ? biasp + (size_t)row * ldb + col : biasp;
-    cp_async16(dst + r * (BIAS_LD * 2) + ch * 16, g, bytes);
-  }
-}
-
-// a shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets in 16-byte units, layout type 1 (bits 62-63)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// pins the accumulator registers in program order around the asynchronous
-// wgmma window, so the compiler neither reads them early nor moves writes
-// into it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define PH_F8(d, i)                                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define PH_F32(d) PH_F8(d, 0), PH_F8(d, 8), PH_F8(d, 16), PH_F8(d, 24)
-#define PH_F64(d) PH_F32(d), PH_F8(d, 32), PH_F8(d, 40), PH_F8(d, 48), PH_F8(d, 56)
-
-// d (64 x 64 f32) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : PH_F32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x N f32) += A (64 x 16, bf16 in registers) . B (16 x N, shared,
-// MN-major: the transpose flag)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : PH_F32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : PH_F64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 2^x on the multi-function unit (one instruction; -inf gives 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// four 8 x 8 bf16 blocks from shared memory; lane l gives the address of
-// row l % 8 of block l / 8 and receives, of each block, row (l / 4) at
-// columns 2 (l % 4) and 2 (l % 4) + 1: the accumulator layout
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int DP, bool RAW>
 __global__ void __launch_bounds__(WG_THREADS, DP == 64 ? 3 : 2) flash_fwd_wgmma_kernel(Fwd a) {
   using L = WgSmem<DP>;
   extern __shared__ unsigned char smem_raw[];
-  // the swizzle pattern repeats every 1024 bytes: blocks start on that grid
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t base = smem_base_1k(smem_raw);
   const uint32_t sQ = base;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -494,17 +331,15 @@ __global__ void __launch_bounds__(WG_THREADS, DP == 64 ? 3 : 2) flash_fwd_wgmma_
     if (t + 1 < n_tiles) load_stage(t + 1);
     cp_async_commit();
     cp_async_wait<1>();  // this thread's copies of tile t (and Q) have landed
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    fence_proxy_async();  // visible to wgmma
     __syncthreads();
 
     float s[32];
     const uint32_t sK = base + L::tile + (t & 1) * L::stage;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t off = (kk / 4) * SW_BLOCK + (kk % 4) * 32;
-      wgmma_ss_n64(s, sw128_desc(sQ + off, 16, 1024), sw128_desc(sK + off, 16, 1024), kk > 0);
-    }
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
@@ -610,9 +445,9 @@ __global__ void __launch_bounds__(WG_THREADS, DP == 64 ? 3 : 2) flash_fwd_wgmma_
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]), pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
-                              pack_bf16(s[8 * kk + 4], s[8 * kk + 5]), pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
-      wgmma_rs(o, pa, sw128_desc(sV + kk * 16 * 128, SW_BLOCK, 1024));
+      uint32_t pa[4];
+      pack_a(pa, s, kk);
+      wgmma_rs(o, pa, mnmajor_desc(sV, kk));
     }
     wg_commit();
     wg_wait<0>();
@@ -646,14 +481,6 @@ __global__ void __launch_bounds__(WG_THREADS, DP == 64 ? 3 : 2) flash_fwd_wgmma_
         a.lse[bh * I + row] = l > 0.f ? ((half ? m1 : m0) + log2f(l)) * LN2 : -INFINITY;
     }
   }
-}
-
-#undef PH_F8
-#undef PH_F32
-#undef PH_F64
-
-__host__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <int DP, bool RAW>

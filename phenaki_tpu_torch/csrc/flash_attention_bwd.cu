@@ -27,30 +27,51 @@
 // (64 x 64) tile pair costs two d-deep products (Q K^T, dO V^T) before the
 // one or two products that accumulate a gradient: at d = 64 that is ~2.5x
 // the forward's arithmetic against the same bytes, so the kernels are bound
-// by arithmetic. bf16 at d = 64 (the flagship) runs the products on the
-// tensor cores (WMMA, the *_wmma kernels), which leaves the elementwise
-// recompute (an exp per score) as the larger cost. f32 and other head sizes
-// run the products on the CUDA cores in f32 (bf16 inputs are widened as they
-// land in shared memory), one 16 x 16 thread grid per block with 4 x 4
-// score entries a thread, limited by shared-memory bandwidth (two FMAs per
-// shared load). Both keep the (i, j) score and probability matrices out of
-// device memory, and need no float atomics: dQ owns a query tile and loops
-// over the key tiles, dK/dV owns a key tile and loops over the query tiles,
-// and dBias owns a (query tile, key tile) pair and loops over the batch
-// inside the block, as the TPU kernel's sequential batch axis does, so its
-// sum is deterministic. wgmma with register-resident tiles is the next step.
+// by arithmetic, and between the products sits an exp per score.
+//
+// bf16 at d = 64 (every main-path backward), dQ and dK/dV
+// (flash_bwd_dq_wgmma, flash_bwd_dkv_wgmma), the forward's design with two
+// more products: one warpgroup a block, wgmma m64n64k16 for every product,
+// the scores never in shared memory.
+//  - dQ owns 64 query rows: Q and dO stay in shared memory; K, V, the
+//    (query x key) bias tile and the keys' mask terms stream through a
+//    two-stage ring of cp.async copies (tile t + 1 lands while tile t
+//    computes). S = Q K^T and dP = dO V^T come from shared memory into
+//    registers; the epilogue runs there (scale with log2(e) folded in, the
+//    bias by ldmatrix in the accumulator layout, the key terms, -inf past
+//    the ragged edge or on a hard-masked key, read per column from shared
+//    memory, the causal mask only on tiles it reaches, ex2 against the
+//    row's lse); dS = p (dP - delta) is packed to bf16 in place as the
+//    register A operand of dQ += dS K, with K read MN-major from the same
+//    swizzled tile that was S's K-major B.
+//  - dK/dV owns 64 keys: K and V stay in shared memory; Q, dO, the bias
+//    tile, lse and delta stream through the ring. S^T = K Q^T and dP^T = V
+//    dO^T put the keys on the accumulator rows, so the key mask is one
+//    constant a row; the bias tile arrives transposed by ldmatrix.trans;
+//    lse and delta are read per column from shared memory. P^T and dS^T are
+//    packed in place as the A operands of dV += P^T dO and dK += dS^T Q (dO
+//    and Q read MN-major).
+//  Registers stay at or under 168 a thread and shared memory is 69 KB a
+//  block, so three blocks fit an SM.
+// dBias (flash_bwd_dbias_wmma) runs its two products on WMMA fragments
+// through f32 shared scratch. f32 and other head sizes run the products on
+// the CUDA cores in f32 (bf16 inputs are widened as they land in shared
+// memory), one 16 x 16 thread grid per block with 4 x 4 score entries a
+// thread. Every kernel keeps the (i, j) score and probability matrices out
+// of device memory, and none needs float atomics: dQ owns a query tile and
+// loops over the key tiles, dK/dV owns a key tile and loops over the query
+// tiles, and dBias owns a (query tile, key tile) pair and loops over the
+// batch inside the block, as the TPU kernel's sequential batch axis does, so
+// every sum is taken in a fixed order.
 
 #include <mma.h>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace phenaki {
 namespace {
 
-constexpr int BQ = 64;       // query rows per tile
-constexpr int BK = 64;       // keys per tile
 constexpr int THREADS = 256; // 16 x 16 thread grid
-constexpr float MASKED = -1e29f;
 
 // the additive terms of a score (bias + kmask) and whether the entry takes
 // part in the softmax at all
@@ -134,6 +155,21 @@ struct Bwd {
   int causal, q_off, k_off;  // causal iff col + k_off <= row + q_off
 };
 
+// the key tiles a query tile [q0, q0 + 64) must visit (causal: none past its
+// last row), and the first query tile a key tile [k0, k0 + 64) is seen by
+__device__ __forceinline__ int key_tiles(const Bwd& a, int q0) {
+  int n = (a.J + BK - 1) / BK;
+  if (a.causal) {
+    const int last_key = min(a.J - 1, q0 + BQ - 1 + a.q_off - a.k_off);
+    n = last_key < 0 ? 0 : min(n, last_key / BK + 1);
+  }
+  return n;
+}
+__device__ __forceinline__ int first_query_tile(const Bwd& a, int k0) {
+  const int first_row = k0 - (a.q_off - a.k_off);
+  return a.causal && first_row > 0 ? first_row / BQ : 0;
+}
+
 // ---- dQ: one block per (query tile, h, b), a loop over the key tiles ----
 template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Bwd a, T* __restrict__ dq) {
@@ -170,12 +206,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Bwd a, T* __restr
 #pragma unroll
     for (int oc = 0; oc < OC; ++oc) acc[rr][oc] = 0.f;
 
-  int num_k_tiles = (J + BK - 1) / BK;
-  if (a.causal) {
-    const int last_key = min(J - 1, q0 + BQ - 1 + q_offset);
-    num_k_tiles = last_key < 0 ? 0 : min(num_k_tiles, last_key / BK + 1);
-  }
-
+  const int num_k_tiles = key_tiles(a, q0);
   for (int kt = 0; kt < num_k_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's Ks/Vs/dSs are consumed
@@ -257,12 +288,8 @@ flash_bwd_dkv_kernel(Bwd a, T* __restrict__ dk, T* __restrict__ dv) {
 #pragma unroll
     for (int oc = 0; oc < OC; ++oc) dk_acc[rr][oc] = dv_acc[rr][oc] = 0.f;
 
-  // causal: key c is seen by the query rows r >= c - (j - i)
-  int first_q_tile = 0;
-  if (a.causal && k0 - q_offset > 0) first_q_tile = (k0 - q_offset) / BQ;
   const int num_q_tiles = (I + BQ - 1) / BQ;
-
-  for (int qt = first_q_tile; qt < num_q_tiles; ++qt) {
+  for (int qt = first_query_tile(a, k0); qt < num_q_tiles; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs are consumed
     load_rows<T, DP>(Qs, qp, q0, BQ, I, D);
@@ -395,29 +422,384 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dbias_kernel(Bwd a, float* 
 
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64: the products on the tensor cores (WMMA 16x16x16, f32
-// accumulate). Four warps a block; each owns 16 rows of the block's tile (its
-// query rows for dQ and dBias, its keys for dK/dV), computes its two 16 x 64
-// recompute products (S and dP, or their transposes) into f32 shared
-// scratch, runs the elementwise part there (two lanes per row, on
-// interleaved columns), rounds p and dS to bf16 as the TPU kernels do before
-// the products that consume them, and keeps its dQ, or dK and dV,
-// accumulators in WMMA fragments across the loop: unlike the forward's
-// online softmax, nothing has to be rescaled.
+// bf16 at d = 64, kernels 4 and 5: wgmma with S and dP in registers (see
+// the note at the top; the accumulator layout and the helpers are in
+// wgmma.cuh). One warpgroup a block. Every tile is 64 x 64; the operand
+// tiles sit in shared memory in the 128-byte swizzle, so each one is read
+// by wgmma K-major (as the B of a recompute product) or MN-major (as the B
+// of an accumulating product) through the same layout.
+// ---------------------------------------------------------------------------
+
+constexpr int WD = 64;                     // the head dim of the tensor-core kernels
+constexpr int WG_TILE = BK * WD * 2;       // one 64 x 64 bf16 tile: 8 KB
+constexpr int WG_BIAS = BQ * BIAS_LD * 2;  // one 64 x 64 bias tile, padded rows: 9 KB
+
+// Q and dO (dQ), or K and V (dK/dV), resident, then two stages of the
+// streamed operand pair, the bias tile and 64 f32 terms a column (dQ: each
+// key's mask term; dK/dV: each query row's lse, then its delta), each stage
+// rounded up to 1 KB so its tiles stay on the swizzle grid; 1 KB to align:
+// 69 KB
+struct WgSmem {
+  static constexpr int stats = 2 * WG_TILE + WG_BIAS;
+  static constexpr int stage = (stats + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int total = 2 * WG_TILE + 2 * stage + 1024;
+};
+
+// lse in log2 units for p = 2^(s log2(e) - lse log2(e)); +inf on a row past
+// I or with no unmasked key (lse = -inf), where p must be 0
+__device__ __forceinline__ float lse_log2(float lse, bool row_ok) {
+  return row_ok && lse != -INFINITY ? lse * LOG2E : INFINITY;
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16* __restrict__ dq) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_base_1k(smem_raw);
+  const uint32_t sQ = base, sdO = base + WG_TILE;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int bb = blockIdx.x, q0 = blockIdx.y * BQ, hh = blockIdx.z;
+  const int I = a.I, J = a.J, ldb = a.ldb;
+  const size_t bh = (size_t)bb * a.H + hh;
+  const bf16* kp = (const bf16*)a.k + bh * J * WD;
+  const bf16* vp = (const bf16*)a.v + bh * J * WD;
+  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * ldb : nullptr;
+  const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
+  unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));  // base, generic
+  const int tid = threadIdx.x;
+  const float scale2 = a.scale * LOG2E;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this thread's two query rows
+  const float ls0 = lse_log2(row0 < I ? a.lse[bh * I + row0] : 0.f, row0 < I);
+  const float ls1 = lse_log2(row1 < I ? a.lse[bh * I + row1] : 0.f, row1 < I);
+  const float dl0 = row0 < I ? a.delta[bh * I + row0] : 0.f;
+  const float dl1 = row1 < I ? a.delta[bh * I + row1] : 0.f;
+
+  float acc[32];  // dQ / scale
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+
+  // K, V, the bias and the key mask of key tile t into stage t & 1
+  auto load_stage = [&](int t) {
+    const int k0 = t * BK;
+    const uint32_t st = base + 2 * WG_TILE + (t & 1) * WgSmem::stage;
+    load_sw128<WD>(st, kp, k0, J);
+    load_sw128<WD>(st + WG_TILE, vp, k0, J);
+    if (biasp) load_bias(st + 2 * WG_TILE, biasp, ldb, q0, k0, I, J);
+    if (kmaskp && tid < BK) {
+      const bool ok = k0 + tid < J;
+      cp_async4(st + WgSmem::stats + tid * 4, ok ? kmaskp + k0 + tid : kmaskp, ok ? 4 : 0);
+    }
+  };
+
+  // tile t + 1's copies run under tile t's products, as in the forward
+  const int n_tiles = key_tiles(a, q0);
+  if (n_tiles > 0) {
+    load_sw128<WD>(sQ, (const bf16*)a.q + bh * I * WD, q0, I);
+    load_sw128<WD>(sdO, (const bf16*)a.dout + bh * I * WD, q0, I);
+    load_stage(0);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile t (and Q, dO) have landed
+    // each key's additive term in log2 units, written by the thread that
+    // copied its mask: -inf past J or where the key is hard-masked
+    const int k0 = t * BK;
+    const int st_off = 2 * WG_TILE + (t & 1) * WgSmem::stage;
+    float* kadd_s = reinterpret_cast<float*>(gbase + st_off + WgSmem::stats);
+    if (tid < BK) {
+      const float km = kmaskp ? kadd_s[tid] : 0.f;
+      kadd_s[tid] = k0 + tid < J && km > MASKED ? km * LOG2E : -INFINITY;
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, K and V read K-major
+    const uint32_t sK = base + st_off, sV = sK + WG_TILE;
+    float s[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss_n64(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss_n64(dp, kmajor_desc(sdO, kk), kmajor_desc(sV, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // scores in log2 units: s scale log2(e) + (bias + kmask) log2(e), -inf
+    // where masked; the causal mask only on a tile it reaches
+    float2 ka[8];  // the key terms of this thread's columns 8 n + 2 c, + 1
+#pragma unroll
+    for (int n = 0; n < 8; ++n) ka[n] = *reinterpret_cast<const float2*>(kadd_s + 8 * n + 2 * c);
+    if (biasp) {
+      const uint32_t sb = sK + 2 * WG_TILE;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int nq = 0; nq < 2; ++nq) {
+          uint32_t bv[4];  // column blocks 4 nq .. 4 nq + 3 of this thread's row (half)
+          ldmatrix_x4(bv, sb + ((warp * 16 + half * 8 + (lane & 7)) * BIAS_LD + (nq * 4 + (lane >> 3)) * 8) * 2);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 b = bf16x2_to_float2(bv[j]);
+            const float2 k2 = ka[nq * 4 + j];
+            float* sp = s + 4 * (nq * 4 + j) + 2 * half;
+            sp[0] = fmaf(sp[0], scale2, fmaf(b.x, LOG2E, k2.x));
+            sp[1] = fmaf(sp[1], scale2, fmaf(b.y, LOG2E, k2.y));
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[4 * n] = fmaf(s[4 * n], scale2, ka[n].x);
+        s[4 * n + 1] = fmaf(s[4 * n + 1], scale2, ka[n].y);
+        s[4 * n + 2] = fmaf(s[4 * n + 2], scale2, ka[n].x);
+        s[4 * n + 3] = fmaf(s[4 * n + 3], scale2, ka[n].y);
+      }
+    }
+    if (a.causal && k0 + BK - 1 + a.k_off > q0 + a.q_off) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * n + 2 * c + e;
+          if (col + a.k_off > row0 + a.q_off) s[4 * n + e] = -INFINITY;
+          if (col + a.k_off > row1 + a.q_off) s[4 * n + 2 + e] = -INFINITY;
+        }
+      }
+    }
+    // dS = p (dP - delta), in place of dP
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dp[4 * n + e] = ex2(s[4 * n + e] - ls0) * (dp[4 * n + e] - dl0);
+        dp[4 * n + 2 + e] = ex2(s[4 * n + 2 + e] - ls1) * (dp[4 * n + 2 + e] - dl1);
+      }
+    }
+
+    // dQ += dS K: dS (bf16) packed in place as the A operand, K (keys x d)
+    // read MN-major
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t da[4];
+      pack_a(da, dp, kk);
+      wgmma_rs(acc, da, mnmajor_desc(sK, kk));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every thread is done with stage t & 1 before it is refilled
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    if (row >= I) continue;
+    bf16* op = dq + (bh * I + row) * WD;
+#pragma unroll
+    for (int n = 0; n < WD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * n + 2 * c) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * half] * a.scale, acc[4 * n + 2 * half + 1] * a.scale);
+  }
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 3)
+flash_bwd_dkv_wgmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_base_1k(smem_raw);
+  unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));  // base, generic
+  const uint32_t sK = base, sV = base + WG_TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int bb = blockIdx.x, k0 = blockIdx.y * BK, hh = blockIdx.z;
+  const int I = a.I, J = a.J, ldb = a.ldb;
+  const size_t bh = (size_t)bb * a.H + hh;
+  const bf16* qp = (const bf16*)a.q + bh * I * WD;
+  const bf16* dop = (const bf16*)a.dout + bh * I * WD;
+  const float* lsep = a.lse + bh * I;
+  const float* deltap = a.delta + bh * I;
+  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * ldb : nullptr;
+  const float scale2 = a.scale * LOG2E;
+  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;  // this thread's two keys
+  // each key's own term, constant over the loop: its kmask in log2 units,
+  // -inf past J or where the key is hard-masked
+  float kadd[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key1 : key0;
+    float km = 0.f;
+    bool ok = key < J;
+    if (ok && a.kmask) {
+      km = a.kmask[(size_t)bb * J + key];
+      ok = km > MASKED;
+    }
+    kadd[half] = ok ? km * LOG2E : -INFINITY;
+  }
+
+  float dk_acc[32], dv_acc[32];  // dK / scale, dV
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+
+  // Q, dO, the bias, lse and delta of query tile t into stage t & 1
+  auto load_stage = [&](int t) {
+    const int q0 = t * BQ;
+    const uint32_t st = base + 2 * WG_TILE + (t & 1) * WgSmem::stage;
+    load_sw128<WD>(st, qp, q0, I);
+    load_sw128<WD>(st + WG_TILE, dop, q0, I);
+    if (biasp) load_bias(st + 2 * WG_TILE, biasp, ldb, q0, k0, I, J);
+    const int r = tid & (BQ - 1);
+    const float* src = tid < BQ ? lsep : deltap;
+    const bool ok = q0 + r < I;
+    cp_async4(st + WgSmem::stats + tid * 4, ok ? src + q0 + r : src, ok ? 4 : 0);
+  };
+
+  const int first = first_query_tile(a, k0), n_tiles = (I + BQ - 1) / BQ;
+  if (first < n_tiles) {
+    load_sw128<WD>(sK, (const bf16*)a.k + bh * J * WD, k0, J);
+    load_sw128<WD>(sV, (const bf16*)a.v + bh * J * WD, k0, J);
+    load_stage(first);
+    cp_async_commit();
+  }
+  for (int t = first; t < n_tiles; ++t) {
+    const int q0 = t * BQ;
+    const int st_off = 2 * WG_TILE + (t & 1) * WgSmem::stage;
+    if (t + 1 < n_tiles) load_stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    // the thread that copied a row's lse turns it into lse_log2 for all
+    float* lse_s = reinterpret_cast<float*>(gbase + st_off + WgSmem::stats);
+    const float* delta_s = lse_s + BQ;
+    if (tid < BQ) lse_s[tid] = lse_log2(lse_s[tid], q0 + tid < I);
+    fence_proxy_async();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T (keys x queries), Q and dO read K-major
+    const uint32_t sQ = base + st_off, sdO = sQ + WG_TILE;
+    float s[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss_n64(s, kmajor_desc(sK, kk), kmajor_desc(sQ, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss_n64(dp, kmajor_desc(sV, kk), kmajor_desc(sdO, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // scores in log2 units: the bias tile (query rows x keys) arrives
+    // transposed, in the accumulator layout, by ldmatrix.trans
+    if (biasp) {
+      const uint32_t sb = sQ + 2 * WG_TILE;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int nq = 0; nq < 2; ++nq) {
+          uint32_t bv[4];  // query blocks 4 nq .. 4 nq + 3 of this thread's key (half)
+          ldmatrix_x4_trans(bv, sb + ((8 * (nq * 4 + (lane >> 3)) + (lane & 7)) * BIAS_LD + warp * 16 + half * 8) * 2);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 b = bf16x2_to_float2(bv[j]);
+            float* sp = s + 4 * (nq * 4 + j) + 2 * half;
+            sp[0] = fmaf(sp[0], scale2, fmaf(b.x, LOG2E, kadd[half]));
+            sp[1] = fmaf(sp[1], scale2, fmaf(b.y, LOG2E, kadd[half]));
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s[4 * n + x] = fmaf(s[4 * n + x], scale2, kadd[x >> 1]);
+      }
+    }
+    if (a.causal && k0 + BK - 1 + a.k_off > q0 + a.q_off) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qrow = q0 + 8 * n + 2 * c + e;
+          if (key0 + a.k_off > qrow + a.q_off) s[4 * n + e] = -INFINITY;
+          if (key1 + a.k_off > qrow + a.q_off) s[4 * n + 2 + e] = -INFINITY;
+        }
+      }
+    }
+    // P^T = 2^(s - lse) in place of S^T, dS^T = P^T (dP^T - delta) in place of dP^T
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * c);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * n + 2 * c);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float* sp = s + 4 * n + 2 * half;
+        float* dpp = dp + 4 * n + 2 * half;
+        sp[0] = ex2(sp[0] - ls.x);
+        sp[1] = ex2(sp[1] - ls.y);
+        dpp[0] = sp[0] * (dpp[0] - dl.x);
+        dpp[1] = sp[1] * (dpp[1] - dl.y);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (bf16) packed in place as
+    // the A operands, dO and Q (queries x d) read MN-major
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t pa[4];
+      pack_a(pa, s, kk);
+      wgmma_rs(dv_acc, pa, mnmajor_desc(sdO, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t da[4];
+      pack_a(da, dp, kk);
+      wgmma_rs(dk_acc, da, mnmajor_desc(sQ, kk));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncthreads();  // every thread is done with stage t & 1 before it is refilled
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key1 : key0;
+    if (key >= J) continue;
+    bf16* dko = dk + (bh * J + key) * WD;
+    bf16* dvo = dv + (bh * J + key) * WD;
+#pragma unroll
+    for (int n = 0; n < WD / 8; ++n) {
+      const float* kx = dk_acc + 4 * n + 2 * half;
+      const float* vx = dv_acc + 4 * n + 2 * half;
+      *reinterpret_cast<__nv_bfloat162*>(dko + 8 * n + 2 * c) =
+          __floats2bfloat162_rn(kx[0] * a.scale, kx[1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvo + 8 * n + 2 * c) = __floats2bfloat162_rn(vx[0], vx[1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at d = 64, kernel 6 (dBias): the products on the tensor cores through
+// WMMA 16x16x16 (f32 accumulate). Four warps a block; each owns 16 query
+// rows of the block's (query tile, key tile), computes its two 16 x 64
+// recompute products (S and dP) into f32 shared scratch and runs the
+// elementwise part there (two lanes per row, on interleaved columns).
 // ---------------------------------------------------------------------------
 
 namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
 
 constexpr int WMMA_THREADS = 128;
-constexpr int WD = 64;            // the head dim of the WMMA kernels
 constexpr int LDT = WD + 8;       // bf16 [64][LDT] Q, K, V, dO tiles
-constexpr int LDB = BK + 8;       // bf16 [.][LDB] bias tile, P and dS
 constexpr int LDS = BK + 4;       // f32 [16][LDS] per-warp scratch
 constexpr size_t TILE = (size_t)64 * LDT * 2;
-constexpr size_t BIAS_TILE = (size_t)BQ * LDB * 2;
 constexpr size_t SCRATCH = (size_t)16 * LDS * 4;
-constexpr size_t HALF_TILE = (size_t)16 * LDB * 2;
 
 using Acc = wm::fragment<wm::accumulator, 16, 16, 16, float>;
 
@@ -430,27 +812,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, in
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * WD + c);
     *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
-  }
-}
-
-// the (query rows q0.., keys k0..) 64 x 64 bias tile into [64][LDB], zero
-// past the edges
-__device__ __forceinline__ void load_bias_tile(bf16* dst, const bf16* biasp, int q0, int k0, int I,
-                                               int J, int ldb) {
-  // 16-byte loads need an aligned base and row stride
-  if (ldb % 8 == 0 && (reinterpret_cast<uintptr_t>(biasp) & 15) == 0 && k0 + BK <= J) {
-    for (int e = threadIdx.x; e < BQ * BK / 8; e += WMMA_THREADS) {
-      const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < I) val = *reinterpret_cast<const uint4*>(biasp + (size_t)(q0 + r) * ldb + k0 + c);
-      *reinterpret_cast<uint4*>(dst + r * LDB + c) = val;
-    }
-  } else {
-    for (int e = threadIdx.x; e < BQ * BK; e += WMMA_THREADS) {
-      const int r = e / BK, c = e % BK;
-      dst[r * LDB + c] = (q0 + r < I && k0 + c < J) ? biasp[(size_t)(q0 + r) * ldb + k0 + c]
-                                                    : __float2bfloat16(0.f);
-    }
   }
 }
 
@@ -473,177 +834,6 @@ __device__ __forceinline__ void mma_abt(const bf16* A, const bf16* B, float* S) 
   }
 #pragma unroll
   for (int n = 0; n < BK / 16; ++n) wm::store_matrix_sync(S + n * 16, acc[n], LDS, wm::mem_row_major);
-}
-
-// O (16 x 64) += A (16 x 64, bf16 ld LDB) . B (64 x 64, bf16 row-major ld LDT)
-__device__ __forceinline__ void mma_ab_acc(const bf16* A, const bf16* B, Acc (&o)[WD / 16]) {
-#pragma unroll
-  for (int kk = 0; kk < 64; kk += 16) {
-    wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-    wm::load_matrix_sync(a, A + kk, LDB);
-#pragma unroll
-    for (int n = 0; n < WD / 16; ++n) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-      wm::load_matrix_sync(b, B + kk * LDT + n * 16, LDT);
-      wm::mma_sync(o[n], a, b, o[n]);
-    }
-  }
-}
-
-// a warp's accumulator (16 x 64) * mult into rows [row0, row0 + 16) of a
-// (nrows, 64) bf16 array, through the f32 scratch
-__device__ __forceinline__ void store_rows(Acc (&o)[WD / 16], float* scratch, bf16* out, int row0,
-                                           int nrows, float mult) {
-  const int lane = threadIdx.x & 31, r = lane >> 1, half = lane & 1;
-  __syncwarp();
-#pragma unroll
-  for (int n = 0; n < WD / 16; ++n) wm::store_matrix_sync(scratch + n * 16, o[n], LDS, wm::mem_row_major);
-  __syncwarp();
-  if (row0 + r < nrows) {
-    bf16* dst = out + (size_t)(row0 + r) * WD;
-    for (int c = half; c < WD; c += 2) dst[c] = __float2bfloat16(scratch[r * LDS + c] * mult);
-  }
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(WMMA_THREADS) flash_bwd_dq_wmma(Bwd a, bf16* __restrict__ dq) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = reinterpret_cast<bf16*>(smem_raw + TILE);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + 2 * TILE);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + 3 * TILE);
-  bf16* Bs = reinterpret_cast<bf16*>(smem_raw + 4 * TILE);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, r = lane >> 1, half = lane & 1;
-  unsigned char* wbase = smem_raw + 4 * TILE + BIAS_TILE + warp * (2 * SCRATCH + HALF_TILE);
-  float* Ss = reinterpret_cast<float*>(wbase);
-  float* dPs = reinterpret_cast<float*>(wbase + SCRATCH);
-  bf16* dSs = reinterpret_cast<bf16*>(wbase + 2 * SCRATCH);
-
-  const int q0 = blockIdx.x * BQ, hh = blockIdx.y, bb = blockIdx.z;
-  const int I = a.I, J = a.J, q_offset = a.q_off - a.k_off;
-  const size_t bh = (size_t)bb * a.H + hh;
-  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * a.ldb : nullptr;
-  const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
-  load_tile(Qs, (const bf16*)a.q + bh * I * WD, q0, I);
-  load_tile(dOs, (const bf16*)a.dout + bh * I * WD, q0, I);
-  const int row = q0 + warp * 16 + r;
-  const float lse = row < I ? a.lse[bh * I + row] : -INFINITY;
-  const float delta = row < I ? a.delta[bh * I + row] : 0.f;
-
-  Acc acc[WD / 16];
-#pragma unroll
-  for (int n = 0; n < WD / 16; ++n) wm::fill_fragment(acc[n], 0.f);
-
-  int num_k_tiles = (J + BK - 1) / BK;
-  if (a.causal) {
-    const int last_key = min(J - 1, q0 + BQ - 1 + q_offset);
-    num_k_tiles = last_key < 0 ? 0 : min(num_k_tiles, last_key / BK + 1);
-  }
-
-  for (int kt = 0; kt < num_k_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V/bias tiles
-    load_tile(Ks, (const bf16*)a.k + bh * J * WD, k0, J);
-    load_tile(Vs, (const bf16*)a.v + bh * J * WD, k0, J);
-    if (biasp) load_bias_tile(Bs, biasp, q0, k0, I, J, a.ldb);
-    __syncthreads();
-    mma_abt(Qs + warp * 16 * LDT, Ks, Ss);
-    mma_abt(dOs + warp * 16 * LDT, Vs, dPs);
-    __syncwarp();
-#pragma unroll 8
-    for (int c = half; c < BK; c += 2) {
-      const int col = k0 + c;
-      bool valid = col < J && row < I;
-      if (a.causal && col > row + q_offset) valid = false;
-      float extra = biasp ? __bfloat162float(Bs[(warp * 16 + r) * LDB + c]) : 0.f;
-      if (valid && kmaskp) {
-        const float km = kmaskp[col];
-        if (km <= MASKED) valid = false;
-        extra += km;
-      }
-      const float p = recompute_p(Ss[r * LDS + c] * a.scale, extra, valid, lse);
-      dSs[r * LDB + c] = __float2bfloat16(p * (dPs[r * LDS + c] - delta));
-    }
-    __syncwarp();
-    mma_ab_acc(dSs, Ks, acc);  // dQ += dS . K
-  }
-  store_rows(acc, Ss, dq + bh * I * WD, q0 + warp * 16, I, a.scale);
-}
-
-__global__ void __launch_bounds__(WMMA_THREADS)
-flash_bwd_dkv_wmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + TILE);
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + 2 * TILE);
-  bf16* dOs = reinterpret_cast<bf16*>(smem_raw + 3 * TILE);
-  bf16* Bs = reinterpret_cast<bf16*>(smem_raw + 4 * TILE);  // [query][key]
-  float* lse_s = reinterpret_cast<float*>(smem_raw + 4 * TILE + BIAS_TILE);
-  float* delta_s = lse_s + BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, r = lane >> 1, half = lane & 1;
-  unsigned char* wbase =
-      smem_raw + 4 * TILE + BIAS_TILE + 2 * BQ * 4 + warp * (2 * SCRATCH + 2 * HALF_TILE);
-  float* Ss = reinterpret_cast<float*>(wbase);  // S^T: the warp's 16 keys x 64 queries
-  float* dPs = reinterpret_cast<float*>(wbase + SCRATCH);
-  bf16* Ps = reinterpret_cast<bf16*>(wbase + 2 * SCRATCH);
-  bf16* dSs = reinterpret_cast<bf16*>(wbase + 2 * SCRATCH + HALF_TILE);
-
-  const int k0 = blockIdx.x * BK, hh = blockIdx.y, bb = blockIdx.z;
-  const int I = a.I, J = a.J, q_offset = a.q_off - a.k_off;
-  const size_t bh = (size_t)bb * a.H + hh;
-  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * a.ldb : nullptr;
-  load_tile(Ks, (const bf16*)a.k + bh * J * WD, k0, J);
-  load_tile(Vs, (const bf16*)a.v + bh * J * WD, k0, J);
-  const int key = k0 + warp * 16 + r;
-  // the key's mask term is constant over the loop
-  float km = 0.f;
-  bool key_ok = key < J;
-  if (key_ok && a.kmask) {
-    km = a.kmask[(size_t)bb * J + key];
-    if (km <= MASKED) key_ok = false;
-  }
-
-  Acc dk_acc[WD / 16], dv_acc[WD / 16];
-#pragma unroll
-  for (int n = 0; n < WD / 16; ++n) {
-    wm::fill_fragment(dk_acc[n], 0.f);
-    wm::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  int first_q_tile = 0;
-  if (a.causal && k0 - q_offset > 0) first_q_tile = (k0 - q_offset) / BQ;
-  const int num_q_tiles = (I + BQ - 1) / BQ;
-
-  for (int qt = first_q_tile; qt < num_q_tiles; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // every warp is done with the previous Q/dO/bias tiles
-    load_tile(Qs, (const bf16*)a.q + bh * I * WD, q0, I);
-    load_tile(dOs, (const bf16*)a.dout + bh * I * WD, q0, I);
-    if (biasp) load_bias_tile(Bs, biasp, q0, k0, I, J, a.ldb);
-    for (int e = threadIdx.x; e < BQ; e += WMMA_THREADS) {
-      lse_s[e] = q0 + e < I ? a.lse[bh * I + q0 + e] : -INFINITY;
-      delta_s[e] = q0 + e < I ? a.delta[bh * I + q0 + e] : 0.f;
-    }
-    __syncthreads();
-    mma_abt(Ks + warp * 16 * LDT, Qs, Ss);   // S^T = K . Q^T
-    mma_abt(Vs + warp * 16 * LDT, dOs, dPs); // dP^T = V . dO^T
-    __syncwarp();
-#pragma unroll 8
-    for (int c = half; c < BQ; c += 2) {
-      const int qrow = q0 + c;
-      bool valid = key_ok && qrow < I;
-      if (a.causal && key > qrow + q_offset) valid = false;
-      const float extra = km + (biasp ? __bfloat162float(Bs[c * LDB + warp * 16 + r]) : 0.f);
-      const float p = recompute_p(Ss[r * LDS + c] * a.scale, extra, valid, lse_s[c]);
-      Ps[r * LDB + c] = __float2bfloat16(p);
-      dSs[r * LDB + c] = __float2bfloat16(p * (dPs[r * LDS + c] - delta_s[c]));
-    }
-    __syncwarp();
-    mma_ab_acc(Ps, dOs, dv_acc);  // dV += P^T . dO
-    mma_ab_acc(dSs, Qs, dk_acc);  // dK += dS^T . Q
-  }
-  store_rows(dk_acc, Ss, dk + bh * J * WD, k0 + warp * 16, J, a.scale);
-  store_rows(dv_acc, Ss, dv + bh * J * WD, k0 + warp * 16, J, 1.f);
 }
 
 __global__ void __launch_bounds__(WMMA_THREADS) flash_bwd_dbias_wmma(Bwd a, float* __restrict__ dbias) {
@@ -724,30 +914,35 @@ constexpr size_t dbias_smem() {
 
 enum Which { kDQ, kDKV, kDBias };
 
-
-constexpr size_t DQ_WMMA_SMEM = 4 * TILE + BIAS_TILE + 4 * (2 * SCRATCH + HALF_TILE);
-constexpr size_t DKV_WMMA_SMEM = 4 * TILE + BIAS_TILE + 2 * BQ * 4 + 4 * (2 * SCRATCH + 2 * HALF_TILE);
 constexpr size_t DBIAS_WMMA_SMEM = 4 * TILE + 4 * 2 * SCRATCH;
 
-cudaError_t launch_wmma(Which which, const Bwd& a, void* o1, void* o2, cudaStream_t stream) {
+// bf16 at d = 64: dQ and dK/dV on wgmma, dBias on WMMA. The grid runs the
+// batch fastest, so the blocks that share a bias tile run together (as the
+// forward's).
+cudaError_t launch_tensor_cores(Which which, const Bwd& a, void* o1, void* o2, cudaStream_t stream) {
   const int qt = (a.I + BQ - 1) / BQ, kt = (a.J + BK - 1) / BK;
   cudaError_t err;
-  if (which == kDQ) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_wmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)DQ_WMMA_SMEM);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_wmma<<<dim3(qt, a.H, a.B), WMMA_THREADS, DQ_WMMA_SMEM, stream>>>(a, (bf16*)o1);
-  } else if (which == kDKV) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_wmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)DKV_WMMA_SMEM);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_wmma<<<dim3(kt, a.H, a.B), WMMA_THREADS, DKV_WMMA_SMEM, stream>>>(a, (bf16*)o1,
-                                                                                   (bf16*)o2);
-  } else {
+  if (which == kDBias) {
     err = cudaFuncSetAttribute(flash_bwd_dbias_wmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)DBIAS_WMMA_SMEM);
     if (err != cudaSuccess) return err;
     flash_bwd_dbias_wmma<<<dim3(kt, qt, a.H), WMMA_THREADS, DBIAS_WMMA_SMEM, stream>>>(a, (float*)o1);
+    return cudaGetLastError();
+  }
+  if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout) ||
+      (a.bias && (!aligned16(a.bias) || a.ldb % 8 != 0)))
+    return cudaErrorMisalignedAddress;
+  if (which == kDQ) {
+    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WgSmem::total);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_wgmma<<<dim3(a.B, qt, a.H), WG_THREADS, WgSmem::total, stream>>>(a, (bf16*)o1);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WgSmem::total);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_wgmma<<<dim3(a.B, kt, a.H), WG_THREADS, WgSmem::total, stream>>>(a, (bf16*)o1,
+                                                                                  (bf16*)o2);
   }
   return cudaGetLastError();
 }
@@ -796,7 +991,7 @@ int run(Which which, const void* q, const void* k, const void* v, const void* bi
               B, H, I, J, D, ldb, scale, causal, q_off, k_off};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32) return dispatch_d<float>(which, a, o1, o2, s);
-  if (dtype == kBF16 && D == WD) return launch_wmma(which, a, o1, o2, s);
+  if (dtype == kBF16 && D == WD) return launch_tensor_cores(which, a, o1, o2, s);
   if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(which, a, o1, o2, s);
   return cudaErrorInvalidValue;
 }
@@ -809,8 +1004,10 @@ int run(Which which, const void* q, const void* k, const void* v, const void* bi
 // lse and delta (b, h, i) f32, the outputs, then the sizes, the bias row
 // stride, scale, causal and the causal offsets (q_off, k_off): key c is seen
 // by row r iff c + k_off <= r + q_off. Attention over one whole sequence
-// passes (j - i, 0); a ring chunk passes its global positions.
-#define PHENAKI_BWD_ARGS                                                                      \
+// passes (j - i, 0); a ring chunk passes its global positions. In bf16 at
+// d = 64, dq and dkv return cudaErrorMisalignedAddress unless q, k, v, dO
+// and the bias start on a 16-byte boundary and ldb is a multiple of 8.
+#define PHENAKI_BWD_ARGS                                                                     \
   const void *q, const void *k, const void *v, const void *bias, const void *kmask,          \
       const void *dout, const void *lse, const void *delta
 #define PHENAKI_BWD_SIZES                                                                     \

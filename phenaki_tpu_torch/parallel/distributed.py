@@ -23,6 +23,7 @@ returned, in rank order; the tests and `chip_smoke.py` run their rings so.
 from __future__ import annotations
 
 import multiprocessing as mp
+import pickle
 import queue as queue_mod
 import tempfile
 import time
@@ -84,7 +85,10 @@ def _rank_main(fn, rank, world_size, store_path, backend, results, args):
     try:
         init_distributed(rank, world_size, store=dist.FileStore(store_path, world_size),
                          backend=backend)
-        results.put((rank, True, fn(rank, world_size, *args)))
+        # pickled here, by value: the queue's own pickler would send a tensor's
+        # storage as a file descriptor, which the parent can only fetch while
+        # this process is still alive
+        results.put((rank, True, pickle.dumps(fn(rank, world_size, *args))))
     except BaseException:  # report every failure to the parent, then exit non-zero
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -99,7 +103,8 @@ def spawn_ranks(fn: Callable[..., Any], world_size: int, *args, backend: Optiona
     with the `spawn` method, each joined to one process group (`backend` as
     `init_distributed` chooses it; a FileStore rendezvous in a temporary
     directory). Returns the ranks' results in rank order; they travel
-    pickled, so return numpy arrays or plain values rather than tensors.
+    pickled by value (tensors included), so a rank may exit as soon as it
+    has returned.
 
     Raises RuntimeError, after stopping every rank, when a rank raises,
     exits non-zero, or has not finished `timeout` seconds after the start.
@@ -126,7 +131,7 @@ def spawn_ranks(fn: Callable[..., Any], world_size: int, *args, backend: Optiona
                         failure = f"ranks did not finish within {timeout} s"
                     continue
                 if ok:
-                    got[rank] = value
+                    got[rank] = pickle.loads(value)
                 else:
                     failure = f"rank {rank} failed:\n{value}"
             for p in procs:

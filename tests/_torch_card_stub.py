@@ -1,9 +1,8 @@
 """A stand-in for the port's CUDA library, for tests on a machine with no
 card: CPU tensors are sent down the card's route (`stub_card`) into a
-`StubLibrary`, which records each C call of the attention kernels (for the
-two forward entries also the inputs' addresses and the tensors the kernel
-would read there, through the row stride it is given) and writes zeros to
-the outputs."""
+`StubLibrary`, which records each C call of the attention kernels with the
+inputs' addresses and the tensors the kernel would read there (through the
+bias row stride it is given), and writes zeros to the outputs."""
 
 import ctypes
 
@@ -24,9 +23,10 @@ class StubLibrary:
         ctypes.memset(ptr.value, 0, n)
 
     @staticmethod
-    def _operands(q, k, v, bias, b, h, i, j, d, ldb, dtype):
+    def _operands(q, k, v, bias, b, h, i, j, d, ldb, dtype, do=None):
         """Each input's address, and the tensor the kernel would read there:
-        q, k, v (b, h, n, d) contiguous; the bias h * i rows of j, ldb apart."""
+        q, k, v (and the backward's dO) (b, h, n, d) contiguous; the bias
+        h * i rows of j, ldb apart."""
         tdtype = next(t for t, code in _build.DTYPES.items() if code == dtype)
         size = torch.empty((), dtype=tdtype).element_size()
 
@@ -40,6 +40,8 @@ class StubLibrary:
                 "v": read(v, b * h * j, d, d).view(b, h, j, d)}
         if bias.value:
             data["bias"] = read(bias, h * i, j, ldb).view(h, i, j)
+        if do is not None:
+            seen["do"], data["do"] = do.value, read(do, b * h * i, d, d).view(b, h, i, d)
         return seen, data
 
     def flash_attention_fwd(self, q, k, v, bias, kmask, out, lse, b, h, i, j, d, ldb, scale, causal,
@@ -47,7 +49,7 @@ class StubLibrary:
         seen, data = self._operands(q, k, v, bias, b, h, i, j, d, ldb, dtype)
         self.calls.append(("fwd", dict(seen, kmask=kmask.value, b=b, h=h, i=i, j=j, d=d, ldb=ldb,
                                        causal=causal, dtype=dtype, data=data)))
-        self._zero(out, (2 if dtype == _build.DTYPES[torch.bfloat16] else 4) * b * h * i * d)
+        self._zero(out, self._size(dtype) * b * h * i * d)
         if lse.value:
             self._zero(lse, 4 * b * h * i)
         return int(self.fail)
@@ -61,24 +63,33 @@ class StubLibrary:
         self._zero(l, 4 * b * h * i)
         return int(self.fail)
 
-    def _bwd(self, name, outputs, b, h, i, j, d, ldb, causal, q_off, k_off):
-        self.calls.append((name, dict(i=i, j=j, ldb=ldb, causal=causal, q_off=q_off, k_off=k_off)))
+    def _bwd(self, name, outputs, q, k, v, bias, do, b, h, i, j, d, ldb, causal, q_off, k_off, dtype):
+        seen, data = self._operands(q, k, v, bias, b, h, i, j, d, ldb, dtype, do)
+        self.calls.append((name, dict(seen, i=i, j=j, d=d, ldb=ldb, causal=causal, q_off=q_off,
+                                      k_off=k_off, dtype=dtype, data=data)))
         for ptr, n in outputs:
             self._zero(ptr, n)
-        return 0
+        return int(self.fail)
+
+    @staticmethod
+    def _size(dtype):
+        return 2 if dtype == _build.DTYPES[torch.bfloat16] else 4
 
     def flash_attention_bwd_dq(self, q, k, v, bias, kmask, do, lse, delta, dq, b, h, i, j, d, ldb,
                                scale, causal, q_off, k_off, dtype, stream):
-        return self._bwd("dq", [(dq, 4 * b * h * i * d)], b, h, i, j, d, ldb, causal, q_off, k_off)
+        return self._bwd("dq", [(dq, self._size(dtype) * b * h * i * d)], q, k, v, bias, do, b, h, i,
+                         j, d, ldb, causal, q_off, k_off, dtype)
 
     def flash_attention_bwd_dkv(self, q, k, v, bias, kmask, do, lse, delta, dk, dv, b, h, i, j, d,
                                 ldb, scale, causal, q_off, k_off, dtype, stream):
-        return self._bwd("dkv", [(dk, 4 * b * h * j * d), (dv, 4 * b * h * j * d)], b, h, i, j, d,
-                         ldb, causal, q_off, k_off)
+        n = self._size(dtype) * b * h * j * d
+        return self._bwd("dkv", [(dk, n), (dv, n)], q, k, v, bias, do, b, h, i, j, d, ldb, causal,
+                         q_off, k_off, dtype)
 
     def flash_attention_bwd_dbias(self, q, k, v, bias, kmask, do, lse, delta, dbias, b, h, i, j, d,
                                   ldb, scale, causal, q_off, k_off, dtype, stream):
-        return self._bwd("dbias", [(dbias, 4 * h * i * j)], b, h, i, j, d, ldb, causal, q_off, k_off)
+        return self._bwd("dbias", [(dbias, 4 * h * i * j)], q, k, v, bias, do, b, h, i, j, d, ldb,
+                         causal, q_off, k_off, dtype)
 
 
 def stub_card(lib):

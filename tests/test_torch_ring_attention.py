@@ -20,10 +20,14 @@ on the CPU, with the Pallas kernels in interpret mode.
   the ring launches the chunk kernel `sp` times, and the chunk's backward the
   three backward kernels, with each chunk's global offsets and the bias row
   stride; a failing launch raises; a CPU tensor never reaches a C entry.
+* `spawn_ranks` carries each rank's result pickled by value (tensors
+  included), so a rank may exit as soon as it has returned.
 
 The rank functions import no JAX (a spawned rank imports this module by
 name): JAX is imported inside the tests and fixtures only.
 """
+
+import pickle
 
 import numpy as np
 import pytest
@@ -33,7 +37,7 @@ import torch.distributed as dist
 import phenaki_tpu_torch.ops.flash_attention as fa
 import phenaki_tpu_torch.parallel.ring_attention as ra
 from phenaki_tpu_torch import _build
-from phenaki_tpu_torch.parallel.distributed import spawn_ranks
+from phenaki_tpu_torch.parallel.distributed import _rank_main, spawn_ranks
 
 from _torch_card_stub import StubLibrary, stub_card
 
@@ -266,6 +270,28 @@ def test_two_rank_ring_grads(two_ranks, jax_ring):
     for rank in results:
         for name, got, r in zip("q k v bias".split(), rank["grads"], ref):
             np.testing.assert_allclose(got, np.asarray(r), atol=5e-5, rtol=0, err_msg=name)
+
+
+def _rank_tensor(rank, world):
+    return torch.full((64,), float(rank))
+
+
+def test_rank_results_travel_by_value(tmp_path):
+    """A rank sends its result pickled by value, so the parent can read it
+    after the rank has exited (a tensor sent through the queue's own pickler
+    shares its storage by a file descriptor the parent must fetch from the
+    live sender)."""
+    sent = []
+
+    class Queue:
+        put = staticmethod(sent.append)
+
+    _rank_main(_rank_tensor, 0, 1, str(tmp_path / "store"), "gloo", Queue(), ())
+    [(rank, ok, payload)] = sent
+    assert rank == 0 and ok and isinstance(payload, bytes) and not dist.is_initialized()
+    assert torch.equal(pickle.loads(payload), torch.zeros(64))
+    results = spawn_ranks(_rank_tensor, 2, backend="gloo", timeout=120)
+    assert [r.tolist() for r in results] == [[0.0] * 64, [1.0] * 64]
 
 
 def test_four_rank_plain_ring():
