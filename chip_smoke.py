@@ -225,8 +225,10 @@ def flash_cases(torch, dtype, gen):
 
 
 # the wgmma kernels and their instances: the forward at d = 64 and 128 for
-# kernels 1 and 3, the backward's dQ and dK/dV (kernels 4 and 5) at d = 64
-WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 4, "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 1}
+# kernels 1 and 3, the backward's dQ and dK/dV (kernels 4 and 5) at d = 64,
+# the projection sampler's bf16 kernel (kernel 2)
+WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 4, "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 1,
+                 "proj_wgmma_kernel": 4}
 
 
 def check_wgmma_build():
@@ -716,8 +718,9 @@ def check_fused_ce(torch):
 
 def check_proj(torch):
     """The projection sampler against its plain version with injected noise:
-    at the flagship decode shape (d = 512) and at d = 1024, where the
-    kernel stages W in d-slices, in bf16 and f32; and at the critic train
+    at the flagship decode shape (d = 512) and at d = 1024 (sixteen ring
+    slices of d for bf16; the f32 kernel stages W in d-slices there), in
+    bf16 and f32; and at the critic train
     shape, (4, 1152, 512) bf16 embeddings with the f32 weight cast to bf16
     at the call, as `Phenaki.loss` does, at its sample temperature 1."""
     from phenaki_tpu_torch.ops.fused_sampling import project_sample, project_sample_plain
@@ -742,24 +745,37 @@ def check_proj(torch):
         same = ids == ref_ids
         agree = same.float().mean().item()
         err = (score - ref_score)[same].abs().max().item()
-        ms = cuda_ms(lambda: project_sample(h, w.to(dtype), bias, temp, noise=noise), reps=10)
-        plain_ms = cuda_ms(lambda: project_sample_plain(h, w.to(dtype), bias, temp, noise=noise), reps=10)
+        wk = w.to(dtype)  # the kernel's operand, cast once outside the timed calls
+        ms = cuda_ms(lambda: project_sample(h, wk, bias, temp, noise=noise), reps=10)
+        plain_ms = cuda_ms(lambda: project_sample_plain(h, wk, bias, temp, noise=noise), reps=10)
         gseed = torch.Generator().manual_seed(7)
-        ms_philox = cuda_ms(lambda: project_sample(h, w.to(dtype), bias, temp, generator=gseed), reps=10)
+        ms_philox = cuda_ms(lambda: project_sample(h, wk, bias, temp, generator=gseed), reps=10)
+        # the device time alone, by CUDA-graph replay (the seed is drawn at
+        # capture: every replay samples with the same one)
+        graph = graph_ms(lambda: project_sample(h, wk, bias, temp, noise=noise), reps=10)
+        graph_philox = graph_ms(lambda: project_sample(h, wk, bias, temp, generator=gseed), reps=10)
+        numbers = dict(ms=ms, graph_ms=graph, ms_philox=ms_philox, graph_ms_philox=graph_philox,
+                       plain_ms=plain_ms)
+        if dtype == torch.bfloat16:
+            # the product alone, a yardstick: it samples nothing
+            numbers["matmul_ms"] = cuda_ms(lambda: torch.matmul(h, wk.t()), reps=10)
         phase(f"project_sample {tag}", rows=b * rows, d=d, vocab=v, weight_dtype=str(w_dtype),
-              id_agreement=agree, score_max_abs_err=err, score_min=score.min().item(), ms=ms,
-              ms_philox=ms_philox, plain_ms=plain_ms)
+              id_agreement=agree, score_max_abs_err=err, score_min=score.min().item(), **numbers)
         check(ids.shape == (b, rows) and score.shape == (b, rows), f"project_sample {tag}: shapes")
         check(agree >= 0.999, f"project_sample {tag}: ids agree on {agree} < 0.999 of rows")
         check(err <= 1e-4, f"project_sample {tag}: score err {err} > 1e-4")
         # `ms` against `plain_ms` on the same injected noise; the main paths
         # run the in-kernel Philox stream, timed as `ms_philox`
-        result[tag] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_philox=ms_philox)
-        if tag == "d512_bfloat16":  # the bound of `ms`'s call: noise read, ids and scores written
-            result[tag]["bound_ms"], result[tag]["bound_by"] = bound(
-                nbytes(h, w, bias, noise) + b * rows * 8, 2 * b * rows * d * v)
+        result[tag] = dict(max_abs_err=err, **numbers)
+        if tag == "d512_bfloat16":
+            # the bound of `ms`'s call (the noise read, ids and scores
+            # written) and of the Philox call the main paths run
+            out_bytes, ops = b * rows * 8, 2 * b * rows * d * v
+            result[tag]["bound_ms"], result[tag]["bound_by"] = bound(nbytes(h, wk, bias, noise) + out_bytes, ops)
+            result[tag]["bound_ms_philox"], result[tag]["bound_by_philox"] = bound(
+                nbytes(h, wk, bias) + out_bytes, ops)
             result[tag]["library_ms"] = None  # no one PyTorch call samples from h W + b
-        del h, w, noise
+        del h, w, wk, noise
 
     # the in-kernel Philox stream: softmax frequencies and seed determinism
     n_rows, d, v = 4096, 128, 512
@@ -1628,7 +1644,9 @@ def main() -> int:
         dict(name="flash_attend_chunk", route="cuda", source=FLASH_SRC, replaces=CHUNK_TPU,
              launches=launches["chunk"], **{k: chunk[k] for k in keys}, graph_ms=chunk["graph_ms"]),
         dict(name="proj_sample", route="cuda", source=PROJ_SRC, replaces=PROJ_TPU,
-             launches=launches["proj"], ms_philox=proj["ms_philox"], **{k: proj[k] for k in keys}),
+             launches=launches["proj"], **{k: proj[k] for k in keys},
+             **{k: proj[k] for k in ("graph_ms", "ms_philox", "graph_ms_philox", "bound_ms_philox",
+                                     "bound_by_philox", "matmul_ms")}),
         dict(name="gumbel_sample", route="cuda", source=GUMBEL_SRC, replaces=GUMBEL_TPU,
              launches=launches["gumbel"], ms_philox=gumbel["ms_philox"], **{k: gumbel[k] for k in keys}),
     ]

@@ -108,8 +108,8 @@ _SIGNATURES = {
         _P, _P, _P,  # h (rows, d), w (V, d), bias (V,) f32 or null
         _P,  # noise (rows, V) f32 or null
         _P, _P,  # ids (rows,) int32, score (rows,) f32
-        _P,  # partials scratch (rows, chunks, 5) f32
-        _I, _I, _I,  # rows, d, V
+        _P,  # partials scratch (rows, splits, 5) f32
+        _I, _I, _I, _I,  # rows, d, V, splits (bf16: 1..V / 128; f32: V / 64)
         _F, _U64, _I,  # temperature, seed, dtype (0 = f32, 1 = bf16)
         _P,  # stream
     ],

@@ -5,47 +5,82 @@
 // (reached from project_gumbel_sample_with_score -> pl.pallas_call). Per row
 // r of h (rows, d) over the vocab V:
 //   logits = h[r] @ W^T + bias                 (W is the (V, d) Linear weight)
-//   u      = (philox_bits >> 8) * 2^-24        or the injected noise[r, v]
+//   u      = a uniform in [0, 1) from Philox, or the injected noise[r, v]
 //   g      = -log(-log(u + 1e-10) + 1e-10)
 //   y      = logits / max(T, 1e-10) + g
 //   id     = argmax y   (ties -> lowest id, like jnp.argmax)
 //   score  = 1 - exp(logits[id] - max logits) / sum exp(logits - max)
 // The (rows, V) logits never reach device memory.
 //
-// What bounds it on the H100: the product is 2*rows*d*V FLOPs (77 GFLOP per
-// flagship step at b = 1) against one 64 MB read of W, so it is bound by the
-// tensor cores, then by the per-logit transcendentals of the epilogue. The
-// TPU kernel carried its running statistics across a sequential vocab grid
-// axis; Hopper blocks run in no order, so the design is two passes:
-//   1. proj_partials_kernel: each block owns a 64-column vocab chunk, copies
-//      that chunk of W into shared memory once, and walks over every 64-row
-//      tile of h (h is small and stays in L2). A tile's logits come from
-//      bf16 WMMA (16x16x16, f32 accumulate) into shared memory; one warp per
-//      row then folds the tile into five partials per (row, chunk): best y,
-//      its id, the logit at that id, the max logit and the sum-exp. Where
-//      the chunk's (64, D) slice of W does not fit shared memory (D > 768),
-//      the block stages it 512 columns of d at a time for every row tile and
-//      accumulates the tile's logits across the slices.
-//   2. proj_merge_kernel: one warp per row merges the chunk partials with
-//      the same (y desc, id asc) order, so ties go to the lowest id, and the
-//      online max/sum-exp rule.
-// The noise is Philox-4x32-10 keyed by the seed with counter (v / 4, row),
-// so a sample does not depend on the tiling.
+// What bounds it on the H100, at the flagship decode step (h (1152, 512)
+// bf16, W (65536, 512) bf16): the products are 2 rows d V = 77.3 GFLOP,
+// 0.078 ms at 989 TFLOP/s, against 68.6 MB of operands (0.020 ms at 3.35
+// TB/s; the injected f32 noise of the testing hook adds 302 MB, 0.111 ms).
+// Behind the products comes the epilogue, 75.5 M logits: per logit two logs
+// and one exp on the multi-function unit (about 0.06 ms at 16 a clock an
+// SM) and, with a Philox call for four logits, tens of instructions, so it
+// is bound by instruction issue more than the products are by the tensor
+// cores.
+//
+// The design (bf16: proj_wgmma_kernel). The TPU kernel carried its running
+// statistics across a sequential vocab grid axis; Hopper blocks run in no
+// order, so the vocab is cut into S splits and the work is two launches:
+//  1. A block (two warpgroups, 256 threads) owns 128 rows of h (64 a
+//     warpgroup) and one split, and walks the split's 128-id vocab tiles.
+//     The grid is (row tiles, S), row tiles fastest, so the blocks of one
+//     split read the same W tiles at about the same time and W comes from
+//     HBM about once; the wrapper picks S so that the grid fills one wave
+//     (9 x 14 = 126 blocks at 1152 rows on 132 SMs).
+//  2. d streams through a ring of PB_STAGES shared-memory stages of 64-
+//     column slices (16 KB of W a stage), filled with 16-byte cp.async in
+//     the 128-byte swizzle a TMA copy would write; the products are wgmma
+//     m64n128k16 with both operands in shared memory (W is a K-major B: its
+//     rows are vocab ids, d contiguous). Up to d = 512 the block's rows of h
+//     stay in shared memory (128 KB; 211 KB in all), so L2 serves W once a
+//     row tile and h once a split: 9 x 67 MB + 14 x 1.2 MB = 0.62 GB a
+//     flagship call (the WMMA kernel read 1.2 GB). Past that h streams
+//     through the ring beside W (every d the gate admits, d % 128 == 0, runs
+//     here; 2.4 GB from L2 at d = 1024).
+//  3. The epilogue runs on the accumulator registers (wgmma.cuh layout: a
+//     thread holds rows g, g + 8 at columns 8 n + 2 c, 8 n + 2 c + 1): the
+//     bias, staged a tile at a time into shared memory with the ring; one
+//     Philox call for the four values of an 8-column block; the gumbel
+//     transform with lg2.approx; the sum-exp with one ex2.approx a value
+//     against a reference that moves only when passed by 2^64. Each thread
+//     keeps a running (best y, id, chosen logit, reference, sum-exp) for its
+//     two rows across the whole split; the quad that shares a row merges
+//     them once, at the end, and writes one partial per (row, split).
+//  4. Overlap: two accumulators (2 x 64 f32 a thread, 255 registers, one
+//     block an SM). A pass issues tile t's products slice by slice, then
+//     runs tile t - 1's epilogue, which overlaps only the last slice in
+//     flight. Spreading the epilogue over the slices in 2, 4, 8 or 16
+//     shares, two groups of wgmma in flight, and four warpgroups of
+//     m64n64 tiles (more warps, half the accumulators each) were all
+//     measured slower: the epilogue wants its sixteen column blocks in one
+//     stretch of code (instruction-level parallelism), and the products'
+//     own loop (barrier, copies) leaves little to hide it under.
+//  Then proj_merge_kernel: one warp per row folds the S partials in split
+//  order with the same (y desc, id asc) order, so ties go to the lowest id,
+//  and the online max/sum-exp rule. No float atomics.
+//
+// The noise: Philox-4x32-10 keyed by the seed, counter (v / 2, row & ~8),
+// words (x, y) for row & ~8 and (z, w) for row | 8 at ids v & ~1 and v | 1,
+// u = (word >> 9) * 2^-23: a function of (seed, row, vocab id) alone, so a
+// seed's sample depends on neither the tiling nor S. The `noise` hook reads
+// (rows, V) f32 uniforms in the accumulator layout instead.
+//
+// f32 (proj_partials_kernel, the CUDA cores, exact for the card checks; no
+// main path runs it): a block owns a 64-id vocab chunk, stages the chunk's W
+// in shared memory (d in 512-column slices beyond 768), walks every 64-row
+// tile of h and writes one partial per (row, chunk).
 
-#include <mma.h>
-
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace phenaki {
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int RT = 64;        // rows per tile of h
-constexpr int VC = 64;        // vocab columns per block
-constexpr int THREADS = 256;  // 8 warps
-constexpr int NPART = 5;      // best y, id bits, chosen logit, max, sum-exp
+constexpr int NPART = 5;  // best y, id bits, chosen logit, max, sum-exp
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void better_of(float& y, int& id, float& ch,
                                           float oy, int oid, float och) {
@@ -65,32 +100,316 @@ __device__ __forceinline__ void merge_lse(float& m, float& se, float om, float o
   m = mn;
 }
 
-__device__ __forceinline__ float uniform24(uint32_t bits) {
-  return (float)(bits >> 8) * (1.0f / 16777216.0f);
+// a uniform in [0, 1) from the top 23 bits, (bits >> 9) * 2^-23, built as
+// the mantissa of a float in [1, 2): two ALU operations, no conversion
+__device__ __forceinline__ float uniform23(uint32_t bits) {
+  return __uint_as_float(0x3f800000u | (bits >> 9)) - 1.0f;
 }
 
-constexpr int MAX_RESIDENT_D = 768;  // all of d of a W chunk in shared memory (f32: 197 KB)
+// ---------------------------------------------------------------------------
+// bf16: wgmma over d-sliced tiles, the epilogue in registers (see the note at
+// the top)
+// ---------------------------------------------------------------------------
+
+constexpr int PB_ROWS = 128;   // rows of h a block: 64 a warpgroup
+constexpr int PB_VT = 128;     // vocab ids a tile
+constexpr int PB_KS = 64;      // d columns a ring slice: one 128-byte swizzle row
+constexpr int PB_STAGES = 5;   // ring stages: 3 slices load ahead of the products
+constexpr int PB_THREADS = 2 * WG_THREADS;
+constexpr int PB_SLICE = PB_ROWS * PB_KS * 2;  // bytes of a slice of h, and of W
+constexpr int PB_RESIDENT_NS = 8;              // h stays in shared memory up to d = 512
+constexpr int PB_BIAS_SLOTS = 4;  // tiles' bias in flight: loaded 1-2 passes before
+                                  // its epilogue, read for one pass
+constexpr int PB_BLOCKS = PB_VT / 8;  // 8-column blocks of a tile
+
+// a ring stage: the W slice, then (h streamed) the h slice
+template <bool RES>
+__host__ __device__ constexpr int pb_stage() { return RES ? PB_SLICE : 2 * PB_SLICE; }
+
+// shared memory: resident h (NS slices), the ring, the bias slots, 1 KB to
+// align: 211 KB at d = 512, 163 KB with h streamed
+template <bool RES>
+int pb_smem(int NS) {
+  return (RES ? NS * PB_SLICE : 0) + PB_STAGES * pb_stage<RES>() + PB_BIAS_SLOTS * PB_VT * 4 + 1024;
+}
+
+// rows [r0, r0 + 128) x columns [c0, c0 + 64) of a row-major (., D) bf16
+// array into 128 swizzled rows of 128 bytes (8-row groups 1024 B apart)
+__device__ __forceinline__ void load_slice(uint32_t dst, const bf16* src, size_t r0, int c0, int D) {
+#pragma unroll
+  for (int it = 0; it < PB_ROWS * 8 / PB_THREADS; ++it) {
+    const int e = threadIdx.x + it * PB_THREADS;
+    const int r = e >> 3, ch = e & 7;
+    cp_async16(dst + r * 128 + ((ch ^ (r & 7)) << 4), src + (r0 + r) * D + c0 + ch * 8, 16);
+  }
+}
+
+struct Proj {
+  const bf16 *h, *w;
+  const float *bias, *noise;
+  float* partials;
+  int rows, D, V, splits;
+  float y_scale;    // log2(e) / max(T, 1e-10): y in log2 units
+  uint32_t rk[20];  // Philox's round keys (x, y of rounds 0..9), from the host
+};
+
+// Philox-4x32-10 as common.cuh has it, with its round keys read from the
+// kernel's parameters (an operand of the XOR, no add a round) and each
+// multiply one 32 x 32 -> 64 bit product
+__device__ __forceinline__ uint4 philox_rk(uint4 ctr, const uint32_t (&rk)[20]) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint64_t p0 = (uint64_t)0xD2511F53u * ctr.x, p1 = (uint64_t)0xCD9E8D57u * ctr.z;
+    ctr = make_uint4((uint32_t)(p1 >> 32) ^ ctr.y ^ rk[2 * r], (uint32_t)p1,
+                     (uint32_t)(p0 >> 32) ^ ctr.w ^ rk[2 * r + 1], (uint32_t)p0);
+  }
+  return ctr;
+}
+
+// a thread's running statistics for its two rows: the best y (log2 units),
+// its id and logit; the sum-exp as se = sum 2^(x - m) over x = logit
+// log2(e), with m a reference that rises only when an x passes it by more
+// than PB_RESCALE (2^64 of headroom in f32), so that a value costs one ex2
+// and no compare against a running max
+constexpr float PB_RESCALE = 64.f;
+struct Running {
+  float best[2], ch[2], m[2], se[2];
+  int id[2];
+};
+
+// column block n of the accumulator `a` (vocab ids v0 + 8 n + [0, 8)) into
+// the running statistics: four values, rows row0 and row0 + 8 at ids v and
+// v + 1, visited in id order for each row; the tile's bias from shared
+// memory (sbias, or null)
+template <bool NOISE>
+__device__ __forceinline__ void fold_block(const Proj& p, Running& st, const float (&a)[64], int n,
+                                           int v0, const float* sbias, int row0, int c) {
+  const int v = v0 + 8 * n + 2 * c;
+  const float2 b = sbias ? *reinterpret_cast<const float2*>(sbias + 8 * n + 2 * c) : make_float2(0.f, 0.f);
+  const float lg[4] = {a[4 * n] + b.x, a[4 * n + 1] + b.y, a[4 * n + 2] + b.x, a[4 * n + 3] + b.y};
+  float u[4];
+  if (NOISE) {  // a row past `rows` (h's zero padding) reads none
+    const float2 half_u = make_float2(0.5f, 0.5f);
+    const float2 n0 = row0 < p.rows ? __ldg(reinterpret_cast<const float2*>(p.noise + (size_t)row0 * p.V + v)) : half_u;
+    const float2 n1 = row0 + 8 < p.rows ? __ldg(reinterpret_cast<const float2*>(p.noise + (size_t)(row0 + 8) * p.V + v)) : half_u;
+    u[0] = n0.x;
+    u[1] = n0.y;
+    u[2] = n1.x;
+    u[3] = n1.y;
+  } else {
+    const uint4 bits = philox_rk(make_uint4((uint32_t)(v >> 1), (uint32_t)row0, 0u, 0u), p.rk);
+    u[0] = uniform23(bits.x);
+    u[1] = uniform23(bits.y);
+    u[2] = uniform23(bits.z);
+    u[3] = uniform23(bits.w);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    // a new sum-exp reference, rarely: the first values, or one that passes
+    // it by more than PB_RESCALE
+    const float mx = fmaxf(lg[2 * half], lg[2 * half + 1]) * LOG2E;
+    if (mx - st.m[half] > PB_RESCALE) {
+      st.se[half] *= ex2(st.m[half] - mx);
+      st.m[half] = mx;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int half = j >> 1;
+    // -log(u + 1e-10) + 1e-10, then y = (logit / T + gumbel) log2(e)
+    const float t = fmaf(lg2(u[j] + 1e-10f), -LN2, 1e-10f);
+    const float y = fmaf(lg[j], p.y_scale, -lg2(t));
+    const bool better = y > st.best[half];  // ids rise within a thread: ties keep the lowest
+    st.best[half] = better ? y : st.best[half];
+    st.id[half] = better ? v + (j & 1) : st.id[half];
+    st.ch[half] = better ? lg[j] : st.ch[half];
+    st.se[half] += ex2(fmaf(lg[j], LOG2E, -st.m[half]));
+  }
+}
+
+__device__ __forceinline__ void merge_lse2(float& m, float& se, float om, float ose) {
+  const float mn = fmaxf(m, om);
+  if (mn == -INFINITY) return;
+  se = (m == -INFINITY ? 0.f : se * ex2(m - mn)) + (om == -INFINITY ? 0.f : ose * ex2(om - mn));
+  m = mn;
+}
+
+// the block's per-launch constants and its position in the ring
+struct Walk {
+  uint32_t hres;   // resident h (NS slices), 1 KB aligned; the ring follows
+  uint32_t ring;
+  float* sbias;    // the bias slots after the ring, generic
+  size_t r0;       // the block's first row
+  int t_begin, nt, NS, total;
+  int row0, c, wg;
+};
+
+// step i of the ring (tile i / NS of the split, d slice i % NS) into its
+// stage, and with a tile's first slice its bias into slot tile % 4; the
+// steps of the padding tiles past the split's last reload that one
+template <bool RES>
+__device__ __forceinline__ void load_step(const Proj& p, const Walk& k, int i) {
+  const uint32_t st = k.ring + (i % PB_STAGES) * pb_stage<RES>();
+  const int tl = i / k.NS, t = k.t_begin + min(tl, k.nt - 1), c0 = (i % k.NS) * PB_KS;
+  load_slice(st, p.w, (size_t)t * PB_VT, c0, p.D);
+  if (!RES) load_slice(st + PB_SLICE, p.h, k.r0, c0, p.D);
+  if (p.bias && c0 == 0 && tl < k.nt && threadIdx.x < PB_VT / 4)
+    cp_async16(smem_u32(k.sbias + (tl % PB_BIAS_SLOTS) * PB_VT + threadIdx.x * 4),
+               p.bias + (size_t)t * PB_VT + threadIdx.x * 4, 16);
+}
+
+// tile tl's products into `an`, then tile tl - 1's epilogue from `ac`, which
+// runs under the products still in flight. `ac`'s products retire before
+// `an`'s are issued, so only `an` is ever in flight while `ac` is read; every
+// pass issues its products (past the split's last tile they are padding),
+// and nothing but wgmma writes an accumulator: one written on some paths
+// only would be copied at the join, and ptxas then serializes the wgmma
+// pipeline.
+template <bool RES, bool NOISE>
+__device__ __forceinline__ void tile_pass(const Proj& p, const Walk& k, Running& st, float (&an)[64],
+                                          float (&ac)[64], int tl) {
+  wg_wait<0>();
+  fence_regs(ac);
+  for (int s = 0; s < k.NS; ++s) {
+    const int i = tl * k.NS + s;
+    cp_async_wait<PB_STAGES - 3>();  // this thread's copies of step i have landed
+    fence_proxy_async();
+    // every thread's copies of step i are visible, and every warpgroup's
+    // products of step i - 2 are done: its stage is free
+    __syncthreads();
+    if (i + PB_STAGES - 2 < k.total) load_step<RES>(p, k, i + PB_STAGES - 2);
+    cp_async_commit();
+    const uint32_t sw = k.ring + (i % PB_STAGES) * pb_stage<RES>();
+    const uint32_t sh = (RES ? k.hres + s * PB_SLICE : sw + PB_SLICE) + k.wg * (64 * 128);
+    fence_regs(an);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < PB_KS / 16; ++kk)
+      wgmma_ss_n128(an, kmajor_desc(sh, kk), kmajor_desc(sw, kk), s > 0 || kk > 0);
+    wg_commit();
+    wg_wait<1>();  // step i - 1's products are done
+  }
+  if (tl >= 1 && tl <= k.nt) {  // tile tl - 1 is one of the split's
+    const int v0 = (k.t_begin + tl - 1) * PB_VT;
+    const float* sbias = p.bias ? k.sbias + ((tl - 1) % PB_BIAS_SLOTS) * PB_VT : nullptr;
+#pragma unroll
+    for (int n = 0; n < PB_BLOCKS; ++n) fold_block<NOISE>(p, st, ac, n, v0, sbias, k.row0, k.c);
+  }
+}
+
+template <bool RES, bool NOISE>
+__global__ void __launch_bounds__(PB_THREADS, 1) proj_wgmma_kernel(const __grid_constant__ Proj p) {
+  extern __shared__ unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int split = blockIdx.y, T = p.V / PB_VT;
+  Walk k;
+  k.NS = p.D / PB_KS;
+  k.hres = smem_base_1k(smem_raw);
+  k.ring = k.hres + (RES ? k.NS * PB_SLICE : 0);
+  k.sbias = reinterpret_cast<float*>(smem_raw + (k.ring - smem_u32(smem_raw)) + PB_STAGES * pb_stage<RES>());
+  k.r0 = (size_t)blockIdx.x * PB_ROWS;
+  k.t_begin = split * T / p.splits;
+  k.nt = (split + 1) * T / p.splits - k.t_begin;
+  // passes: the split's tiles, then one whose epilogue is the last tile's,
+  // rounded up to an even count (two passes a trip below)
+  const int passes = (k.nt + 2) & ~1;
+  k.total = passes * k.NS;
+  k.wg = tid >> 7;
+  k.c = lane & 3;
+  k.row0 = (int)k.r0 + k.wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+
+  Running st;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    st.best[half] = -INFINITY;
+    st.ch[half] = 0.f;
+    st.m[half] = -INFINITY;
+    st.se[half] = 0.f;
+    st.id[half] = 0x7fffffff;
+  }
+  float acc0[64], acc1[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) acc0[x] = acc1[x] = 0.f;
+
+  // resident h: all of the block's rows, with the first step's copies
+  if (RES)
+    for (int s = 0; s < k.NS; ++s) load_slice(k.hres + s * PB_SLICE, p.h, k.r0, s * PB_KS, p.D);
+#pragma unroll
+  for (int i = 0; i < PB_STAGES - 2; ++i) {
+    load_step<RES>(p, k, i);  // a split has at least one tile: 2 NS >= PB_STAGES - 2 steps
+    cp_async_commit();
+  }
+  // two passes a trip, so each accumulator keeps its role in the code
+  for (int tl = 0; tl < passes; tl += 2) {
+    tile_pass<RES, NOISE>(p, k, st, acc0, acc1, tl);
+    tile_pass<RES, NOISE>(p, k, st, acc1, acc0, tl + 1);
+  }
+  wg_wait<0>();
+  cp_async_wait<0>();
+
+  // the quad that shares a row merges its four running states; one partial
+  // per (row, split)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, st.best[half], off);
+      const int oid = __shfl_xor_sync(0xffffffffu, st.id[half], off);
+      const float och = __shfl_xor_sync(0xffffffffu, st.ch[half], off);
+      const float om = __shfl_xor_sync(0xffffffffu, st.m[half], off);
+      const float ose = __shfl_xor_sync(0xffffffffu, st.se[half], off);
+      better_of(st.best[half], st.id[half], st.ch[half], ob, oid, och);
+      merge_lse2(st.m[half], st.se[half], om, ose);
+    }
+    const int row = k.row0 + 8 * half;
+    if (k.c == 0 && row < p.rows) {
+      float* out = p.partials + ((size_t)row * p.splits + split) * NPART;
+      out[0] = st.best[half];
+      out[1] = __int_as_float(st.id[half]);
+      out[2] = st.ch[half];
+      out[3] = st.m[half] * LN2;  // natural units, as the merge reads them
+      out[4] = st.se[half];
+    }
+  }
+}
+
+cudaError_t launch_wgmma(const Proj& p, cudaStream_t s) {
+  if (!aligned16(p.h) || !aligned16(p.w) || (p.bias && !aligned16(p.bias)) ||
+      (p.noise && (reinterpret_cast<uintptr_t>(p.noise) & 7)))
+    return cudaErrorMisalignedAddress;
+  const int NS = p.D / PB_KS;
+  const bool res = NS <= PB_RESIDENT_NS;
+  const int smem = res ? pb_smem<true>(NS) : pb_smem<false>(NS);
+  auto kern = res ? (p.noise ? proj_wgmma_kernel<true, true> : proj_wgmma_kernel<true, false>)
+                  : (p.noise ? proj_wgmma_kernel<false, true> : proj_wgmma_kernel<false, false>);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.rows + PB_ROWS - 1) / PB_ROWS, p.splits);
+  kern<<<grid, PB_THREADS, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int RT = 64;        // rows per tile of h
+constexpr int VC = 64;        // vocab columns per block: one partial each
+constexpr int THREADS = 256;  // 8 warps
+constexpr int MAX_RESIDENT_D = 768;  // all of d of a W chunk in shared memory (197 KB)
 constexpr int SLICE = 512;            // d columns a staged slice holds beyond that
 
 // d columns of the staged W chunk: all of D, or a slice
 __host__ __device__ constexpr int staged_d(int D) { return D <= MAX_RESIDENT_D ? D : SLICE; }
 
-// shared-memory row stride of the W chunk: padded so that the tile loads
-// spread over the banks (a multiple of 8 elements for WMMA)
-template <typename T>
-__host__ __device__ constexpr int w_stride(int DC) {
-  return sizeof(T) == 2 ? DC + 8 : DC + 1;
-}
-
-// bytes of the W chunk, rounded up to 128 so that Ls stays aligned for WMMA
-template <typename T>
+// bytes of the W chunk (row stride DC + 1: the tile loads spread over the
+// banks), rounded up to 128
 __host__ __device__ constexpr size_t w_bytes(int DC) {
-  return ((size_t)VC * w_stride<T>(DC) * sizeof(T) + 127) / 128 * 128;
+  return ((size_t)VC * (DC + 1) * sizeof(float) + 127) / 128 * 128;
 }
 
 // Ws[r][c] = w[v0 + r][c0 + c] for the chunk's VC rows, K columns of d
-template <typename T>
-__device__ __forceinline__ void stage_w(T* Ws, int ldw, const T* __restrict__ w, int v0, int c0,
+__device__ __forceinline__ void stage_w(float* Ws, int ldw, const float* __restrict__ w, int v0, int c0,
                                         int K, int D) {
   for (int e = threadIdx.x; e < VC * K; e += THREADS) {
     const int r = e / K, c = e % K;
@@ -98,50 +417,8 @@ __device__ __forceinline__ void stage_w(T* Ws, int ldw, const T* __restrict__ w,
   }
 }
 
-// a tile's logits h[r0 : r0 + RT] @ Ws^T, accumulated over slices of d
-template <typename T>
-struct TileLogits;
-
-// bf16 on the tensor cores: warp w owns 16-row group w / 2 and two
-// 16-column groups
-template <>
-struct TileLogits<bf16> {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
-
-  __device__ __forceinline__ void zero() {
-    wmma::fill_fragment(c0, 0.f);
-    wmma::fill_fragment(c1, 0.f);
-  }
-
-  // += h[r0 : r0 + RT, col0 : col0 + K] @ Ws[:, :K]^T; h has row stride D
-  __device__ __forceinline__ void add(const bf16* h, const bf16* Ws, int r0, int col0, int K,
-                                      int D, int ldw) {
-    const int warp = threadIdx.x >> 5;
-    const int rw = warp >> 1, cw0 = (warp & 1) * 2;
-    const bf16* ha = h + (size_t)(r0 + rw * 16) * D + col0;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
-      wmma::load_matrix_sync(a, ha + k0, D);
-      wmma::load_matrix_sync(b0, Ws + (cw0 * 16) * ldw + k0, ldw);
-      wmma::load_matrix_sync(b1, Ws + ((cw0 + 1) * 16) * ldw + k0, ldw);
-      wmma::mma_sync(c0, a, b0, c0);
-      wmma::mma_sync(c1, a, b1, c1);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* Ls) const {
-    const int warp = threadIdx.x >> 5;
-    const int rw = warp >> 1, cw0 = (warp & 1) * 2;
-    wmma::store_matrix_sync(Ls + (rw * 16) * VC + cw0 * 16, c0, VC, wmma::mem_row_major);
-    wmma::store_matrix_sync(Ls + (rw * 16) * VC + (cw0 + 1) * 16, c1, VC, wmma::mem_row_major);
-  }
-};
-
-// f32 on the CUDA cores (f32 inputs make the card checks exact): thread t
-// owns columns t % 16 + 16 c of rows t / 16 + 16 r
-template <>
-struct TileLogits<float> {
+// thread t owns columns t % 16 + 16 c of rows t / 16 + 16 r of a tile
+struct TileLogits {
   float acc[4][4];
 
   __device__ __forceinline__ void zero() {
@@ -151,6 +428,7 @@ struct TileLogits<float> {
       for (int cc = 0; cc < 4; ++cc) acc[rr][cc] = 0.f;
   }
 
+  // += h[r0 : r0 + RT, col0 : col0 + K] @ Ws[:, :K]^T; h has row stride D
   __device__ __forceinline__ void add(const float* h, const float* Ws, int r0, int col0, int K,
                                       int D, int ldw) {
     const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -176,18 +454,17 @@ struct TileLogits<float> {
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-proj_partials_kernel(const T* __restrict__ h, const T* __restrict__ w,
+proj_partials_kernel(const float* __restrict__ h, const float* __restrict__ w,
                      const float* __restrict__ bias,
                      const float* __restrict__ noise,
                      float* __restrict__ partials, int rows, int rows_pad,
                      int D, int V, float inv_temp, uint2 key) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int DC = staged_d(D);
-  const int ldw = w_stride<T>(DC);
-  T* Ws = reinterpret_cast<T*>(smem_raw);                           // [VC][ldw]
-  float* Ls = reinterpret_cast<float*>(smem_raw + w_bytes<T>(DC));  // [RT][VC]
+  const int ldw = DC + 1;
+  float* Ws = reinterpret_cast<float*>(smem_raw);                 // [VC][ldw]
+  float* Ls = reinterpret_cast<float*>(smem_raw + w_bytes(DC));  // [RT][VC]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -201,7 +478,7 @@ proj_partials_kernel(const T* __restrict__ h, const T* __restrict__ w,
   if (resident) stage_w(Ws, ldw, w, v0, 0, D, D);
 
   for (int r0 = 0; r0 < rows_pad; r0 += RT) {
-    TileLogits<T> tile;
+    TileLogits tile;
     tile.zero();
     for (int c0 = 0; c0 < D; c0 += DC) {
       const int K = min(DC, D - c0);
@@ -230,12 +507,11 @@ proj_partials_kernel(const T* __restrict__ h, const T* __restrict__ w,
       if (noise) {
         u[0] = noise[(size_t)row * V + gcol];
         u[1] = noise[(size_t)row * V + gcol + 1];
-      } else {
-        const uint4 bits = philox4x32_10(
-            make_uint4((uint32_t)(gcol >> 2), (uint32_t)row, 0u, 0u), key);
-        const bool lo = (gcol & 3) == 0;  // gcol is even: words (x,y) or (z,w)
-        u[0] = uniform24(lo ? bits.x : bits.z);
-        u[1] = uniform24(lo ? bits.y : bits.w);
+      } else {  // the bf16 kernel's stream: counter (v / 2, row & ~8)
+        const uint4 bits = philox4x32_10(make_uint4((uint32_t)(gcol >> 1), (uint32_t)(row & ~8), 0u, 0u), key);
+        const bool lo = (row & 8) == 0;
+        u[0] = uniform23(lo ? bits.x : bits.z);
+        u[1] = uniform23(lo ? bits.y : bits.w);
       }
       float y[2];
 #pragma unroll
@@ -270,16 +546,31 @@ proj_partials_kernel(const T* __restrict__ h, const T* __restrict__ w,
   }
 }
 
+cudaError_t launch_partials(const void* h, const void* w, const void* bias, const void* noise,
+                            void* partials, int rows, int D, int V, float inv_temp, uint2 key,
+                            cudaStream_t s) {
+  const size_t smem = w_bytes(staged_d(D)) + sizeof(float) * RT * VC;
+  cudaError_t err = cudaFuncSetAttribute(
+      proj_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows_pad = (rows + RT - 1) / RT * RT;
+  proj_partials_kernel<<<V / VC, THREADS, smem, s>>>(
+      (const float*)h, (const float*)w, (const float*)bias, (const float*)noise,
+      (float*)partials, rows, rows_pad, D, V, inv_temp, key);
+  return cudaGetLastError();
+}
+
+// one warp a row: the row's partials, in split order, into its id and score
 __global__ void __launch_bounds__(THREADS)
-proj_merge_kernel(const float* __restrict__ partials, int rows, int nchunks,
+proj_merge_kernel(const float* __restrict__ partials, int rows, int nsplits,
                   int* __restrict__ ids, float* __restrict__ score) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * (THREADS / 32) + warp;
   if (row >= rows) return;
   float best = -INFINITY, ch = 0.f, m = -INFINITY, se = 0.f;
   int id = 0x7fffffff;
-  for (int c = lane; c < nchunks; c += 32) {
-    const float* p = partials + ((size_t)row * nchunks + c) * NPART;
+  for (int c = lane; c < nsplits; c += 32) {
+    const float* p = partials + ((size_t)row * nsplits + c) * NPART;
     better_of(best, id, ch, p[0], __float_as_int(p[1]), p[2]);
     merge_lse(m, se, p[3], p[4]);
   }
@@ -299,49 +590,43 @@ proj_merge_kernel(const float* __restrict__ partials, int rows, int nchunks,
   }
 }
 
-template <typename T>
-cudaError_t launch_partials(const void* h, const void* w, const void* bias,
-                            const void* noise, void* partials, int rows, int D,
-                            int V, float inv_temp, uint2 key, cudaStream_t s) {
-  const size_t smem = w_bytes<T>(staged_d(D)) + sizeof(float) * RT * VC;
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_partials_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int rows_pad = (rows + RT - 1) / RT * RT;
-  proj_partials_kernel<T><<<V / VC, THREADS, smem, s>>>(
-      (const T*)h, (const T*)w, (const float*)bias, (const float*)noise,
-      (float*)partials, rows, rows_pad, D, V, inv_temp, key);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace phenaki
 
-// h must hold round_up(rows, 64) rows (the wrapper zero-pads it); partials
-// holds rows * (V / 64) * 5 floats.
+// h must hold round_up(rows, 128) rows (the wrapper zero-pads it); partials
+// holds rows * splits * 5 floats: bf16 takes any 1 <= splits <= V / 128 (one
+// partial per row and vocab split), f32 exactly V / 64 (one per 64-id chunk).
 extern "C" int proj_sample(const void* h, const void* w, const void* bias,
                            const void* noise, void* ids, void* score,
-                           void* partials, int rows, int D, int V,
+                           void* partials, int rows, int D, int V, int splits,
                            float temperature, unsigned long long seed,
                            int dtype, void* stream) {
   using namespace phenaki;
-  if (rows <= 0 || D <= 0 || D % 16 != 0 || V <= 0 || V % VC != 0)
+  if (rows <= 0 || D <= 0 || D % 128 != 0 || V <= 0 || V % PB_VT != 0)
     return cudaErrorInvalidValue;
   const float inv_temp = 1.f / fmaxf(temperature, 1e-10f);
   const uint2 key = make_uint2((uint32_t)(seed & 0xffffffffull),
                                (uint32_t)(seed >> 32));
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-  if (dtype == kBF16)
-    err = launch_partials<bf16>(h, w, bias, noise, partials, rows, D, V, inv_temp, key, s);
-  else if (dtype == kF32)
-    err = launch_partials<float>(h, w, bias, noise, partials, rows, D, V, inv_temp, key, s);
-  else
+  if (dtype == kBF16) {
+    if (splits < 1 || splits > V / PB_VT) return cudaErrorInvalidValue;
+    Proj p{(const bf16*)h, (const bf16*)w, (const float*)bias, (const float*)noise,
+           (float*)partials, rows, D, V, splits, inv_temp * LOG2E, {}};
+    for (int r = 0; r < 10; ++r) {  // philox4x32_10's key schedule
+      p.rk[2 * r] = key.x + (uint32_t)r * 0x9E3779B9u;
+      p.rk[2 * r + 1] = key.y + (uint32_t)r * 0xBB67AE85u;
+    }
+    err = launch_wgmma(p, s);
+  } else if (dtype == kF32) {
+    if (splits != V / VC) return cudaErrorInvalidValue;
+    err = launch_partials(h, w, bias, noise, partials, rows, D, V, inv_temp, key, s);
+  } else {
     return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
   const int warps = THREADS / 32;
   proj_merge_kernel<<<(rows + warps - 1) / warps, THREADS, 0, s>>>(
-      (const float*)partials, rows, V / VC, (int*)ids, (float*)score);
+      (const float*)partials, rows, splits, (int*)ids, (float*)score);
   return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels that run
-// on wgmma: the forward (flash_attention.cu: kernels 1 and 3) and the
-// backward's dQ and dK/dV (flash_attention_bwd.cu: kernels 4 and 5).
+// Hopper (sm_90a) building blocks shared by the kernels that run on wgmma:
+// the attention forward (flash_attention.cu: kernels 1 and 3), the
+// backward's dQ and dK/dV (flash_attention_bwd.cu: kernels 4 and 5) and the
+// projection sampler (proj_sample.cu: kernel 2).
 //
 // Tiles are 64 rows. A warpgroup (128 threads) issues each product. Thread
 // t of the warpgroup (warp w = t / 32, lane g * 4 + c) holds, in every m64nN
@@ -163,6 +164,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 128 f32) (+)= A (64 x 16, shared, K-major) . B (16 x 128, shared,
+// K-major: 128 rows of 128 bytes, 8-row groups 1024 B apart)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : PH_F64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x N f32) += A (64 x 16, bf16 in registers) . B (16 x N, shared,
 // MN-major: the transpose flag)
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
@@ -197,6 +214,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// log2(x) on the multi-function unit (one instruction)
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 

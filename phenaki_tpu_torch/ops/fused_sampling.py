@@ -22,16 +22,21 @@ CUDA tensor launches a kernel (or raises).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from phenaki_tpu_torch import _build
+from phenaki_tpu_torch.ops.fused_ce import _aligned
 from phenaki_tpu_torch.ops.sampling import gumbel, uniform
 
-ROW_TILE = 64  # rows per tile of h in the kernel (csrc/proj_sample.cu RT)
-VOCAB_CHUNK = 64  # vocab columns per block (csrc/proj_sample.cu VC)
-_NPART = 5
+# csrc/proj_sample.cu's constants
+ROW_TILE = 128  # rows of h a bf16 block owns (PB_ROWS); h is zero-padded to a multiple
+VOCAB_TILE = 128  # vocab ids a bf16 tile (PB_VT); a vocab split is a run of tiles
+F32_VOCAB_CHUNK = 64  # vocab ids a block of the f32 kernel (VC), one partial each
+_NPART = 5  # floats a partial: best y, id, chosen logit, max, sum-exp
+_DEFAULT_SMS = 132  # an H100 SXM's SMs, for a tensor that is not on a card
 
 
 def can_fuse_projection(d: int, v: int) -> bool:
@@ -39,6 +44,32 @@ def can_fuse_projection(d: int, v: int) -> bool:
     into 512- or 1024-wide blocks. Other shapes materialise the logits and
     take `gumbel_sample_with_score`, as on the TPU."""
     return d % 128 == 0 and (v % 1024 == 0 or v % 512 == 0) and v >= 512
+
+
+@functools.lru_cache(maxsize=None)
+def vocab_splits(rows: int, v: int, dtype: torch.dtype, sms: int = _DEFAULT_SMS) -> int:
+    """The kernel's vocab splits S: one partial per (row, split). bf16 picks
+    the S whose grid of (row tiles, S) blocks, one block an SM, takes the
+    fewest tile-times: waves x (tiles a split + 1 for the pipeline's fill),
+    ties to the smaller S (9 x 14 = 126 blocks at 1152 rows on 132 SMs). The
+    f32 kernel writes one partial per 64-id chunk."""
+    if dtype == torch.float32:
+        return v // F32_VOCAB_CHUNK
+    row_tiles, tiles = -(-rows // ROW_TILE), v // VOCAB_TILE
+    cost = lambda s: -(-row_tiles * s // sms) * (-(-tiles // s) + 1)  # noqa: E731
+    return min(range(1, tiles + 1), key=lambda s: (cost(s), s))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return _DEFAULT_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _partials(rows: int, splits: int, device) -> torch.Tensor:
+    """The kernel's scratch: one partial per (row, vocab split)."""
+    return torch.empty((rows, splits, _NPART), dtype=torch.float32, device=device)
 
 
 def _seed(generator: Optional[torch.Generator]) -> int:
@@ -155,7 +186,7 @@ def project_sample_plain(h, weight, bias, temperature: float, *, generator=None,
 
 def _kernel_operands(h, weight, bias, noise):
     """Validate; return (h rows zero-padded to ROW_TILE, weight, bias f32,
-    noise f32) as contiguous tensors."""
+    noise f32) as contiguous tensors, h, weight and bias 16-byte aligned."""
     if h.ndim != 3 or weight.ndim != 2 or weight.shape[1] != h.shape[2]:
         raise ValueError(f"h (b, n, d) {tuple(h.shape)} and weight (V, d) {tuple(weight.shape)} disagree")
     b, n, d = h.shape
@@ -172,10 +203,10 @@ def _kernel_operands(h, weight, bias, noise):
     if bias is not None:
         if bias.shape != (v,):
             raise ValueError(f"bias must be ({v},)")
-        bias = bias.float().contiguous()
+        bias = _aligned(bias.float().contiguous())
     if noise is not None:
         noise = noise.reshape(rows, v).float().contiguous()
-    return flat.contiguous(), weight.contiguous(), bias, noise
+    return _aligned(flat.contiguous()), _aligned(weight.contiguous()), bias, noise
 
 
 def project_sample(h, weight, bias, temperature: float, *, generator=None, noise=None
@@ -201,10 +232,11 @@ def project_sample(h, weight, bias, temperature: float, *, generator=None, noise
     lib = _build.load_library()
     ids = torch.empty(rows, dtype=torch.int32, device=h.device)
     score = torch.empty(rows, dtype=torch.float32, device=h.device)
-    partials = torch.empty((rows, v // VOCAB_CHUNK, _NPART), dtype=torch.float32, device=h.device)
+    splits = vocab_splits(rows, v, h.dtype, _sm_count(h.device))
+    partials = _partials(rows, splits, h.device)
     p = _build.ptr
     err = lib.proj_sample(
-        p(flat), p(weight), p(bias), p(noise), p(ids), p(score), p(partials), rows, d, v,
+        p(flat), p(weight), p(bias), p(noise), p(ids), p(score), p(partials), rows, d, v, splits,
         float(temperature), seed, _build.DTYPES[h.dtype], _build.stream(h.device),
     )
     _build.check(err, "proj_sample")

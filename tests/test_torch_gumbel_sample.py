@@ -107,10 +107,10 @@ class _StubLibrary:
         ctypes.memset(ids.value, 0, 4 * rows)
         ctypes.memset(score.value, 0, 4 * rows)
 
-    def proj_sample(self, h, w, bias, noise, ids, score, partials, rows, d, v, temperature, seed,
-                    dtype, stream):
-        self.calls.append(("proj_sample", dict(rows=rows, d=d, v=v, dtype=dtype, bias=bool(bias.value),
-                                               noise=bool(noise.value))))
+    def proj_sample(self, h, w, bias, noise, ids, score, partials, rows, d, v, splits, temperature,
+                    seed, dtype, stream):
+        self.calls.append(("proj_sample", dict(rows=rows, d=d, v=v, splits=splits, dtype=dtype,
+                                               bias=bool(bias.value), noise=bool(noise.value))))
         self._zero(ids, score, rows)
         return 0
 
@@ -142,9 +142,30 @@ def test_every_gated_shape_launches_the_projection_kernel(stub_card, d, v, dtype
     w = torch.randn(v, d).to(dtype)
     ids, score = fs.project_sample(h, w, torch.zeros(v), 0.5, generator=torch.Generator().manual_seed(0))
     assert ids.shape == (1, 70) and ids.dtype == torch.int64 and score.dtype == torch.float32
-    assert stub_card.calls == [("proj_sample", dict(rows=70, d=d, v=v, dtype=_build.DTYPES[dtype],
-                                                    bias=True, noise=False))]
+    assert stub_card.calls == [("proj_sample", dict(rows=70, d=d, v=v, splits=fs.vocab_splits(70, v, dtype),
+                                                    dtype=_build.DTYPES[dtype], bias=True, noise=False))]
     assert fs.project_sample.launches == 1 and fs.gumbel_sample_with_score.launches == 0
+
+
+@pytest.mark.parametrize("d", [512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scratch_holds_one_partial_per_vocab_split(stub_card, monkeypatch, d, dtype):
+    """The wrapper's scratch is (rows, S, 5) for the S it passes: bf16 one
+    partial per (row, vocab split), S picked so that the (row tiles, S) grid
+    is one wave of 132 SMs at the flagship rows; f32 one per 64-id chunk."""
+    made, partials = [], fs._partials
+    monkeypatch.setattr(fs, "_partials", lambda *args: made.append(partials(*args)) or made[-1])
+    rows, v = 1152, 65536
+    fs.project_sample(torch.zeros(1, rows, d, dtype=dtype), torch.empty(v, d, dtype=dtype), None, 1.0,
+                      generator=torch.Generator().manual_seed(0))
+    splits = stub_card.calls[0][1]["splits"]
+    assert len(made) == 1 and made[0].shape == (rows, splits, 5) and made[0].dtype == torch.float32
+    if dtype == torch.bfloat16:
+        assert splits == 14 and -(-rows // fs.ROW_TILE) * splits <= 132
+        assert fs.vocab_splits(4608, v, dtype) == 11  # the critic train rows: 396 blocks, 3 waves
+        assert fs.vocab_splits(7, 512, dtype) == 512 // fs.VOCAB_TILE  # at most one split a tile
+    else:
+        assert splits == v // fs.F32_VOCAB_CHUNK
 
 
 def test_ungated_projection_and_logits_path_launch_the_sampling_kernel(stub_card):
