@@ -11,8 +11,9 @@ and without a critic, on one NVIDIA GPU.
                                                   # samples written to OUT.txt
 
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc (and
-checks that the SASS of the bf16 attention forward and of its dQ and dK/dV
-kernels holds wgmma), holds each
+checks that the SASS of the bf16 attention forward, its dQ and dK/dV
+kernels, the projection sampler and the fused CE's dh and dW kernels holds
+wgmma), holds each
 kernel against its plain PyTorch version at the flagship shapes (the
 flash-attention forward and its three backward kernels, the projection
 sampler, the fused cross-entropy forward and its two backward kernels, the
@@ -226,9 +227,11 @@ def flash_cases(torch, dtype, gen):
 
 # the wgmma kernels and their instances: the forward at d = 64 and 128 for
 # kernels 1 and 3, the backward's dQ and dK/dV (kernels 4 and 5) at d = 64,
-# the projection sampler's bf16 kernel (kernel 2)
+# the projection sampler's bf16 kernel (kernel 2), the fused CE's bf16 dh
+# and dW (kernels 8 and 9: whole tiles at d = 512, and the streamed ring
+# with 128-, 256-, 384- and 512-column output chunks at every other d)
 WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 4, "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 1,
-                 "proj_wgmma_kernel": 4}
+                 "proj_wgmma_kernel": 4, "ce_dh_wgmma_kernel": 5, "ce_dw_wgmma_kernel": 5}
 
 
 def check_wgmma_build():
@@ -626,8 +629,11 @@ def check_fused_ce(torch):
     (4 x 1152 rows, d = 512, V = 65,536, a bias) and at d = 1024, where the
     kernels walk d in two slices, in bf16 and f32; and rows that fill no
     whole tile (1000 rows, V = 1024, no bias, every 7th label -1, the pad
-    label) at d = 128 and at d = 640 (a 512- and a 128-wide slice). Then a
-    train step's CE both ways, forward and backward: the kernels against the
+    label) at d = 128 and at d = 640 (a 512- and a 128-wide slice). Two calls
+    of each bf16 backward kernel must be bit-identical. At d = 512 and 1024
+    in bf16 each kernel is timed back to back (`ms`), by CUDA-graph replay
+    (`graph_ms`) and beside `matmul_ms` (`ce_matmul_ms`). Then a train
+    step's CE both ways, forward and backward: the kernels against the
     non-fused branch (a bf16 logits GEMM and F.cross_entropy in f32)."""
     import torch.nn.functional as F
 
@@ -670,15 +676,26 @@ def check_fused_ce(torch):
                 abs_errs[key] = (got[key] - ref[key]).abs().max().item()
                 errs[key] = abs_errs[key] / max(ref[key].abs().max().item(), 1e-30)
                 check(errs[key] <= tol[dtype], f"fused CE {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
-            ms = plain_ms = None
+            ms = plain_ms = graph = matmul = None
+            if dtype == torch.bfloat16:
+                # the bf16 backward kernels own what they write and sum their
+                # partials in a fixed order: a second call is bit-identical
+                again = {"dh": ce.fused_ce_bwd_dh(*bargs)}
+                again["dw"], again["db"] = ce.fused_ce_bwd_dw(*bargs)
+                for key in ("dh", "dw", "db"):
+                    check(torch.equal(got[key], again[key]), f"fused CE {tag}: two calls differ in {key}")
+                del again
             if tag in ("train_bfloat16", "d1024_bfloat16"):
                 pairs = {"ce_fwd": (ce.fused_ce_fwd, ce.cross_entropy_plain, args),
                          "ce_dh": (ce.fused_ce_bwd_dh, ce.cross_entropy_bwd_dh_plain, bargs),
                          "ce_dw": (ce.fused_ce_bwd_dw, ce.cross_entropy_bwd_dw_plain, bargs)}
                 ms = {key: cuda_ms(lambda: kern(*a), reps=5) for key, (kern, _, a) in pairs.items()}
+                graph = {key: graph_ms(lambda: kern(*a), reps=5) for key, (kern, _, a) in pairs.items()}
                 plain_ms = {key: cuda_ms(lambda: plain(*a), reps=5) for key, (_, plain, a) in pairs.items()}
-            phase(f"fused_ce {tag}", rows=rows, d=d, vocab=v, err=errs, ms=ms, plain_ms=plain_ms)
-            result[tag] = dict(abs_errs=abs_errs, ms=ms, plain_ms=plain_ms)
+                matmul = ce_matmul_ms(torch, h, w, rows, v)
+            phase(f"fused_ce {tag}", rows=rows, d=d, vocab=v, err=errs, ms=ms, graph_ms=graph,
+                  plain_ms=plain_ms, matmul_ms=matmul)
+            result[tag] = dict(abs_errs=abs_errs, ms=ms, graph_ms=graph, plain_ms=plain_ms, matmul_ms=matmul)
             if tag == "train_bfloat16":
                 inputs = nbytes(h, w, bias, labels)
                 result[tag]["bounds"] = {
@@ -714,6 +731,22 @@ def check_fused_ce(torch):
         both[f"{key}_fwd_bwd_ms"] = cuda_ms(fn, reps=5)
     phase("fused_ce train-step CE, forward + backward", **both)
     return result
+
+
+def ce_matmul_ms(torch, h, w, rows, v):
+    """A yardstick for each fused-CE kernel: the bf16 `torch.matmul`
+    products it computes, each timed alone and added: the logits h W^T for
+    the forward; and for dh the logits and dlog W, for dW the logits and
+    dlog^T h, with a bf16 (rows, V) stand-in for dlog."""
+    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    dlog = torch.empty(rows, v, device="cuda", dtype=torch.bfloat16).normal_(0.0, 1e-3)
+    logits = cuda_ms(lambda: torch.matmul(hb, wb.t()), reps=5)
+    out = {"ce_fwd": logits,
+           "ce_dh": logits + cuda_ms(lambda: torch.matmul(dlog, wb), reps=5),
+           "ce_dw": logits + cuda_ms(lambda: torch.matmul(dlog.t(), hb), reps=5)}
+    del dlog
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_proj(torch):
@@ -1629,9 +1662,9 @@ def main() -> int:
 
     # every number measured in this run; bound_ms from this run's shapes;
     # library_ms the one PyTorch call computing the same function, or null
-    # (every ms timed by back-to-back calls; graph_ms of the forward and
-    # kernels 4-6, and the forward's library_graph_ms, by CUDA-graph replay,
-    # the device time alone)
+    # (every ms timed by back-to-back calls; graph_ms of kernels 1-9, and
+    # the forward's library_graph_ms, by CUDA-graph replay, the device time
+    # alone)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     shape_keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     self_bf16 = flash["maskgit_self_bfloat16"]
@@ -1659,10 +1692,13 @@ def main() -> int:
                             plain_ms=bwd["plain_ms"][name], bound_ms=bwd["bounds"][name][0],
                             bound_by=bwd["bounds"][name][1], library_ms=bwd["library_ms"]))
     for name, errs in (("ce_fwd", ["loss", "lse"]), ("ce_dh", ["dh"]), ("ce_dw", ["dw", "db"])):
+        # matmul_ms: the bf16 torch.matmul products the kernel computes, a
+        # yardstick (no one PyTorch call computes the fused function)
         kernels.append(dict(name=f"fused_{name}", route="cuda", source=CE_SRC, replaces=CE_TPU[name],
                             launches=launches[name], max_abs_err=max(ce["abs_errs"][e] for e in errs),
-                            ms=ce["ms"][name], plain_ms=ce["plain_ms"][name], bound_ms=ce["bounds"][name][0],
-                            bound_by=ce["bounds"][name][1], library_ms=None))
+                            ms=ce["ms"][name], graph_ms=ce["graph_ms"][name], plain_ms=ce["plain_ms"][name],
+                            bound_ms=ce["bounds"][name][0], bound_by=ce["bounds"][name][1], library_ms=None,
+                            matmul_ms=ce["matmul_ms"][name]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

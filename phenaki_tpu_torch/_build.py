@@ -93,8 +93,8 @@ _SIGNATURES = {
     "fused_ce_bwd_dh": [
         _P, _P, _P, _P,  # h, w, bias or null, labels
         _P, _P,  # lse, g (R,) f32
-        _P, _P,  # dh (R, d) f32, partials (splits, round_up(R, 32), d) f32 scratch
-        _I, _I, _I, _I, _I,  # R, d, V, splits, dtype
+        _P, _P,  # dh (R, d) f32, partials (splits, rows_pad, d) f32 scratch
+        _I, _I, _I, _I, _I, _I,  # R, d, V, splits, rows_pad (round_up(R, 64)), dtype
         _P,  # stream
     ],
     "fused_ce_bwd_dw": [

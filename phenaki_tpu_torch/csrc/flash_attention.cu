@@ -339,7 +339,7 @@ __global__ void __launch_bounds__(WG_THREADS, DP == 64 ? 3 : 2) flash_fwd_wgmma_
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_ss_n64(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
+      wgmma_ss<64, 0>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);

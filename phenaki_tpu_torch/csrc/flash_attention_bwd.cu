@@ -519,9 +519,9 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
     float s[32], dp[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss_n64(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
+    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss_n64(dp, kmajor_desc(sdO, kk), kmajor_desc(sV, kk), kk > 0);
+    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sdO, kk), kmajor_desc(sV, kk), kk > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
@@ -683,9 +683,9 @@ flash_bwd_dkv_wgmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
     float s[32], dp[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss_n64(s, kmajor_desc(sK, kk), kmajor_desc(sQ, kk), kk > 0);
+    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sK, kk), kmajor_desc(sQ, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss_n64(dp, kmajor_desc(sV, kk), kmajor_desc(sdO, kk), kk > 0);
+    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sV, kk), kmajor_desc(sdO, kk), kk > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);

@@ -19,47 +19,65 @@
 // 2 * R * D * V FLOPs (0.31 TFLOP at the flagship train shape R = 4608,
 // D = 512, V = 65,536), and each backward kernel recomputes the logits
 // first, so does two. Against 64 MB of W and 4.7 MB of h that is hundreds
-// of FLOPs a byte, so the tensor cores bound it in principle. The measured
-// rate, about 95 TFLOP/s in bf16 on an H100 80GB HBM3 at 700 W, points at
-// shared-memory traffic instead: holding all of D of one operand leaves
-// room for a logits tile of only 32 x 64, one 16 x 16 WMMA fragment a warp,
-// so every MMA there takes two fragment loads. Two blocks share an SM, so one block's tile
-// staging overlaps the other's products. The TPU kernels carried their
-// sums across a sequential grid axis; Hopper blocks run in no order, so
-// each block keeps one operand resident in shared memory, all of D, and
-// streams the other in tiles:
-//   - forward: a block holds 32 rows of h and walks one of S vocab splits
-//     in tiles of W, keeping each row's online max and sum-exp in
-//     registers; it writes one (max, sum-exp) partial per (row, split), and
-//     the one thread that meets a row's label writes that logit.
-//     ce_merge_kernel folds the S partials into lse and loss.
-//   - dh: the same blocks. Per vocab tile the logits are recomputed into
-//     shared memory and turned into dlog, and dlog @ W_tile accumulates the
-//     block's (32 x D) dh in registers. Each split writes its own partial
-//     dh; ce_sum_kernel adds them in split order, so the result is
-//     deterministic with no float atomics.
-//   - dW/dbias: a block holds 32 rows of W (32 vocab ids) and walks every
-//     row tile of h; dlog^T @ h_tile accumulates its (32 x D) dW in
-//     registers, and dbias sums in f32 per thread, then in warp order.
-// bf16 runs the products on the tensor cores (WMMA 16x16x16, f32
-// accumulate); f32 runs them on the CUDA cores in exact f32, for the card
-// checks. Register-tiled mma.sync or wgmma tiles streamed over D through a
-// cp.async/TMA pipeline, with larger logits tiles, are the next step.
+// of FLOPs a byte, so the tensor cores bound it in principle. The TPU
+// kernels carried their sums across a sequential grid axis; Hopper blocks
+// run in no order, so each block keeps one operand resident and streams the
+// other in tiles.
 //
-// D beyond 512 (up to the TPU gate's 2432) does not fit shared memory whole.
-// There the kernels walk d in slices of 512 columns: a logits tile is the
-// sum of its slices' products, both operands staged a slice at a time. dh
-// and dW split their d-wide outputs into the same slices over one more grid
-// axis; each such block recomputes the whole logits tile and ends its slice
-// walk on its own output slice, so that the staged operand it multiplies
-// dlog by is already in shared memory. At D <= 512 every kernel runs as
-// before, one operand resident.
+// Forward (ce_fwd_kernel; WMMA 16x16x16 in bf16, CUDA cores in f32): a
+// block holds 32 rows of h and walks one of S vocab splits in 64-id tiles
+// of W, keeping each row's online max and sum-exp in registers; it writes
+// one (max, sum-exp) partial per (row, split), and the thread that meets a
+// row's label writes that logit. ce_merge_kernel folds the partials into
+// lse and loss. A logits tile of 32 x 64 from shared memory, one fragment a
+// warp, holds it near 100 TFLOP/s.
+//
+// Backward, bf16 (ce_dh_wgmma_kernel, ce_dw_wgmma_kernel: one body, two
+// roles). A block (two warpgroups) holds 64 rows A and walks 64-row tiles
+// B: dh holds rows of h and walks one vocab split of W; dW holds 64 vocab
+// rows of W and walks every row tile of h. Per tile:
+//   1. S = A . B^T (64 x 64) on wgmma m64n32k16, each warpgroup 32 of the
+//      columns, both operands K-major in the 128-byte swizzle (wgmma.cuh).
+//   2. The epilogue in the accumulator registers: the bias, one ex2.approx
+//      per logit against the saved lse, the onehot, g; dlog rounded to bf16
+//      into a 64 x 64 shared tile, the A operand of step 3, since both
+//      warpgroups need all 64 of its columns. The tile's per-column vectors
+//      (dh: the bias; dW: lse, g, labels) arrive in shared memory with its
+//      copies. dW sums dlog's f32 rows into dbias (S is dlog's transpose).
+//   3. acc += dlog . B (m64nNk16, B read MN-major from the same tile): each
+//      warpgroup owns 64 rows x N <= 256 output columns, 128 registers, so
+//      a 64 x 512 output fits the two warpgroups with S computed once.
+// d = 512 (kWhole, the flagship): A stays in shared memory and whole B
+// tiles are double-buffered, 16-byte cp.async a tile ahead (203 KB, one
+// block an SM, 240 registers). Tile t + 1's step 1 is issued right behind
+// tile t's step 3, so the two products run back to back on the tensor
+// cores, and tile t + 2's copies start as soon as both warpgroups are done
+// with tile t. Every other d the gate admits (kStream; d % 128 == 0 up to
+// 2432): A and B stream through a ring of 64-column d slices, five steps
+// ahead; the block's output chunk (512 columns, or the narrower tail) is a
+// grid index and recomputes S, and its walk ends on the chunk's slices,
+// which stay in the ring for step 3.
+// What bounds it: L2 traffic as much as the products. The dh grid runs row
+// tiles fastest, so the blocks of one split read the same W tiles at about
+// the same time and HBM serves W about once a split; but every 64-row
+// block reads all of its W tiles from L2: 72 x 67 MB = 4.8 GB at the
+// flagship shape (dW: 1024 vocab blocks x 4.7 MB of h, also 4.8 GB).
+// kStream at d = 1024 reads A and B every tile for each of two chunks,
+// 38.6 GB, and takes 8.6-9.1 ms on an H100 (4.2-4.5 TB/s from L2); at that
+// rate the flagship's 4.8 GB alone take about 1.1 ms, against the products'
+// 0.63 ms at the tensor cores' peak. dh writes one f32 partial per vocab split (sized to
+// whole waves by the wrapper); ce_sum_kernel adds them in split order. No
+// float atomics anywhere: two calls give bit-identical results.
+//
+// Backward, f32 (the card checks; no main path runs it): the CUDA-core
+// version of the same walk, 32 resident rows, logits and dlog through
+// shared memory; D beyond 512 in 512-column slices, each output slice a
+// grid index that recomputes the logits and ends its slice walk on its own
+// output slice.
 
 #include <mma.h>
 
-#include <type_traits>
-
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace phenaki {
 namespace {
@@ -68,12 +86,12 @@ using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;  // 8 warps
-constexpr int RES = 32;       // resident rows of h (forward, dh) or of W (dW)
+constexpr int RES = 32;       // resident rows of h (forward, f32 dh) or of W (f32 dW)
 constexpr int SLICE = 512;    // d columns staged at a time (all of D up to this)
 constexpr int LDR = RES + 8;  // row stride of the dW kernel's (STR x RES) tiles
 
 // the streamed tile: vocab ids (forward, dh) or rows of h (dW) per step. At
-// D = 512 two bf16 blocks fit an SM (113-115 KB of shared memory, 128
+// D = 512 two bf16 forward blocks fit an SM (113 KB of shared memory, 128
 // registers a thread); f32 blocks take 206-218 KB, one an SM.
 constexpr int STR = 64;
 
@@ -219,54 +237,6 @@ __device__ __forceinline__ void logits_tile(T* As, const T* A, int a0, int a_row
 // P row-major, or stored transposed as [K][RES] (TRANS); B row-major.
 template <typename T>
 struct Acc;
-
-// bf16: warp w owns columns [w * D / 8, (w + 1) * D / 8), as D / 128
-// fragments of 16 columns, over both 16-row groups
-template <>
-struct Acc<bf16> {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int fm = 0; fm < 2; ++fm)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(f[fm][j], 0.f);
-  }
-
-  template <bool TRANS>
-  __device__ __forceinline__ void accumulate(const bf16* P, int ldp, const bf16* B, int ldb, int K,
-                                             int D) {
-    using Layout = typename std::conditional<TRANS, wmma::col_major, wmma::row_major>::type;
-    const int nd = D / 128, c0 = (threadIdx.x >> 5) * (D / 8);
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, Layout> a[2];
-#pragma unroll
-      for (int fm = 0; fm < 2; ++fm)
-        wmma::load_matrix_sync(a[fm], TRANS ? P + k * ldp + fm * 16 : P + fm * 16 * ldp + k, ldp);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j < nd) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, B + k * ldb + c0 + j * 16, ldb);
-          wmma::mma_sync(f[0][j], a[0], b, f[0][j]);
-          wmma::mma_sync(f[1][j], a[1], b, f[1][j]);
-        }
-      }
-    }
-  }
-
-  // all RES rows of dst (row stride ld)
-  __device__ __forceinline__ void store(float* dst, int ld, int D) const {
-    const int nd = D / 128, c0 = (threadIdx.x >> 5) * (D / 8);
-#pragma unroll
-    for (int fm = 0; fm < 2; ++fm)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (j < nd)
-          wmma::store_matrix_sync(dst + fm * 16 * ld + c0 + j * 16, f[fm][j], ld,
-                                  wmma::mem_row_major);
-  }
-};
 
 // f32: thread t owns columns t % 128 + 128 j (j < D / 128) of rows
 // t / 128 + 2 i (i < 16)
@@ -540,6 +510,389 @@ ce_dw_kernel(CE a, float* __restrict__ dw, float* __restrict__ db) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dh and dW/dbias on wgmma (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int CB_ROWS = 64;                  // resident rows a block; streamed rows a tile
+constexpr int CB_THREADS = 2 * WG_THREADS;   // two consumer warpgroups
+constexpr int CB_SLICE = CB_ROWS * 128;      // bytes of a 64 x 64 bf16 slice: one SW128 block
+constexpr int CB_CHUNK = 512;                // output columns a block owns, at most
+constexpr int CB_WHOLE_D = 512;              // kWhole's d
+constexpr int CB_AHEAD = 5;                  // kStream: steps loaded ahead
+enum Role : int { kDH = 0, kDW = 1 };
+// kWhole: d = 512, A resident, whole B tiles double-buffered. kStream: every
+// other d, A and B through a ring of 64-column d slices.
+enum Mode : int { kWhole = 0, kStream = 1 };
+
+struct CEBwd {
+  const bf16 *h, *w;
+  const float *bias, *lse, *g;  // bias (V,) or null; lse, g (R,)
+  const int* labels;            // (R,)
+  float* out;                   // dh: partials (splits, rows_pad, D); dW: (V, D)
+  float* db;                    // dW: dbias (V,)
+  int R, D, V, splits, rows_pad;
+  int chunk0;                   // the output chunk of grid index 0 (chunks are CB_CHUNK wide)
+};
+
+// kStream's ring slots: the chunk's slices stay in the ring until step 3
+// reads them, with CB_AHEAD more in flight
+template <int NW>
+__host__ __device__ constexpr int cb_slots() { return 2 * NW / 64 + CB_AHEAD; }
+
+// slots of the tiles' column vectors: a tile's are loaded with its first
+// step, CB_AHEAD steps early, and read by its epilogue; kWhole loads a
+// tile ahead
+__host__ __device__ constexpr int cb_col_slots(int D, int mode) {
+  return mode == kWhole ? 2 : 1 + (CB_AHEAD + D / 64 - 1) / (D / 64);
+}
+
+// a tile's column vectors in shared memory: dh the bias of its vocab ids;
+// dW the lse, g and label of its rows
+constexpr int CB_COLS = 3 * CB_ROWS * 4;
+
+// shared memory, from a 1 KB aligned base: kWhole's resident A and two
+// whole B tiles, or kStream's ring (a slot holds an A and a B slice); the
+// dlog tile; the tiles' column vectors (at the end, the dbias halves)
+template <int NW, int MODE>
+int cb_smem(int D) {
+  const int tiles = MODE == kWhole ? 3 * (CB_WHOLE_D / 64) * CB_SLICE : cb_slots<NW>() * 2 * CB_SLICE;
+  return 1024 + tiles + CB_SLICE + cb_col_slots(D, MODE) * CB_COLS;
+}
+
+// rows [r0, r0 + 64) x columns [c0, c0 + 64) of a row-major (nrows, D) bf16
+// array into one SW128 block; rows past nrows are zeros
+__device__ __forceinline__ void cb_load_slice(uint32_t dst, const bf16* src, int r0, int nrows,
+                                              int c0, int D) {
+#pragma unroll
+  for (int it = 0; it < CB_ROWS * 8 / CB_THREADS; ++it) {
+    const int e = threadIdx.x + it * CB_THREADS;
+    const int r = e >> 3, ch = e & 7;
+    const bool ok = r0 + r < nrows;
+    cp_async16(dst + r * 128 + ((ch ^ (r & 7)) << 4),
+               src + (size_t)(ok ? r0 + r : 0) * D + c0 + ch * 8, ok ? 16 : 0);
+  }
+}
+
+// Both roles: S = A_res . B_tile^T (64 x 64, each warpgroup 32 of its
+// columns), dlog from S in registers into shared memory as bf16, then
+// acc += dlog . B_tile[:, the warpgroup's NW output columns]. dh: A = h
+// (rows), B = W (vocab ids of the block's split). dW: A = W (vocab ids), B =
+// h (every row tile); S is dlog's transpose, and dbias its row sums.
+template <int ROLE, int NW, int MODE>
+__device__ __forceinline__ void ce_bwd_body(const CEBwd& p, unsigned char* smem_raw) {
+  constexpr bool DH = ROLE == kDH;
+  constexpr int CS = 2 * NW / 64;  // d slices of the chunk
+  constexpr int NST = cb_slots<NW>();
+  constexpr int SLOT = 2 * CB_SLICE;  // bytes of a ring slot: its A slice, then its B slice
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int wq = (tid >> 5) & 3, g8 = lane >> 2, c = lane & 3;
+  const int NS = p.D / 64;
+  const int chunk = p.chunk0 + (DH ? blockIdx.z : blockIdx.y);
+  const int cs0 = chunk * (CB_CHUNK / 64);  // the chunk's first d slice
+  const bf16* A = DH ? p.h : p.w;
+  const bf16* B = DH ? p.w : p.h;
+  const int a_rows = DH ? p.R : p.V, b_rows = DH ? p.V : p.R;
+  const int a0 = blockIdx.x * CB_ROWS;
+  int t_begin = 0, nt = (p.R + CB_ROWS - 1) / CB_ROWS;
+  if constexpr (DH) {
+    const int T = p.V / CB_ROWS;
+    t_begin = blockIdx.y * T / p.splits;
+    nt = (blockIdx.y + 1) * T / p.splits - t_begin;
+  }
+
+  const uint32_t ares = smem_base_1k(smem_raw);  // kWhole's resident A, and kStream's ring
+  const uint32_t tiles = ares + (MODE == kWhole ? NS * CB_SLICE : 0);  // kWhole's two B tiles
+  const uint32_t dlog = ares + (MODE == kWhole ? 3 * CS * CB_SLICE : NST * SLOT);
+  const int ncols = cb_col_slots(p.D, MODE);
+  const uint32_t cols = dlog + CB_SLICE;
+  float* red = reinterpret_cast<float*>(smem_raw + (cols - smem_u32(smem_raw)));
+
+  // tile t's column vectors into slot t & 1 (16-byte copies; zeros past R)
+  auto load_cols = [&](int t) {
+    const int b0 = (t_begin + t) * CB_ROWS, e = tid & 15, row = b0 + 4 * e;
+    const uint32_t dst = cols + (t % ncols) * CB_COLS + (tid >> 4) * CB_ROWS * 4 + 16 * e;
+    if constexpr (DH) {
+      if (tid < 16) cp_async16(dst, p.bias ? p.bias + row : p.lse, p.bias ? 16 : 0);
+    } else if (tid < 48) {
+      const int bytes = 4 * max(0, min(4, p.R - row));
+      const void* src = tid < 16 ? (const void*)p.lse : tid < 32 ? (const void*)p.g : (const void*)p.labels;
+      cp_async16(dst, static_cast<const float*>(src) + (bytes ? row : 0), bytes);
+    }
+  };
+
+  // kWhole: all of tile t's B slices (all of d) to its buffer
+  auto load_tile = [&](int t) {
+    load_cols(t);
+    for (int s = 0; s < CS; ++s)
+      cb_load_slice(tiles + (t & 1) * CS * CB_SLICE + s * CB_SLICE, B, (t_begin + t) * CB_ROWS,
+                    b_rows, s * 64, p.D);
+  };
+  // kStream: step i is tile i / NS at d slice slice_of(i); a tile's walk
+  // starts after the block's output chunk and ends on it, so that the
+  // chunk's B slices are the tile's last CS steps, still in the ring when
+  // step 3 reads them
+  auto slice_of = [&](int i) { return (cs0 + CS + i % NS) % NS; };
+  auto slot = [&](int i) { return ares + (i % NST) * SLOT; };
+  auto load_step = [&](int i) {
+    const int s = slice_of(i);
+    if (i % NS == 0) load_cols(i / NS);
+    cb_load_slice(slot(i), A, a0, a_rows, s * 64, p.D);
+    cb_load_slice(slot(i) + CB_SLICE, B, (t_begin + i / NS) * CB_ROWS, b_rows, s * 64, p.D);
+  };
+
+  // the constants of this thread's two accumulator rows (16 wq + g8 + 8 half)
+  // and, per tile, of its eight columns (32 wg + 8 n + 2 c + e)
+  const int arow = a0 + 16 * wq + g8;
+  float lse2_r[2], g_r[2], bias_r[2];
+  int y_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = arow + 8 * half;
+    if constexpr (DH) {  // a row past R: no probability, no label, no weight
+      const bool ok = r < p.R;
+      lse2_r[half] = ok ? p.lse[r] * LOG2E : INFINITY;
+      g_r[half] = ok ? p.g[r] : 0.f;
+      y_r[half] = ok ? p.labels[r] : -1;
+      bias_r[half] = 0.f;
+    } else {
+      bias_r[half] = p.bias ? p.bias[r] : 0.f;
+      lse2_r[half] = g_r[half] = 0.f;
+      y_r[half] = -1;
+    }
+  }
+  float dbias[2] = {0.f, 0.f};
+  float acc[NW / 2];
+#pragma unroll
+  for (int x = 0; x < NW / 2; ++x) acc[x] = 0.f;
+  float S[16];
+#pragma unroll
+  for (int x = 0; x < 16; ++x) S[x] = 0.f;
+
+  // dlog = (exp(S + bias - lse) - onehot) g of tile t, rounded to bf16 into
+  // the dlog tile (the A operand of step 3, SW128); dW also sums its rows in
+  // f32. Ends with the tile visible to both warpgroups' wgmma.
+  auto epilogue = [&](int t) {
+    const int b0 = (t_begin + t) * CB_ROWS;
+    const float* cv = reinterpret_cast<const float*>(red + (t % ncols) * (CB_COLS / 4));
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int col = 32 * wg + 8 * n + 2 * c;  // this thread's two columns of block n
+      float2 cb, cl, cg;
+      int2 cy;
+      if constexpr (DH) {
+        cb = *reinterpret_cast<const float2*>(cv + col);
+      } else {
+        cl = *reinterpret_cast<const float2*>(cv + col);
+        cg = *reinterpret_cast<const float2*>(cv + CB_ROWS + col);
+        cy = *reinterpret_cast<const int2*>(cv + 2 * CB_ROWS + col);
+      }
+      float d[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int half = j >> 1, e = j & 1;
+        float x, l2, gg;
+        bool hot;
+        if constexpr (DH) {
+          x = S[4 * n + j] + (e ? cb.y : cb.x);
+          l2 = lse2_r[half];
+          gg = g_r[half];
+          hot = b0 + col + e == y_r[half];
+        } else {  // a row past R: no probability, no label, no weight
+          const bool ok = b0 + col + e < p.R;
+          x = S[4 * n + j] + bias_r[half];
+          l2 = ok ? (e ? cl.y : cl.x) * LOG2E : INFINITY;
+          gg = e ? cg.y : cg.x;
+          hot = ok && (e ? cy.y : cy.x) == arow + 8 * half;
+        }
+        d[j] = (ex2(fmaf(x, LOG2E, -l2)) - (hot ? 1.f : 0.f)) * gg;
+        if constexpr (!DH) dbias[half] += d[j];
+      }
+      const int ch = 4 * wg + n;
+      const uint32_t r0 = 16 * wq + g8;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dlog + r0 * 128 + ((ch ^ (r0 & 7)) << 4) + 4 * c),
+                   "r"(pack_bf16(d[0], d[1])));
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dlog + (r0 + 8) * 128 + ((ch ^ (r0 & 7)) << 4) + 4 * c),
+                   "r"(pack_bf16(d[2], d[3])));
+    }
+    fence_proxy_async();
+    __syncthreads();
+  };
+  // step 3 of tile t: acc += dlog . B_t[:, this warpgroup's NW columns],
+  // read MN-major from kWhole's tile buffer, or 64 columns at a time from
+  // the ring slots of the tile's last CS steps
+  auto issue_p2 = [&](int t) {
+    fence_regs(acc);
+    wg_fence();
+    if constexpr (MODE == kWhole) {
+      const uint32_t kb = tiles + (t & 1) * CS * CB_SLICE + wg * (NW / 64) * SW_BLOCK;
+#pragma unroll
+      for (int kk = 0; kk < CB_ROWS / 16; ++kk)
+        wgmma_ss<NW, 1>(acc, kmajor_desc(dlog, kk), mnmajor_desc(kb, kk), 1);
+    } else {
+      const int q0 = (t + 1) * NS - CS + wg * (NW / 64);  // the step of this warpgroup's first slice
+#pragma unroll
+      for (int kk = 0; kk < CB_ROWS / 16; ++kk) {
+        const uint64_t da = kmajor_desc(dlog, kk);
+        wgmma_ss<64, 1, 0>(acc, da, mnmajor_desc(slot(q0) + CB_SLICE, kk), 1);
+        if constexpr (NW >= 128) wgmma_ss<64, 1, 32>(acc, da, mnmajor_desc(slot(q0 + 1) + CB_SLICE, kk), 1);
+        if constexpr (NW >= 192) wgmma_ss<64, 1, 64>(acc, da, mnmajor_desc(slot(q0 + 2) + CB_SLICE, kk), 1);
+        if constexpr (NW >= 256) wgmma_ss<64, 1, 96>(acc, da, mnmajor_desc(slot(q0 + 3) + CB_SLICE, kk), 1);
+      }
+    }
+    wg_commit();
+  };
+
+  if constexpr (MODE == kWhole) {
+    // Tile t + 1's products run right behind tile t's second product, and
+    // tile t + 2's copies start once both warpgroups are done with tile t:
+    //   epilogue(t) | P2(t), P1(t + 1) | copies of t + 2 | wait P1(t + 1)
+    // The last pass's P1 reads a stale buffer and is discarded.
+    auto issue_p1 = [&](int t) {
+      // bases the compiler cannot hoist, so that it computes the 64
+      // descriptors per call instead of holding them in registers
+      uint32_t ab = ares, kb = tiles + (t & 1) * CS * CB_SLICE;
+      asm volatile("" : "+r"(ab), "+r"(kb));
+      fence_regs(S);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < CB_WHOLE_D / 16; ++kk)
+        wgmma_ss<32, 0>(S, kmajor_desc(ab, kk), kmajor_desc(kb + wg * 32 * 128, kk), kk > 0);
+      wg_commit();
+    };
+    for (int s = 0; s < NS; ++s) cb_load_slice(ares + s * CB_SLICE, A, a0, a_rows, s * 64, p.D);
+    load_tile(0);
+    cp_async_commit();
+    if (nt > 1) load_tile(1);
+    cp_async_commit();
+    cp_async_wait<1>();  // A and tile 0
+    fence_proxy_async();
+    __syncthreads();
+    issue_p1(0);
+    wg_wait<0>();
+    fence_regs(S);
+    for (int t = 0; t < nt; ++t) {
+      epilogue(t);
+      issue_p2(t);
+      cp_async_wait<0>();  // tile t + 1
+      fence_proxy_async();
+      __syncthreads();
+      issue_p1(t + 1);
+      wg_wait<1>();  // P2(t)
+      fence_regs(acc);
+      __syncthreads();  // both warpgroups are done with tile t's buffer and the dlog tile
+      if (t + 2 < nt) load_tile(t + 2);
+      cp_async_commit();
+      wg_wait<0>();
+      fence_regs(S);
+    }
+  } else {
+    const int total = nt * NS;
+#pragma unroll
+    for (int i = 0; i < CB_AHEAD; ++i) {
+      if (i < total) load_step(i);
+      cp_async_commit();
+    }
+    for (int t = 0; t < nt; ++t) {
+      for (int k = 0; k < NS; ++k) {
+        const int i = t * NS + k;
+        cp_async_wait<CB_AHEAD - 1>();  // step i has landed
+        fence_proxy_async();
+        // everyone's copies; step i - 2's products are done, and so is the
+        // previous tile's step 3: the slot step i + CB_AHEAD takes is free
+        __syncthreads();
+        if (i + CB_AHEAD < total) load_step(i + CB_AHEAD);
+        cp_async_commit();
+        const uint32_t as = slot(i), bs = slot(i) + CB_SLICE + wg * 32 * 128;
+        fence_regs(S);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss<32, 0>(S, kmajor_desc(as, kk), kmajor_desc(bs, kk), k > 0 || kk > 0);
+        wg_commit();
+        wg_wait<1>();
+      }
+      wg_wait<0>();
+      fence_regs(S);
+      epilogue(t);
+      issue_p2(t);
+      wg_wait<0>();
+      fence_regs(acc);
+    }
+  }
+  cp_async_wait<0>();
+
+  // the block's (64 x NW) f32 output columns of this warpgroup
+  float* out = DH ? p.out + ((size_t)blockIdx.y * p.rows_pad + a0) * p.D : p.out + (size_t)a0 * p.D;
+  out += cs0 * 64 + wg * NW;
+#pragma unroll
+  for (int n = 0; n < NW / 8; ++n) {
+    const int col = 8 * n + 2 * c;
+    *reinterpret_cast<float2*>(out + (size_t)(16 * wq + g8) * p.D + col) = make_float2(acc[4 * n], acc[4 * n + 1]);
+    *reinterpret_cast<float2*>(out + (size_t)(16 * wq + g8 + 8) * p.D + col) =
+        make_float2(acc[4 * n + 2], acc[4 * n + 3]);
+  }
+  if constexpr (!DH) {
+    // dbias: the quad's four sums, then the two warpgroups', in a fixed order
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      dbias[half] += __shfl_xor_sync(0xffffffffu, dbias[half], 1);
+      dbias[half] += __shfl_xor_sync(0xffffffffu, dbias[half], 2);
+      if (c == 0) red[wg * CB_ROWS + 16 * wq + g8 + 8 * half] = dbias[half];
+    }
+    __syncthreads();
+    if (chunk == 0 && tid < CB_ROWS) p.db[a0 + tid] = red[tid] + red[CB_ROWS + tid];
+  }
+}
+
+template <int NW, int MODE>
+__global__ void __launch_bounds__(CB_THREADS, 1) ce_dh_wgmma_kernel(const __grid_constant__ CEBwd p) {
+  extern __shared__ unsigned char smem_raw[];
+  ce_bwd_body<kDH, NW, MODE>(p, smem_raw);
+}
+
+template <int NW, int MODE>
+__global__ void __launch_bounds__(CB_THREADS, 1) ce_dw_wgmma_kernel(const __grid_constant__ CEBwd p) {
+  extern __shared__ unsigned char smem_raw[];
+  ce_bwd_body<kDW, NW, MODE>(p, smem_raw);
+}
+
+// one launch over `chunks` output chunks of width 2 NW from chunk0
+template <int ROLE, int NW, int MODE>
+cudaError_t launch_bwd_chunks(CEBwd p, int chunk0, int chunks, cudaStream_t s) {
+  auto kern = ROLE == kDH ? ce_dh_wgmma_kernel<NW, MODE> : ce_dw_wgmma_kernel<NW, MODE>;
+  const int smem = cb_smem<NW, MODE>(p.D);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  p.chunk0 = chunk0;
+  const dim3 grid = ROLE == kDH ? dim3(p.rows_pad / CB_ROWS, p.splits, chunks) : dim3(p.V / CB_ROWS, chunks);
+  kern<<<grid, CB_THREADS, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+// the output chunks of one mode: 512 columns each, then the narrower tail
+template <int ROLE, int MODE>
+cudaError_t launch_mode(const CEBwd& p, cudaStream_t s) {
+  const int full = p.D / CB_CHUNK, tail = p.D % CB_CHUNK;
+  cudaError_t err = cudaSuccess;
+  if (full > 0) err = launch_bwd_chunks<ROLE, CB_CHUNK / 2, MODE>(p, 0, full, s);
+  if (err != cudaSuccess || tail == 0) return err;
+  switch (tail) {
+    case 128: return launch_bwd_chunks<ROLE, 64, MODE>(p, full, 1, s);
+    case 256: return launch_bwd_chunks<ROLE, 128, MODE>(p, full, 1, s);
+    default: return launch_bwd_chunks<ROLE, 192, MODE>(p, full, 1, s);
+  }
+}
+
+// d = 512: whole tiles; every other d through the ring
+template <int ROLE>
+cudaError_t launch_bwd_wgmma(const CEBwd& p, cudaStream_t s) {
+  if (!aligned16(p.h) || !aligned16(p.w) || (p.bias && !aligned16(p.bias)) || !aligned16(p.lse) ||
+      !aligned16(p.g) || !aligned16(p.labels))
+    return cudaErrorMisalignedAddress;
+  if (p.D == CB_WHOLE_D) return launch_bwd_chunks<ROLE, CB_CHUNK / 2, kWhole>(p, 0, 1, s);
+  return launch_mode<ROLE, kStream>(p, s);
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -567,18 +920,21 @@ cudaError_t launch_fwd(const CE& a, int splits, float* partials, float* label_lo
   return cudaGetLastError();
 }
 
-template <typename T, bool SLICED>
-cudaError_t launch_dh(const CE& a, int splits, float* partials, float* dh, cudaStream_t s) {
+template <bool SLICED>
+cudaError_t launch_dh_f32(const CE& a, int splits, int rows_pad, float* partials, cudaStream_t s) {
   const int ntiles = a.V / STR;
   const int per = (ntiles + splits - 1) / splits;
-  const int rows_pad = (a.R + RES - 1) / RES * RES;
-  const size_t smem = rows_smem<T>(a.D, true);
-  cudaError_t err = allow_smem(ce_dh_kernel<T, SLICED>, smem);
+  const size_t smem = rows_smem<float>(a.D, true);
+  cudaError_t err = allow_smem(ce_dh_kernel<float, SLICED>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(rows_pad / RES, splits, num_slices(a.D));
-  ce_dh_kernel<T, SLICED><<<grid, THREADS, smem, s>>>(a, per, rows_pad, partials);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  ce_dh_kernel<float, SLICED><<<grid, THREADS, smem, s>>>(a, per, rows_pad, partials);
+  return cudaGetLastError();
+}
+
+// dh = the splits' partials (splits, rows_pad, D) added in split order
+cudaError_t sum_partials(const CE& a, int splits, int rows_pad, const float* partials, float* dh,
+                         cudaStream_t s) {
   const size_t n4 = (size_t)a.R * a.D / 4;
   const int blocks = (int)((n4 + THREADS - 1) / THREADS < 4096 ? (n4 + THREADS - 1) / THREADS : 4096);
   ce_sum_kernel<<<blocks, THREADS, 0, s>>>(reinterpret_cast<const float4*>(partials), splits,
@@ -587,12 +943,12 @@ cudaError_t launch_dh(const CE& a, int splits, float* partials, float* dh, cudaS
   return cudaGetLastError();
 }
 
-template <typename T, bool SLICED>
-cudaError_t launch_dw(const CE& a, float* dw, float* db, cudaStream_t s) {
-  const size_t smem = vocab_smem<T>(a.D);
-  cudaError_t err = allow_smem(ce_dw_kernel<T, SLICED>, smem);
+template <bool SLICED>
+cudaError_t launch_dw_f32(const CE& a, float* dw, float* db, cudaStream_t s) {
+  const size_t smem = vocab_smem<float>(a.D);
+  cudaError_t err = allow_smem(ce_dw_kernel<float, SLICED>, smem);
   if (err != cudaSuccess) return err;
-  ce_dw_kernel<T, SLICED><<<dim3(a.V / RES, num_slices(a.D)), THREADS, smem, s>>>(a, dw, db);
+  ce_dw_kernel<float, SLICED><<<dim3(a.V / RES, num_slices(a.D)), THREADS, smem, s>>>(a, dw, db);
   return cudaGetLastError();
 }
 
@@ -618,23 +974,31 @@ extern "C" int fused_ce_fwd(const void* h, const void* w, const void* bias, cons
                 : launch_fwd<float, false>(a, splits, p, ll, lo, ls, s);
 }
 
-// lse and g (R,) f32; dh (R, D) f32; partials (splits, round_up(R, 32), D)
-// f32 scratch
+// lse and g (R,) f32; dh (R, D) f32; partials (splits, rows_pad, D) f32
+// scratch, rows_pad = round_up(R, 64); 1 <= splits <= V / 64
 extern "C" int fused_ce_bwd_dh(const void* h, const void* w, const void* bias,
                                const void* labels, const void* lse, const void* g, void* dh,
-                               void* partials, int R, int D, int V, int splits, int dtype,
-                               void* stream) {
+                               void* partials, int R, int D, int V, int splits, int rows_pad,
+                               int dtype, void* stream) {
   using namespace phenaki;
-  if (!shape_ok(R, D, V, dtype) || splits < 1) return cudaErrorInvalidValue;
+  if (!shape_ok(R, D, V, dtype) || splits < 1 || splits > V / CB_ROWS ||
+      rows_pad != (R + CB_ROWS - 1) / CB_ROWS * CB_ROWS)
+    return cudaErrorInvalidValue;
   const CE a{h, w, (const float*)bias, (const int*)labels, (const float*)lse, (const float*)g,
              R, D, V};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool sliced = num_slices(D) > 1;
-  if (dtype == kBF16)
-    return sliced ? launch_dh<bf16, true>(a, splits, (float*)partials, (float*)dh, s)
-                  : launch_dh<bf16, false>(a, splits, (float*)partials, (float*)dh, s);
-  return sliced ? launch_dh<float, true>(a, splits, (float*)partials, (float*)dh, s)
-                : launch_dh<float, false>(a, splits, (float*)partials, (float*)dh, s);
+  float* part = (float*)partials;
+  cudaError_t err;
+  if (dtype == kBF16) {
+    const CEBwd p{(const bf16*)h, (const bf16*)w, a.bias, a.lse, a.g, a.labels, part, nullptr,
+                  R, D, V, splits, rows_pad, 0};
+    err = launch_bwd_wgmma<kDH>(p, s);
+  } else {
+    err = num_slices(D) > 1 ? launch_dh_f32<true>(a, splits, rows_pad, part, s)
+                            : launch_dh_f32<false>(a, splits, rows_pad, part, s);
+  }
+  if (err != cudaSuccess) return err;
+  return sum_partials(a, splits, rows_pad, part, (float*)dh, s);
 }
 
 // dw (V, D) f32 and db (V,) f32
@@ -646,10 +1010,11 @@ extern "C" int fused_ce_bwd_dw(const void* h, const void* w, const void* bias,
   const CE a{h, w, (const float*)bias, (const int*)labels, (const float*)lse, (const float*)g,
              R, D, V};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool sliced = num_slices(D) > 1;
-  if (dtype == kBF16)
-    return sliced ? launch_dw<bf16, true>(a, (float*)dw, (float*)db, s)
-                  : launch_dw<bf16, false>(a, (float*)dw, (float*)db, s);
-  return sliced ? launch_dw<float, true>(a, (float*)dw, (float*)db, s)
-                : launch_dw<float, false>(a, (float*)dw, (float*)db, s);
+  if (dtype == kBF16) {
+    const CEBwd p{(const bf16*)h, (const bf16*)w, a.bias, a.lse, a.g, a.labels, (float*)dw,
+                  (float*)db, R, D, V, 1, 0, 0};
+    return launch_bwd_wgmma<kDW>(p, s);
+  }
+  return num_slices(D) > 1 ? launch_dw_f32<true>(a, (float*)dw, (float*)db, s)
+                           : launch_dw_f32<false>(a, (float*)dw, (float*)db, s);
 }

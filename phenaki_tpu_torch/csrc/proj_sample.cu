@@ -285,7 +285,7 @@ __device__ __forceinline__ void tile_pass(const Proj& p, const Walk& k, Running&
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < PB_KS / 16; ++kk)
-      wgmma_ss_n128(an, kmajor_desc(sh, kk), kmajor_desc(sw, kk), s > 0 || kk > 0);
+      wgmma_ss<128, 0>(an, kmajor_desc(sh, kk), kmajor_desc(sw, kk), s > 0 || kk > 0);
     wg_commit();
     wg_wait<1>();  // step i - 1's products are done
   }

@@ -26,8 +26,9 @@ import torch
 from phenaki_tpu_torch import _build
 
 MAX_DIM = 2432  # the TPU gate's VMEM bound; the kernels walk d in 512-wide slices past 512
-RESIDENT_ROWS = 32  # rows of h a forward / dh block holds (csrc/fused_ce.cu RES)
-VOCAB_TILE = 64  # vocab ids a forward / dh block takes a step (csrc/fused_ce.cu STR)
+RESIDENT_ROWS = 32  # rows of h a forward (and f32 dh) block holds (csrc/fused_ce.cu RES)
+VOCAB_TILE = 64  # vocab ids a forward / dh block takes a step (csrc/fused_ce.cu STR, CB_ROWS)
+BWD_ROWS = 64  # rows of h a bf16 dh block holds; dh partials are padded to it (CB_ROWS)
 
 
 def can_fuse_ce(d: int, v: int) -> bool:
@@ -89,14 +90,16 @@ def _operands(h, weight, bias, labels):
     if bias is not None:
         if bias.shape != (v,):
             raise ValueError(f"bias must be ({v},)")
-        bias = bias.float().contiguous()
+        bias = _aligned(bias.float().contiguous())
     h2 = _aligned(h.reshape(-1, h.shape[-1]).contiguous())
-    return h2, _aligned(weight.to(h.dtype).contiguous()), bias, labels.reshape(-1).to(torch.int32).contiguous()
+    labels = _aligned(labels.reshape(-1).to(torch.int32).contiguous())
+    return h2, _aligned(weight.to(h.dtype).contiguous()), bias, labels
 
 
 def _aligned(t):
     """t itself, or a copy when its data does not start on 16 bytes (the
-    kernels stage rows with 16-byte loads)."""
+    kernels stage rows, and the bf16 backward the per-row vectors, with
+    16-byte loads)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -121,13 +124,33 @@ def _check_kernel_shape(h, weight):
         raise ValueError(f"fused cross-entropy kernels take {list(_build.DTYPES)}, not {h.dtype}")
 
 
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _splits(rows: int, v: int, device) -> int:
-    """Vocab splits of the forward and dh grids: about 8 blocks per SM in
-    all, and at least one vocab tile a split."""
+    """Vocab splits of the forward (and the f32 dh) grid: about 8 blocks per
+    SM in all, and at least one vocab tile a split."""
     tiles = v // VOCAB_TILE
     row_blocks = -(-rows // RESIDENT_ROWS)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, -(-8 * sms // row_blocks)))
+    return max(1, min(tiles, -(-8 * _sm_count(device) // row_blocks)))
+
+
+def dh_splits(rows: int, v: int, sms: int) -> int:
+    """Vocab splits of the bf16 dh grid (one block an SM, BWD_ROWS rows a
+    block): among 2 to 8 blocks an SM, the count whose last wave is fullest,
+    the fewest on a tie; at least one vocab tile a split. 11 at the flagship
+    train shape (72 row blocks x 11 = 6 waves of 132 SMs)."""
+    tiles = v // VOCAB_TILE
+    row_blocks = -(-rows // BWD_ROWS)
+    lo, hi = -(-2 * sms // row_blocks), -(-8 * sms // row_blocks)
+    candidates = range(min(lo, tiles), min(hi, tiles) + 1)
+
+    def waste(s):
+        blocks = row_blocks * s
+        return -(-blocks // sms) * sms - blocks
+
+    return max(1, min(candidates, key=lambda s: (waste(s) / (row_blocks * s), s)))
 
 
 def fused_ce_fwd(h, weight, bias, labels):
@@ -154,14 +177,17 @@ def fused_ce_bwd_dh(h, weight, bias, labels, lse, g):
     _check_kernel_shape(h, weight)
     rows, d = h.shape
     v = weight.shape[0]
-    splits = _splits(rows, v, h.device)
-    rows_pad = -(-rows // RESIDENT_ROWS) * RESIDENT_ROWS
+    if h.dtype == torch.bfloat16:
+        splits = dh_splits(rows, v, _sm_count(h.device))
+    else:
+        splits = _splits(rows, v, h.device)
+    rows_pad = -(-rows // BWD_ROWS) * BWD_ROWS
     dh = torch.empty((rows, d), dtype=torch.float32, device=h.device)
     partials = torch.empty((splits, rows_pad, d), dtype=torch.float32, device=h.device)
     p = _build.ptr
     err = _build.load_library().fused_ce_bwd_dh(
         p(h), p(weight), p(bias), p(labels), p(lse), p(g), p(dh), p(partials), rows, d, v, splits,
-        _build.DTYPES[h.dtype], _build.stream(h.device))
+        rows_pad, _build.DTYPES[h.dtype], _build.stream(h.device))
     _build.check(err, "fused_ce_bwd_dh")
     fused_ce_bwd_dh.launches += 1
     return dh
@@ -199,7 +225,7 @@ class _FusedCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, weight, bias, labels, lse = ctx.saved_tensors
-        g = g.reshape(-1).float().contiguous()
+        g = _aligned(g.reshape(-1).float().contiguous())
         if _on_card(h, weight, bias, labels, lse, g):
             dh = fused_ce_bwd_dh(h, weight, bias, labels, lse, g)
             dw, db = fused_ce_bwd_dw(h, weight, bias, labels, lse, g)

@@ -8,7 +8,8 @@ contract the CUDA kernels are held to on the card (chip_smoke.py): the loss
 and the gradients of h, the weight and the bias against
 `fused_vocab_cross_entropy` and `jax.value_and_grad` of a weighted mean, the
 -1 pad label, the shape gate over d up to 2560, the kernels reached for
-every gated d on a CUDA tensor (entry points stubbed), and `Phenaki.loss`
+every gated d on a CUDA tensor (entry points stubbed), the bf16 backward's
+launch geometry (vocab splits, padded dh partials), and `Phenaki.loss`
 through the fused branch (d = 128 and d = 768) against the JAX loss with
 its fused branch on. Tolerances, fp32: the JAX tests' own, atol
 and rtol 1e-4 on the loss and 2e-4 on the gradients (blockwise online
@@ -126,7 +127,7 @@ class _StubCELibrary:
     """Records each C call of the CE kernels; writes zeros to its outputs."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.geometry = [], []
 
     def fused_ce_fwd(self, h, w, bias, labels, loss, lse, label_logit, partials, rows, d, v, splits,
                      dtype, stream):
@@ -135,14 +136,17 @@ class _StubCELibrary:
             ctypes.memset(out.value, 0, 4 * rows)
         return 0
 
-    def fused_ce_bwd_dh(self, h, w, bias, labels, lse, g, dh, partials, rows, d, v, splits, dtype,
-                        stream):
+    def fused_ce_bwd_dh(self, h, w, bias, labels, lse, g, dh, partials, rows, d, v, splits, rows_pad,
+                        dtype, stream):
         self.calls.append(("dh", d, v))
+        self.geometry.append(("dh", dict(rows=rows, splits=splits, rows_pad=rows_pad, dh=dh.value,
+                                         partials=partials.value, dtype=dtype)))
         ctypes.memset(dh.value, 0, 4 * rows * d)
         return 0
 
     def fused_ce_bwd_dw(self, h, w, bias, labels, lse, g, dw, db, rows, d, v, dtype, stream):
         self.calls.append(("dw", d, v))
+        self.geometry.append(("dw", dict(rows=rows, dw=dw.value, db=db.value, dtype=dtype)))
         ctypes.memset(dw.value, 0, 4 * v * d)
         ctypes.memset(db.value, 0, 4 * v)
         return 0
@@ -155,6 +159,7 @@ def test_every_gated_width_launches_the_kernels(monkeypatch, d):
     lib = _StubCELibrary()
     monkeypatch.setattr(fce, "_on_card", lambda *ts: True)
     monkeypatch.setattr(fce, "_splits", lambda rows, v, device: 4)
+    monkeypatch.setattr(fce, "_sm_count", lambda device: 132)
     monkeypatch.setattr(_build, "load_library", lambda: lib)
     monkeypatch.setattr(_build, "stream", lambda device: ctypes.c_void_p(0))
     v = 1024
@@ -165,6 +170,69 @@ def test_every_gated_width_launches_the_kernels(monkeypatch, d):
     assert h.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
     with pytest.raises(ValueError, match="do not take"):
         fce.fused_ce_fwd(torch.zeros(10, 2560), torch.zeros(v, 2560), None, torch.zeros(10))
+
+
+def test_bf16_backward_launch_geometry(monkeypatch):
+    """On a (stubbed) card with 132 SMs, rows that fill no whole 64-row tile
+    (1000) reach the bf16 dh kernel with the split count that fills whole
+    waves (16 row blocks x 33 splits = 4 waves) and a (33, 1024, d) f32
+    partial buffer, rows padded to 64; dW gets its (V, d) and (V,) f32
+    outputs. Both backward kernels refuse d = 2560 before the card."""
+    lib = _StubCELibrary()
+    monkeypatch.setattr(fce, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(fce, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda device: ctypes.c_void_p(0))
+    allocated, empty = [], torch.empty
+
+    def spy_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        allocated.append((t.data_ptr(), tuple(t.shape), t.dtype))
+        return t
+
+    monkeypatch.setattr(fce.torch, "empty", spy_empty)
+    rows, d, v = 1000, 512, 4096
+    h = torch.randn(rows, d).to(torch.bfloat16)
+    w = torch.randn(v, d).to(torch.bfloat16)
+    labels = torch.randint(0, v, (rows,), dtype=torch.int32)
+    lse, g = torch.zeros(rows), torch.ones(rows)
+    dh = fce.fused_ce_bwd_dh(h, w, None, labels, lse, g)
+    dw, db = fce.fused_ce_bwd_dw(h, w, None, labels, lse, g)
+    shapes = {ptr: (shape, dtype) for ptr, shape, dtype in allocated}
+    (kind_dh, dh_call), (kind_dw, dw_call) = lib.geometry
+    assert (kind_dh, kind_dw) == ("dh", "dw")
+    assert fce.dh_splits(rows, v, 132) == 33
+    assert dh_call["rows"] == rows and dh_call["splits"] == 33 and dh_call["rows_pad"] == 1024
+    assert dh_call["dtype"] == _build.DTYPES[torch.bfloat16]
+    assert shapes[dh_call["partials"]] == ((33, 1024, d), torch.float32)
+    assert shapes[dh_call["dh"]] == ((rows, d), torch.float32) and dh.shape == (rows, d)
+    assert shapes[dw_call["dw"]] == ((v, d), torch.float32) and shapes[dw_call["db"]] == ((v,), torch.float32)
+    assert dw.shape == (v, d) and db.shape == (v,)
+    wide = torch.zeros(10, 2560, dtype=torch.bfloat16)
+    args = (wide, torch.zeros(v, 2560, dtype=torch.bfloat16), None, labels[:10], lse[:10], g[:10])
+    for kernel in (fce.fused_ce_bwd_dh, fce.fused_ce_bwd_dw):
+        with pytest.raises(ValueError, match="do not take"):
+            kernel(*args)
+    assert len(lib.geometry) == 2
+
+
+@pytest.mark.parametrize("rows,v,sms", [(4608, 65536, 132), (1000, 1024, 132), (1152, 65536, 132),
+                                        (64, 512, 132), (4608, 65536, 114)])
+def test_dh_splits_fill_whole_waves(rows, v, sms):
+    """The bf16 dh grid's vocab splits: between 1 and the vocab's 64-id
+    tiles, and no split count in the searched range leaves less of its last
+    wave empty; 11 at the flagship train shape (6 full waves on 132 SMs)."""
+    s = fce.dh_splits(rows, v, sms)
+    tiles, row_blocks = v // 64, -(-rows // 64)
+    assert 1 <= s <= tiles
+
+    def waste(n):
+        return (-(-row_blocks * n // sms) * sms - row_blocks * n) / (row_blocks * n)
+
+    lo, hi = -(-2 * sms // row_blocks), -(-8 * sms // row_blocks)
+    assert all(waste(s) <= waste(n) for n in range(min(lo, tiles), min(hi, tiles) + 1))
+    if (rows, v, sms) == (4608, 65536, 132):
+        assert s == 11 and waste(s) == 0
 
 
 # ---------------------------------------------------------------------------
