@@ -11,9 +11,9 @@ and without a critic, on one NVIDIA GPU.
                                                   # samples written to OUT.txt
 
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc (and
-checks that the SASS of the bf16 attention forward, its dQ and dK/dV
-kernels, the projection sampler and the fused CE's dh and dW kernels holds
-wgmma), holds each
+checks that the SASS of the bf16 attention forward, its dQ, dK/dV and dBias
+kernels, the projection sampler and the fused CE's forward, dh and dW
+kernels holds wgmma), holds each
 kernel against its plain PyTorch version at the flagship shapes (the
 flash-attention forward and its three backward kernels, the projection
 sampler, the fused cross-entropy forward and its two backward kernels, the
@@ -226,12 +226,14 @@ def flash_cases(torch, dtype, gen):
 
 
 # the wgmma kernels and their instances: the forward at d = 64 and 128 for
-# kernels 1 and 3, the backward's dQ and dK/dV (kernels 4 and 5) at d = 64,
-# the projection sampler's bf16 kernel (kernel 2), the fused CE's bf16 dh
+# kernels 1 and 3, the backward's dQ, dK/dV and dBias (kernels 4-6) at d =
+# 64, the projection sampler's bf16 kernel (kernel 2), the fused CE's bf16
+# forward (kernel 7: h resident up to d = 512, streamed past it) and its dh
 # and dW (kernels 8 and 9: whole tiles at d = 512, and the streamed ring
 # with 128-, 256-, 384- and 512-column output chunks at every other d)
 WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 4, "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 1,
-                 "proj_wgmma_kernel": 4, "ce_dh_wgmma_kernel": 5, "ce_dw_wgmma_kernel": 5}
+                 "flash_bwd_dbias_wgmma": 1, "proj_wgmma_kernel": 4, "ce_fwd_wgmma_kernel": 2,
+                 "ce_dh_wgmma_kernel": 5, "ce_dw_wgmma_kernel": 5}
 
 
 def check_wgmma_build():
@@ -318,8 +320,9 @@ def flash_bwd_cases(torch, dtype, gen):
     """The train shapes (b = 4): MaskGit self-attention with the CPB bias and
     an all-zero key mask, the TokenCritic's self-attention without a bias,
     cross-attention with a row that sees only the
-    null-KV columns, the same with a row that sees no key at all, a causal
-    ALiBi case, and d = 128 with ragged tiles."""
+    null-KV columns, the same with a row that sees no key at all (without a
+    bias, and with an (8, 1152, 130) bias: ragged key tiles, dBias rows of
+    130), a causal ALiBi case, and d = 128 with ragged tiles."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
     from phenaki_tpu_torch.ops.positional import alibi_bias
 
@@ -337,6 +340,10 @@ def flash_bwd_cases(torch, dtype, gen):
     cases["maskgit_cross"] = (q, kc, vc, None, torch.where(keep, 0.0, NEG_INF).float().cuda(), False)
     keep[2] = False  # a row that attends no key: lse = -inf, out = 0, gradients 0
     cases["fully_masked_row"] = (q, kc, vc, None, torch.where(keep, 0.0, NEG_INF).float().cuda(), False)
+    # the bias as the attention Function hands it on: rows of 136 (a multiple
+    # of 8, for the 16-byte copies), its first 130 columns
+    cases["fully_masked_row_bias"] = (q, kc, vc, rand(8, 1152, 136)[..., :130],
+                                      torch.where(keep, 0.0, NEG_INF).float().cuda(), False)
     qa, ka, va = qk((2, 8, 256, 64), gen, dtype), qk((2, 8, 320, 64), gen, dtype), rand(2, 8, 320, 64)
     cases["causal_alibi"] = (qa, ka, va, alibi_bias(8, 256, 320, device="cuda").to(dtype), None, True)
     qd, kd, vd = qk((1, 4, 200, 128), gen, dtype), qk((1, 4, 200, 128), gen, dtype), rand(1, 4, 200, 128)
@@ -379,10 +386,24 @@ def check_flash_bwd(torch):
                 abs_errs[key] = (g.float() - r).abs().max().item()
                 errs[key] = abs_errs[key] / max(r.abs().max().item(), 1e-30)
                 check(errs[key] <= tol[dtype], f"flash bwd {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
-            if name == "fully_masked_row":
+            if name.startswith("fully_masked_row"):
                 for key in ("dq", "dk", "dv"):
                     check(got[key][2].abs().max().item() == 0.0, f"flash bwd {tag}: {key} of the masked row")
                 check(torch.isneginf(lse[2]).all().item(), f"flash bwd {tag}: lse of the masked row")
+            if name == "fully_masked_row_bias":
+                # p = 0 on the batch row that sees no key: it adds exactly
+                # nothing to dBias, which equals the other rows' dBias
+                live = torch.tensor([0, 1, 3], device="cuda")
+                sub = [t.index_select(0, live) for t in (q, k, v)]
+                rest = fa.flash_attention_bwd_dbias(*sub, bias, kmask.index_select(0, live),
+                                                    do.index_select(0, live), lse.index_select(0, live),
+                                                    delta.index_select(0, live), **kw)
+                check(torch.equal(got["dbias"], rest), f"flash bwd {tag}: the masked batch row moves dBias")
+            if dtype == torch.bfloat16 and bias is not None:
+                # dBias sums the batch inside the block, in order: a second
+                # call is bit-identical
+                check(torch.equal(got["dbias"], fa.flash_attention_bwd_dbias(*args, **kw)),
+                      f"flash bwd {tag}: two dBias calls differ")
             ms = graph = plain_ms = None
             if dtype == torch.bfloat16 and name in ("maskgit_self", "critic_self", "maskgit_cross"):
                 # timed at the train shapes only: each kernel back to back
@@ -410,7 +431,7 @@ def check_flash_bwd(torch):
     # autograd on the card: the Function launches the kernels and every
     # differentiable input gets a gradient equal to the plain backward's. f32
     # on a slice of the self-attention case; bf16 (the wgmma forward, dQ and
-    # dK/dV, the WMMA dBias) at the whole train shape with an f32 bias, as
+    # dK/dV and dBias) at the whole train shape with an f32 bias, as
     # the CPB gives it, so the Function's casts (bias to bf16 and back, dO to
     # bf16) are on the path
     q, k, v, bias, kmask, _ = flash_bwd_cases(torch, torch.float32, gen)["maskgit_self"]
@@ -566,6 +587,9 @@ def check_chunk_bwd(torch):
             got = {"dq": fa.flash_attention_bwd_dq(*args, **kw)}
             got["dk"], got["dv"] = fa.flash_attention_bwd_dkv(*args, **kw)
             got["dbias"] = fa.flash_attention_bwd_dbias(*args, **kw)
+            if dtype == torch.bfloat16:
+                check(torch.equal(got["dbias"], fa.flash_attention_bwd_dbias(*args, **kw)),
+                      f"chunk bwd {name}: two dBias calls differ")
             pargs = (q, k, v, bias, kmask, None, lse, do)
             ref = dict(zip(("dq", "dk", "dv", "dbias"),
                            fa.flash_attention_backward_plain(*pargs, delta=delta, **kw)))
@@ -630,7 +654,8 @@ def check_fused_ce(torch):
     kernels walk d in two slices, in bf16 and f32; and rows that fill no
     whole tile (1000 rows, V = 1024, no bias, every 7th label -1, the pad
     label) at d = 128 and at d = 640 (a 512- and a 128-wide slice). Two calls
-    of each bf16 backward kernel must be bit-identical. At d = 512 and 1024
+    of each bf16 kernel must be bit-identical, and the forward's C entry
+    refuses a vocab that is not a multiple of 512. At d = 512 and 1024
     in bf16 each kernel is timed back to back (`ms`), by CUDA-graph replay
     (`graph_ms`) and beside `matmul_ms` (`ce_matmul_ms`). Then a train
     step's CE both ways, forward and backward: the kernels against the
@@ -678,11 +703,13 @@ def check_fused_ce(torch):
                 check(errs[key] <= tol[dtype], f"fused CE {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
             ms = plain_ms = graph = matmul = None
             if dtype == torch.bfloat16:
-                # the bf16 backward kernels own what they write and sum their
-                # partials in a fixed order: a second call is bit-identical
-                again = {"dh": ce.fused_ce_bwd_dh(*bargs)}
+                # the bf16 kernels own what they write and sum their partials
+                # in a fixed order: a second call is bit-identical
+                again = dict(zip(("loss", "lse"), ce.fused_ce_fwd(*args)))
+                again["dh"] = ce.fused_ce_bwd_dh(*bargs)
                 again["dw"], again["db"] = ce.fused_ce_bwd_dw(*bargs)
-                for key in ("dh", "dw", "db"):
+                got.update(loss=loss, lse=lse)
+                for key in ("loss", "lse", "dh", "dw", "db"):
                     check(torch.equal(got[key], again[key]), f"fused CE {tag}: two calls differ in {key}")
                 del again
             if tag in ("train_bfloat16", "d1024_bfloat16"):
@@ -703,6 +730,19 @@ def check_fused_ce(torch):
                     "ce_dh": bound(inputs + nbytes(ref_lse, g, got["dh"]), 4 * rows * d * v),
                     "ce_dw": bound(inputs + nbytes(ref_lse, g, got["dw"], got["db"]), 4 * rows * d * v)}
             del got, ref
+
+    # the forward's C entry takes the vocabs the gate admits (V % 512 == 0)
+    # and refuses the rest before any launch (cudaErrorInvalidValue = 1)
+    from phenaki_tpu_torch import _build
+
+    h = torch.zeros(128, 128, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(640, 128, device="cuda", dtype=torch.bfloat16)
+    labels = torch.zeros(128, device="cuda", dtype=torch.int32)
+    outs = [torch.empty(128, device="cuda") for _ in range(3)] + [torch.empty(128, 5, 2, device="cuda")]
+    p = _build.ptr
+    err = _build.load_library().fused_ce_fwd(p(h), p(w), p(None), p(labels), *map(p, outs), 128, 128, 640, 5,
+                                             _build.DTYPES[torch.bfloat16], _build.stream(h.device))
+    check(err == 1, f"fused CE forward: the C entry took V = 640 (error {err})")
 
     rows, d, v = 4 * 1152, 512, 65536
     h = (torch.randn(4, 1152, d, generator=gen) * 0.5).to("cuda", torch.bfloat16).requires_grad_()

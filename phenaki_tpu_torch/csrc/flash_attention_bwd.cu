@@ -29,10 +29,10 @@
 // the forward's arithmetic against the same bytes, so the kernels are bound
 // by arithmetic, and between the products sits an exp per score.
 //
-// bf16 at d = 64 (every main-path backward), dQ and dK/dV
-// (flash_bwd_dq_wgmma, flash_bwd_dkv_wgmma), the forward's design with two
-// more products: one warpgroup a block, wgmma m64n64k16 for every product,
-// the scores never in shared memory.
+// bf16 at d = 64 (every main-path backward), dQ, dK/dV and dBias
+// (flash_bwd_dq_wgmma, flash_bwd_dkv_wgmma, flash_bwd_dbias_wgmma), the
+// forward's design: one warpgroup a block, wgmma m64n64k16 for every
+// product, the scores never in shared memory.
 //  - dQ owns 64 query rows: Q and dO stay in shared memory; K, V, the
 //    (query x key) bias tile and the keys' mask terms stream through a
 //    two-stage ring of cp.async copies (tile t + 1 lands while tile t
@@ -51,10 +51,19 @@
 //    lse and delta are read per column from shared memory. P^T and dS^T are
 //    packed in place as the A operands of dV += P^T dO and dK += dS^T Q (dO
 //    and Q read MN-major).
-//  Registers stay at or under 168 a thread and shared memory is 69 KB a
-//  block, so three blocks fit an SM.
-// dBias (flash_bwd_dbias_wmma) runs its two products on WMMA fragments
-// through f32 shared scratch. f32 and other head sizes run the products on
+//    Registers stay at or under 168 a thread and shared memory is 69 KB a
+//    block, so three blocks fit an SM.
+//  - dBias (flash_bwd_dbias_wgmma) owns a (64 query x 64 key) tile of one
+//    head and loops over the batch inside the block, in order: S and dP as
+//    in dQ, into registers; the bias tile, the same for every batch row, is
+//    read once by ldmatrix into registers in the accumulator layout; per
+//    batch row the epilogue adds p (dP - delta) into an f32 accumulator in
+//    registers. Row b + 1's Q, dO, K, V, key mask, lse and delta arrive by
+//    cp.async (two stages) while row b computes. The f32 tile goes out
+//    through shared memory in whole rows, 16-byte stores where j % 4 == 0:
+//    the 42 MB output at the flagship train shape is half the bound's bytes.
+//    67 KB of shared memory, three blocks an SM.
+// f32 and other head sizes run the products on
 // the CUDA cores in f32 (bf16 inputs are widened as they land in shared
 // memory), one 16 x 16 thread grid per block with 4 x 4 score entries a
 // thread. Every kernel keeps the (i, j) score and probability matrices out
@@ -63,8 +72,6 @@
 // tiles, and dBias owns a (query tile, key tile) pair and loops over the
 // batch inside the block, as the TPU kernel's sequential batch axis does, so
 // every sum is taken in a fixed order.
-
-#include <mma.h>
 
 #include "wgmma.cuh"
 
@@ -786,115 +793,161 @@ flash_bwd_dkv_wgmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64, kernel 6 (dBias): the products on the tensor cores through
-// WMMA 16x16x16 (f32 accumulate). Four warps a block; each owns 16 query
-// rows of the block's (query tile, key tile), computes its two 16 x 64
-// recompute products (S and dP) into f32 shared scratch and runs the
-// elementwise part there (two lanes per row, on interleaved columns).
+// bf16 at d = 64, kernel 6 (dBias): B4's products and epilogue with one
+// warpgroup a block and the batch loop inside it (see the note at the top)
 // ---------------------------------------------------------------------------
 
-namespace wm = nvcuda::wmma;
+// two stages of a batch row's Q, dO (the block's query tile), K, V (its key
+// tile), then 64 f32 terms each of the keys' mask, the rows' lse and their
+// delta, each stage rounded up to 1 KB; 1 KB to align: 67 KB, three blocks
+// an SM. The bias tile passes through stage 1 before the loop, the f32
+// output tile through stage 0 after it.
+struct DbSmem {
+  static constexpr int stats = 4 * WG_TILE;
+  static constexpr int stage = (stats + 3 * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int total = 2 * stage + 1024;
+  static constexpr int out_ld = BK + 8;  // f32 output rows: float2 stores of a half warp hit 32 banks
+  static_assert(BQ * out_ld * 4 <= stage && BQ * BIAS_LD * 2 <= stage, "a stage holds the bias and the output");
+};
 
-constexpr int WMMA_THREADS = 128;
-constexpr int LDT = WD + 8;       // bf16 [64][LDT] Q, K, V, dO tiles
-constexpr int LDS = BK + 4;       // f32 [16][LDS] per-warp scratch
-constexpr size_t TILE = (size_t)64 * LDT * 2;
-constexpr size_t SCRATCH = (size_t)16 * LDS * 4;
+__global__ void __launch_bounds__(WG_THREADS, 3)
+flash_bwd_dbias_wgmma(Bwd a, float* __restrict__ dbias) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_base_1k(smem_raw);
+  unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));  // base, generic
 
-using Acc = wm::fragment<wm::accumulator, 16, 16, 16, float>;
-
-// rows [r0, r0 + 64) of a (nrows, 64) bf16 array into a [64][LDT] tile,
-// zero past nrows
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int nrows) {
-  constexpr int PER_ROW = WD / 8;
-  for (int e = threadIdx.x; e < 64 * PER_ROW; e += WMMA_THREADS) {
-    const int r = e / PER_ROW, c = (e % PER_ROW) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * WD + c);
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
-  }
-}
-
-// S (16 x 64, f32 row-major, ld LDS) = A (16 x 64) . B (64 x 64)^T, A and B
-// row-major bf16 tiles with ld LDT
-__device__ __forceinline__ void mma_abt(const bf16* A, const bf16* B, float* S) {
-  Acc acc[BK / 16];
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) wm::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kd = 0; kd < WD; kd += 16) {
-    wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-    wm::load_matrix_sync(a, A + kd, LDT);
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> b;
-      wm::load_matrix_sync(b, B + n * 16 * LDT + kd, LDT);
-      wm::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) wm::store_matrix_sync(S + n * 16, acc[n], LDS, wm::mem_row_major);
-}
-
-__global__ void __launch_bounds__(WMMA_THREADS) flash_bwd_dbias_wmma(Bwd a, float* __restrict__ dbias) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = reinterpret_cast<bf16*>(smem_raw + TILE);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw + 2 * TILE);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + 3 * TILE);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, r = lane >> 1, half = lane & 1;
-  unsigned char* wbase = smem_raw + 4 * TILE + warp * 2 * SCRATCH;
-  float* Ss = reinterpret_cast<float*>(wbase);
-  float* dPs = reinterpret_cast<float*>(wbase + SCRATCH);
-
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
   const int k0 = blockIdx.x * BK, q0 = blockIdx.y * BQ, hh = blockIdx.z;
-  const int I = a.I, J = a.J, q_offset = a.q_off - a.k_off;
-  const int row = q0 + warp * 16 + r;
-  const bf16* biasp = (const bf16*)a.bias + (size_t)hh * I * a.ldb;
-  // the bias is the same for every batch row: read the lane's 32 values once
-  float bias_v[BK / 2], acc[BK / 2];
-#pragma unroll
-  for (int c = 0; c < BK / 2; ++c) {
-    const int col = k0 + 2 * c + half;
-    bias_v[c] = (row < I && col < J) ? __bfloat162float(biasp[(size_t)row * a.ldb + col]) : 0.f;
-    acc[c] = 0.f;
-  }
+  const int I = a.I, J = a.J, ldb = a.ldb;
+  const bf16* biasp = (const bf16*)a.bias + (size_t)hh * I * ldb;
+  const float scale2 = a.scale * LOG2E;
+  const int r0 = warp * 16 + g;                       // this thread's first row in the tile
+  const int row0 = q0 + r0, row1 = row0 + 8;          // and its two query rows
+  // a tile wholly above the causal diagonal has dBias = 0; one that the
+  // diagonal cuts takes the mask entry by entry
+  const bool live = !a.causal || k0 + a.k_off <= q0 + BQ - 1 + a.q_off;
+  const bool cut = a.causal && k0 + BK - 1 + a.k_off > q0 + a.q_off;
 
-  const bool live = !a.causal || k0 <= q0 + BQ - 1 + q_offset;
-  for (int bb = 0; live && bb < a.B; ++bb) {
-    const size_t bh = (size_t)bb * a.H + hh;
-    const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
-    __syncthreads();  // every warp is done with the previous batch row's tiles
-    load_tile(Qs, (const bf16*)a.q + bh * I * WD, q0, I);
-    load_tile(dOs, (const bf16*)a.dout + bh * I * WD, q0, I);
-    load_tile(Ks, (const bf16*)a.k + bh * J * WD, k0, J);
-    load_tile(Vs, (const bf16*)a.v + bh * J * WD, k0, J);
-    __syncthreads();
-    mma_abt(Qs + warp * 16 * LDT, Ks, Ss);
-    mma_abt(dOs + warp * 16 * LDT, Vs, dPs);
-    __syncwarp();
-    const float lse = row < I ? a.lse[bh * I + row] : -INFINITY;
-    const float delta = row < I ? a.delta[bh * I + row] : 0.f;
+  float acc[32];  // dBias, summed over the batch in order
 #pragma unroll
-    for (int c = 0; c < BK / 2; ++c) {
-      const int cl = 2 * c + half, col = k0 + cl;
-      bool valid = col < J && row < I;
-      if (a.causal && col > row + q_offset) valid = false;
-      float extra = bias_v[c];
-      if (valid && kmaskp) {
-        const float km = kmaskp[col];
-        if (km <= MASKED) valid = false;
-        extra += km;
+  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+
+  // batch row b's Q, dO, K, V, key mask, lse and delta into stage b & 1
+  auto load_stage = [&](int bb) {
+    const size_t bh = (size_t)bb * a.H + hh;
+    const uint32_t st = base + (bb & 1) * DbSmem::stage;
+    load_sw128<WD>(st, (const bf16*)a.q + bh * I * WD, q0, I);
+    load_sw128<WD>(st + WG_TILE, (const bf16*)a.dout + bh * I * WD, q0, I);
+    load_sw128<WD>(st + 2 * WG_TILE, (const bf16*)a.k + bh * J * WD, k0, J);
+    load_sw128<WD>(st + 3 * WG_TILE, (const bf16*)a.v + bh * J * WD, k0, J);
+    const uint32_t stats = st + DbSmem::stats;
+    if (tid < BK) {
+      const bool ok = a.kmask && k0 + tid < J;
+      cp_async4(stats + tid * 4, ok ? a.kmask + (size_t)bb * J + k0 + tid : a.lse, ok ? 4 : 0);
+    }
+    const int r = tid & (BQ - 1);  // thread r copies row r's lse, thread 64 + r its delta
+    const float* src = (tid < BQ ? a.lse : a.delta) + bh * I;
+    const bool ok = q0 + r < I;
+    cp_async4(stats + (BK + tid) * 4, ok ? src + q0 + r : src, ok ? 4 : 0);
+  };
+
+  if (live) {
+    // the bias tile, the same for every batch row: through stage 1 into
+    // registers, bf16 pairs in the accumulator layout (ldmatrix), once
+    load_bias(base + DbSmem::stage, biasp, ldb, q0, k0, I, J);
+    load_stage(0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    uint32_t bv[2][2][4];  // [row half][column quarter nq][block j]: column block 4 nq + j
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int nq = 0; nq < 2; ++nq)
+        ldmatrix_x4(bv[half][nq], base + DbSmem::stage +
+                                      ((warp * 16 + half * 8 + (lane & 7)) * BIAS_LD + (nq * 4 + (lane >> 3)) * 8) * 2);
+    __syncthreads();  // every thread has its bias before stage 1 is refilled
+
+    // batch row b + 1's copies run under row b's products
+    for (int bb = 0; bb < a.B; ++bb) {
+      if (bb + 1 < a.B) load_stage(bb + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this thread's copies of row b have landed
+      // the thread that copied them turns key tid's mask into its additive
+      // term in log2 units (-inf past J or where the key is hard-masked) and
+      // row tid's lse into lse_log2
+      const int st_off = (bb & 1) * DbSmem::stage;
+      float* kadd_s = reinterpret_cast<float*>(gbase + st_off + DbSmem::stats);
+      float* lse_s = kadd_s + BK;
+      const float* delta_s = lse_s + BQ;
+      if (tid < BK) {
+        const float km = a.kmask ? kadd_s[tid] : 0.f;
+        kadd_s[tid] = k0 + tid < J && km > MASKED ? km * LOG2E : -INFINITY;
+        lse_s[tid] = lse_log2(lse_s[tid], q0 + tid < I);
       }
-      const float p = recompute_p(Ss[r * LDS + cl] * a.scale, extra, valid, lse);
-      acc[c] = fmaf(p, dPs[r * LDS + cl] - delta, acc[c]);
+      fence_proxy_async();
+      __syncthreads();
+
+      // S = Q K^T and dP = dO V^T, K and V read K-major
+      const uint32_t sQ = base + st_off, sdO = sQ + WG_TILE, sK = sQ + 2 * WG_TILE, sV = sQ + 3 * WG_TILE;
+      float s[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sdO, kk), kmajor_desc(sV, kk), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // p = 2^(s scale log2(e) + (bias + kmask) log2(e) - lse log2(e)), 0
+      // where masked; acc += p (dP - delta)
+      const float ls[2] = {lse_s[r0], lse_s[r0 + 8]};
+      const float dl[2] = {delta_s[r0], delta_s[r0 + 8]};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 ka = *reinterpret_cast<const float2*>(kadd_s + 8 * n + 2 * c);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float2 b = bf16x2_to_float2(bv[half][n >> 2][n & 3]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * n + 2 * half + e;
+            float t = fmaf(s[x], scale2, fmaf(e ? b.y : b.x, LOG2E, e ? ka.y : ka.x));
+            if (cut && k0 + 8 * n + 2 * c + e + a.k_off > (half ? row1 : row0) + a.q_off) t = -INFINITY;
+            acc[x] = fmaf(ex2(t - ls[half]), dp[x] - dl[half], acc[x]);
+          }
+        }
+      }
+      __syncthreads();  // every thread is done with stage b & 1 before it is refilled
     }
   }
-  if (row < I) {
+  cp_async_wait<0>();
+
+  // the (64 x 64) f32 tile through stage 0, out in whole rows: 16-byte
+  // stores where the rows keep 16-byte alignment (J % 4 == 0), else 4-byte
+  float* out_s = reinterpret_cast<float*>(gbase);
 #pragma unroll
-    for (int c = 0; c < BK / 2; ++c) {
-      const int col = k0 + 2 * c + half;
-      if (col < J) dbias[((size_t)hh * I + row) * J + col] = acc[c];
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(out_s + (r0 + 8 * half) * DbSmem::out_ld + 8 * n + 2 * c) =
+          make_float2(acc[4 * n + 2 * half], acc[4 * n + 2 * half + 1]);
+  __syncthreads();
+  float* dst = dbias + ((size_t)hh * I + q0) * J + k0;
+  if ((J & 3) == 0) {
+#pragma unroll
+    for (int it = 0; it < BQ * BK / 4 / WG_THREADS; ++it) {
+      const int e = tid + it * WG_THREADS, r = e >> 4, col = (e & 15) * 4;
+      if (q0 + r < I && k0 + col < J)
+        *reinterpret_cast<float4*>(dst + (size_t)r * J + col) =
+            *reinterpret_cast<const float4*>(out_s + r * DbSmem::out_ld + col);
+    }
+  } else {
+    for (int e = tid; e < BQ * BK; e += WG_THREADS) {
+      const int r = e >> 6, col = e & 63;
+      if (q0 + r < I && k0 + col < J) dst[(size_t)r * J + col] = out_s[r * DbSmem::out_ld + col];
     }
   }
 }
@@ -914,25 +967,22 @@ constexpr size_t dbias_smem() {
 
 enum Which { kDQ, kDKV, kDBias };
 
-constexpr size_t DBIAS_WMMA_SMEM = 4 * TILE + 4 * 2 * SCRATCH;
-
-// bf16 at d = 64: dQ and dK/dV on wgmma, dBias on WMMA. The grid runs the
-// batch fastest, so the blocks that share a bias tile run together (as the
-// forward's).
+// bf16 at d = 64, all three on wgmma. The dQ and dK/dV grids run the batch
+// fastest, so the blocks that share a bias tile run together (as the
+// forward's); dBias loops over the batch inside the block, its grid (key
+// tiles, query tiles, heads).
 cudaError_t launch_tensor_cores(Which which, const Bwd& a, void* o1, void* o2, cudaStream_t stream) {
   const int qt = (a.I + BQ - 1) / BQ, kt = (a.J + BK - 1) / BK;
   cudaError_t err;
-  if (which == kDBias) {
-    err = cudaFuncSetAttribute(flash_bwd_dbias_wmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)DBIAS_WMMA_SMEM);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dbias_wmma<<<dim3(kt, qt, a.H), WMMA_THREADS, DBIAS_WMMA_SMEM, stream>>>(a, (float*)o1);
-    return cudaGetLastError();
-  }
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout) ||
-      (a.bias && (!aligned16(a.bias) || a.ldb % 8 != 0)))
+      (a.bias && (!aligned16(a.bias) || a.ldb % 8 != 0)) || (which == kDBias && !aligned16(o1)))
     return cudaErrorMisalignedAddress;
-  if (which == kDQ) {
+  if (which == kDBias) {
+    err = cudaFuncSetAttribute(flash_bwd_dbias_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               DbSmem::total);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dbias_wgmma<<<dim3(kt, qt, a.H), WG_THREADS, DbSmem::total, stream>>>(a, (float*)o1);
+  } else if (which == kDQ) {
     err = cudaFuncSetAttribute(flash_bwd_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                WgSmem::total);
     if (err != cudaSuccess) return err;
@@ -1005,8 +1055,9 @@ int run(Which which, const void* q, const void* k, const void* v, const void* bi
 // stride, scale, causal and the causal offsets (q_off, k_off): key c is seen
 // by row r iff c + k_off <= r + q_off. Attention over one whole sequence
 // passes (j - i, 0); a ring chunk passes its global positions. In bf16 at
-// d = 64, dq and dkv return cudaErrorMisalignedAddress unless q, k, v, dO
-// and the bias start on a 16-byte boundary and ldb is a multiple of 8.
+// d = 64 each entry returns cudaErrorMisalignedAddress unless q, k, v, dO,
+// the bias (and dbias) start on a 16-byte boundary and ldb is a multiple
+// of 8.
 #define PHENAKI_BWD_ARGS                                                                     \
   const void *q, const void *k, const void *v, const void *bias, const void *kmask,          \
       const void *dout, const void *lse, const void *delta

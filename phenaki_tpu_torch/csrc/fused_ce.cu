@@ -24,13 +24,28 @@
 // run in no order, so each block keeps one operand resident and streams the
 // other in tiles.
 //
-// Forward (ce_fwd_kernel; WMMA 16x16x16 in bf16, CUDA cores in f32): a
-// block holds 32 rows of h and walks one of S vocab splits in 64-id tiles
-// of W, keeping each row's online max and sum-exp in registers; it writes
-// one (max, sum-exp) partial per (row, split), and the thread that meets a
-// row's label writes that logit. ce_merge_kernel folds the partials into
-// lse and loss. A logits tile of 32 x 64 from shared memory, one fragment a
-// warp, holds it near 100 TFLOP/s.
+// Forward, bf16 (ce_fwd_wgmma_kernel): the projection sampler's main loop
+// (vocab_gemm.cuh, shared with kernel 2). A block of two warpgroups holds
+// 128 rows of h (in shared memory up to d = 512, streamed beside W past
+// it) and walks one of S vocab splits in 128-id tiles of W, which stream
+// through a five-stage ring of 64-column d slices in the 128-byte swizzle;
+// the products are wgmma m64n128k16, two accumulators, so tile t - 1's
+// epilogue runs under tile t's products. The epilogue stays in the
+// accumulator registers: the tile's f32 bias from shared memory (it arrives
+// with the ring), a sum-exp with one ex2.approx a logit against a reference
+// that moves only when passed by 2^64 (no running max), and the label's
+// logit, written by the one thread whose column holds it, on the one tile
+// that holds it. The quad that shares a row merges its four sums; one
+// (max, sum-exp) partial per (row, split); ce_merge_kernel folds the
+// partials in split order into lse and loss. The wrapper picks S for whole
+// waves of one block an SM (11 at the flagship: 36 row tiles x 11 = 3
+// waves of 132 SMs) and zero-pads h to whole row tiles. What bounds it: L2
+// serves W once a row tile, 36 x 67 MB = 2.4 GB at the flagship, about
+// 0.55 ms at the 4.4 TB/s kernels 8 and 9 draw, against the products' 0.31
+// ms at the tensor cores' peak.
+// Forward, f32 (ce_fwd_kernel, the CUDA cores; the card checks, no main path
+// runs it): a block holds 32 rows of h and walks one of S vocab splits in
+// 64-id tiles of W, the logits through shared memory, the same partials.
 //
 // Backward, bf16 (ce_dh_wgmma_kernel, ce_dw_wgmma_kernel: one body, two
 // roles). A block (two warpgroups) holds 64 rows A and walks 64-row tiles
@@ -75,30 +90,23 @@
 // grid index that recomputes the logits and ends its slice walk on its own
 // output slice.
 
-#include <mma.h>
-
-#include "wgmma.cuh"
+#include "vocab_gemm.cuh"
 
 namespace phenaki {
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
 constexpr int THREADS = 256;  // 8 warps
-constexpr int RES = 32;       // resident rows of h (forward, f32 dh) or of W (f32 dW)
+constexpr int RES = 32;       // resident rows of h (f32 forward, f32 dh) or of W (f32 dW)
 constexpr int SLICE = 512;    // d columns staged at a time (all of D up to this)
 constexpr int LDR = RES + 8;  // row stride of the dW kernel's (STR x RES) tiles
 
-// the streamed tile: vocab ids (forward, dh) or rows of h (dW) per step. At
-// D = 512 two bf16 forward blocks fit an SM (113 KB of shared memory, 128
-// registers a thread); f32 blocks take 206-218 KB, one an SM.
+// the streamed tile of the f32 kernels: vocab ids (forward, dh) or rows of
+// h (dW) per step; a block takes 206-218 KB, one an SM
 constexpr int STR = 64;
 
-// row padding of a staged (rows, D) operand: bf16 rows stay 16-byte aligned
-// for WMMA; the odd f32 stride sends column reads to 32 banks
-template <typename T>
-__host__ __device__ constexpr int pad() { return sizeof(T) == 2 ? 8 : 1; }
+// row padding of a staged (rows, D) f32 operand: the odd stride sends
+// column reads to 32 banks
+constexpr int PAD = 1;
 
 __host__ __device__ constexpr size_t round128(size_t x) { return (x + 127) / 128 * 128; }
 
@@ -111,7 +119,6 @@ __device__ __forceinline__ void merge_lse(float& m, float& se, float om, float o
   m = mn;
 }
 
-__device__ __forceinline__ void store16(bf16* p, uint4 v) { *reinterpret_cast<uint4*>(p) = v; }
 __device__ __forceinline__ void store16(float* p, uint4 v) {
   p[0] = __uint_as_float(v.x);
   p[1] = __uint_as_float(v.y);
@@ -143,44 +150,6 @@ __device__ __forceinline__ int slice_width(int D, int s) { return min(SLICE, D -
 // slices of d; A and B row-major in shared memory.
 template <typename T, int M, int N>
 struct TileAcc;
-
-// bf16: each warp owns one 16-row group and FPW 16-column groups of WMMA
-// fragments
-template <int M, int N>
-struct TileAcc<bf16, M, N> {
-  static constexpr int FPW = (M / 16) * (N / 16) / (THREADS / 32);
-  static constexpr int WPM = (N / 16) / FPW;  // warps per 16-row group
-  static_assert(FPW >= 1 && (N / 16) % FPW == 0, "tile does not split over 8 warps");
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[FPW];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int f = 0; f < FPW; ++f) wmma::fill_fragment(c[f], 0.f);
-  }
-
-  __device__ __forceinline__ void add(const bf16* A, int lda, const bf16* B, int ldb, int K) {
-    const int warp = threadIdx.x >> 5;
-    const int fm = warp / WPM, fn0 = (warp % WPM) * FPW;
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + fm * 16 * lda + k, lda);
-#pragma unroll
-      for (int f = 0; f < FPW; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, B + (fn0 + f) * 16 * ldb + k, ldb);
-        wmma::mma_sync(c[f], a, b, c[f]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* L, int ldl) const {
-    const int warp = threadIdx.x >> 5;
-    const int fm = warp / WPM, fn0 = (warp % WPM) * FPW;
-#pragma unroll
-    for (int f = 0; f < FPW; ++f)
-      wmma::store_matrix_sync(L + fm * 16 * ldl + (fn0 + f) * 16, c[f], ldl, wmma::mem_row_major);
-  }
-};
 
 // f32: thread t owns column t % N of rows t / N + (256 / N) * i
 template <int M, int N>
@@ -289,7 +258,7 @@ struct CE {
 
 // row stride of a staged operand slice
 template <typename T>
-__host__ __device__ constexpr int ld_op(int D) { return staged_d(D) + pad<T>(); }
+__host__ __device__ constexpr int ld_op(int D) { return staged_d(D) + PAD; }
 
 // shared-memory layout of the forward and dh kernels: Hs [RES][ld],
 // Ws [STR][ld], Ls [RES][STR + 8] f32, Ps [RES][STR + 8] (dh only)
@@ -310,11 +279,11 @@ __host__ __device__ constexpr size_t vocab_smem(int D) {
          round128((size_t)STR * LDR * sizeof(float)) + (size_t)STR * LDR * sizeof(T);
 }
 
-// Each kernel is built twice: SLICED = false for D <= 512 (one slice, a
-// compile-time constant, so the flagship's code is the one-operand-resident
-// loop with nothing added), SLICED = true beyond.
+// Each f32 kernel is built twice: SLICED = false for D <= 512 (one slice, a
+// compile-time constant: the one-operand-resident loop with nothing added),
+// SLICED = true beyond.
 
-// ---- forward: one block per (32 rows, vocab split) ----
+// ---- f32 forward: one block per (32 rows, vocab split) ----
 template <typename T, bool SLICED>
 __global__ void __launch_bounds__(THREADS, 2)
 ce_fwd_kernel(CE a, int tiles_per_split, float* __restrict__ partials,
@@ -369,6 +338,83 @@ ce_fwd_kernel(CE a, int tiles_per_split, float* __restrict__ partials,
   if (q == 0 && row < a.R) {
     partials[((size_t)row * nsplit + split) * 2] = run_m;
     partials[((size_t)row * nsplit + split) * 2 + 1] = run_se;
+  }
+}
+
+// ---- bf16 forward on wgmma (see the note at the top) ----
+
+struct CEFwd {
+  const bf16 *h, *w;  // h: round_up(R, 128) rows
+  const float* bias;
+  const int* labels;  // (R,)
+  float *partials, *label_logit;
+  int R, D, V, splits;
+};
+
+template <bool H_RESIDENT>
+__global__ void __launch_bounds__(PB_THREADS, 1) ce_fwd_wgmma_kernel(const __grid_constant__ CEFwd p) {
+  extern __shared__ unsigned char smem_raw[];
+  const Walk k = make_walk<H_RESIDENT>(p, smem_raw);
+  // this thread's two rows (row0 and row0 + 8): a row past R (h's zero
+  // padding) has no label; a running (reference, sum-exp) each in log2
+  // units, the reference raised only past PB_RESCALE
+  int y[2];
+  float m[2], se[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = k.row0 + 8 * half;
+    y[half] = row < p.R ? p.labels[row] : -1;
+    m[half] = -INFINITY;
+    se[half] = 0.f;
+  }
+  auto epilogue = [&](const float (&a)[64], int v0, const float* sbias) {
+#pragma unroll
+    for (int n = 0; n < PB_BLOCKS; ++n) {
+      const float2 b = sbias ? *reinterpret_cast<const float2*>(sbias + 8 * n + 2 * k.c) : make_float2(0.f, 0.f);
+      const float x[4] = {a[4 * n] + b.x, a[4 * n + 1] + b.y, a[4 * n + 2] + b.x, a[4 * n + 3] + b.y};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float mx = fmaxf(x[2 * half], x[2 * half + 1]) * LOG2E;
+        if (mx - m[half] > PB_RESCALE) {  // rarely: the first values, or a large rise
+          se[half] *= ex2(m[half] - mx);
+          m[half] = mx;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) se[j >> 1] += ex2(fmaf(x[j], LOG2E, -m[j >> 1]));
+    }
+    // the label's logit, from the thread whose column holds it, on the one
+    // tile of the vocab that holds a row's label
+    if ((unsigned)(y[0] - v0) < (unsigned)PB_VT || (unsigned)(y[1] - v0) < (unsigned)PB_VT) {
+#pragma unroll
+      for (int n = 0; n < PB_BLOCKS; ++n) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = 8 * n + 2 * k.c + (j & 1);
+          if (v0 + col == y[j >> 1])
+            p.label_logit[k.row0 + 8 * (j >> 1)] = a[4 * n + j] + (sbias ? sbias[col] : 0.f);
+        }
+      }
+    }
+  };
+  vocab_walk<H_RESIDENT>(p, k, epilogue);
+
+  // the quad that shares a row merges its four sums; one partial per (row,
+  // split), the reference in natural units as ce_merge_kernel reads it
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, m[half], off);
+      const float ose = __shfl_xor_sync(0xffffffffu, se[half], off);
+      merge_lse2(m[half], se[half], om, ose);
+    }
+    const int row = k.row0 + 8 * half;
+    if (k.c == 0 && row < p.R) {
+      float* out = p.partials + ((size_t)row * p.splits + blockIdx.y) * 2;
+      out[0] = m[half] * LN2;
+      out[1] = se[half];
+    }
   }
 }
 
@@ -898,25 +944,38 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// the shapes the wrapper's gate (can_fuse_ce) admits: d % 128 == 0 and a
+// vocab of 512-wide blocks
 bool shape_ok(int R, int D, int V, int dtype) {
-  return R > 0 && D > 0 && D % 128 == 0 && V > 0 && V % STR == 0 && V % RES == 0 &&
-         (dtype == kBF16 || dtype == kF32);
+  return R > 0 && D > 0 && D % 128 == 0 && V > 0 && V % 512 == 0 && (dtype == kBF16 || dtype == kF32);
 }
 
-template <typename T, bool SLICED>
-cudaError_t launch_fwd(const CE& a, int splits, float* partials, float* label_logit,
-                       float* loss, float* lse, cudaStream_t s) {
+template <bool SLICED>
+cudaError_t launch_fwd_f32(const CE& a, int splits, float* partials, float* label_logit, cudaStream_t s) {
   const int ntiles = a.V / STR;
   const int per = (ntiles + splits - 1) / splits;
-  const size_t smem = rows_smem<T>(a.D, false);
-  cudaError_t err = allow_smem(ce_fwd_kernel<T, SLICED>, smem);
+  const size_t smem = rows_smem<float>(a.D, false);
+  cudaError_t err = allow_smem(ce_fwd_kernel<float, SLICED>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.R + RES - 1) / RES, splits);
-  ce_fwd_kernel<T, SLICED><<<grid, THREADS, smem, s>>>(a, per, partials, label_logit);
-  err = cudaGetLastError();
+  ce_fwd_kernel<float, SLICED><<<grid, THREADS, smem, s>>>(a, per, partials, label_logit);
+  return cudaGetLastError();
+}
+
+// bf16: h resident in shared memory up to d = 512, streamed beside W past it
+cudaError_t launch_fwd_wgmma(const CE& a, int splits, float* partials, float* label_logit,
+                             cudaStream_t s) {
+  const CEFwd p{(const bf16*)a.h, (const bf16*)a.w, a.bias, a.labels, partials, label_logit, a.R, a.D,
+                a.V, splits};
+  if (!aligned16(p.h) || !aligned16(p.w) || (p.bias && !aligned16(p.bias)))
+    return cudaErrorMisalignedAddress;
+  const int NS = a.D / PB_KS;
+  const bool res = NS <= PB_RESIDENT_NS;
+  const int smem = res ? pb_smem<true>(NS) : pb_smem<false>(NS);
+  auto kern = res ? ce_fwd_wgmma_kernel<true> : ce_fwd_wgmma_kernel<false>;
+  cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  ce_merge_kernel<<<(a.R + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      partials, label_logit, a.labels, a.R, a.V, splits, loss, lse);
+  kern<<<dim3((a.R + PB_ROWS - 1) / PB_ROWS, splits), PB_THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -956,22 +1015,28 @@ cudaError_t launch_dw_f32(const CE& a, float* dw, float* db, cudaStream_t s) {
 }  // namespace phenaki
 
 // h (R, D) and w (V, D) in one dtype; bias (V,) f32 or null; labels (R,)
-// int32. Outputs loss and lse (R,) f32; label_logit (R,) and partials
-// (R, splits, 2) are f32 scratch.
+// int32; D % 128 == 0, V % 512 == 0. Outputs loss and lse (R,) f32;
+// label_logit (R,) and partials (R, splits, 2) are f32 scratch. bf16: h
+// holds round_up(R, 128) rows (zeros past R), h, w and the bias start on 16
+// bytes (else cudaErrorMisalignedAddress), 1 <= splits <= V / 128.
 extern "C" int fused_ce_fwd(const void* h, const void* w, const void* bias, const void* labels,
                             void* loss, void* lse, void* label_logit, void* partials, int R,
                             int D, int V, int splits, int dtype, void* stream) {
   using namespace phenaki;
-  if (!shape_ok(R, D, V, dtype) || splits < 1) return cudaErrorInvalidValue;
+  if (!shape_ok(R, D, V, dtype) || splits < 1 || (dtype == kBF16 && splits > V / PB_VT))
+    return cudaErrorInvalidValue;
   const CE a{h, w, (const float*)bias, (const int*)labels, nullptr, nullptr, R, D, V};
   cudaStream_t s = (cudaStream_t)stream;
-  float *p = (float*)partials, *ll = (float*)label_logit, *lo = (float*)loss, *ls = (float*)lse;
-  const bool sliced = num_slices(D) > 1;
+  float *p = (float*)partials, *ll = (float*)label_logit;
+  cudaError_t err;
   if (dtype == kBF16)
-    return sliced ? launch_fwd<bf16, true>(a, splits, p, ll, lo, ls, s)
-                  : launch_fwd<bf16, false>(a, splits, p, ll, lo, ls, s);
-  return sliced ? launch_fwd<float, true>(a, splits, p, ll, lo, ls, s)
-                : launch_fwd<float, false>(a, splits, p, ll, lo, ls, s);
+    err = launch_fwd_wgmma(a, splits, p, ll, s);
+  else
+    err = num_slices(D) > 1 ? launch_fwd_f32<true>(a, splits, p, ll, s) : launch_fwd_f32<false>(a, splits, p, ll, s);
+  if (err != cudaSuccess) return err;
+  ce_merge_kernel<<<(R + THREADS - 1) / THREADS, THREADS, 0, s>>>(p, ll, a.labels, R, V, splits,
+                                                                  (float*)loss, (float*)lse);
+  return cudaGetLastError();
 }
 
 // lse and g (R,) f32; dh (R, D) f32; partials (splits, rows_pad, D) f32

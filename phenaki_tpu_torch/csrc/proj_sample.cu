@@ -24,7 +24,9 @@
 //
 // The design (bf16: proj_wgmma_kernel). The TPU kernel carried its running
 // statistics across a sequential vocab grid axis; Hopper blocks run in no
-// order, so the vocab is cut into S splits and the work is two launches:
+// order, so the vocab is cut into S splits and the work is two launches.
+// Steps 1, 2 and 4 are the main loop of vocab_gemm.cuh, which the fused CE
+// forward (kernel 7) shares; step 3 is this kernel's epilogue:
 //  1. A block (two warpgroups, 256 threads) owns 128 rows of h (64 a
 //     warpgroup) and one split, and walks the split's 128-id vocab tiles.
 //     The grid is (row tiles, S), row tiles fastest, so the blocks of one
@@ -74,13 +76,12 @@
 // in shared memory (d in 512-column slices beyond 768), walks every 64-row
 // tile of h and writes one partial per (row, chunk).
 
-#include "wgmma.cuh"
+#include "vocab_gemm.cuh"
 
 namespace phenaki {
 namespace {
 
 constexpr int NPART = 5;  // best y, id bits, chosen logit, max, sum-exp
-constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void better_of(float& y, int& id, float& ch,
                                           float oy, int oid, float och) {
@@ -107,42 +108,9 @@ __device__ __forceinline__ float uniform23(uint32_t bits) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma over d-sliced tiles, the epilogue in registers (see the note at
-// the top)
+// bf16: the vocab main loop of vocab_gemm.cuh, this kernel's epilogue in
+// registers (see the note at the top)
 // ---------------------------------------------------------------------------
-
-constexpr int PB_ROWS = 128;   // rows of h a block: 64 a warpgroup
-constexpr int PB_VT = 128;     // vocab ids a tile
-constexpr int PB_KS = 64;      // d columns a ring slice: one 128-byte swizzle row
-constexpr int PB_STAGES = 5;   // ring stages: 3 slices load ahead of the products
-constexpr int PB_THREADS = 2 * WG_THREADS;
-constexpr int PB_SLICE = PB_ROWS * PB_KS * 2;  // bytes of a slice of h, and of W
-constexpr int PB_RESIDENT_NS = 8;              // h stays in shared memory up to d = 512
-constexpr int PB_BIAS_SLOTS = 4;  // tiles' bias in flight: loaded 1-2 passes before
-                                  // its epilogue, read for one pass
-constexpr int PB_BLOCKS = PB_VT / 8;  // 8-column blocks of a tile
-
-// a ring stage: the W slice, then (h streamed) the h slice
-template <bool RES>
-__host__ __device__ constexpr int pb_stage() { return RES ? PB_SLICE : 2 * PB_SLICE; }
-
-// shared memory: resident h (NS slices), the ring, the bias slots, 1 KB to
-// align: 211 KB at d = 512, 163 KB with h streamed
-template <bool RES>
-int pb_smem(int NS) {
-  return (RES ? NS * PB_SLICE : 0) + PB_STAGES * pb_stage<RES>() + PB_BIAS_SLOTS * PB_VT * 4 + 1024;
-}
-
-// rows [r0, r0 + 128) x columns [c0, c0 + 64) of a row-major (., D) bf16
-// array into 128 swizzled rows of 128 bytes (8-row groups 1024 B apart)
-__device__ __forceinline__ void load_slice(uint32_t dst, const bf16* src, size_t r0, int c0, int D) {
-#pragma unroll
-  for (int it = 0; it < PB_ROWS * 8 / PB_THREADS; ++it) {
-    const int e = threadIdx.x + it * PB_THREADS;
-    const int r = e >> 3, ch = e & 7;
-    cp_async16(dst + r * 128 + ((ch ^ (r & 7)) << 4), src + (r0 + r) * D + c0 + ch * 8, 16);
-  }
-}
 
 struct Proj {
   const bf16 *h, *w;
@@ -169,9 +137,8 @@ __device__ __forceinline__ uint4 philox_rk(uint4 ctr, const uint32_t (&rk)[20]) 
 // a thread's running statistics for its two rows: the best y (log2 units),
 // its id and logit; the sum-exp as se = sum 2^(x - m) over x = logit
 // log2(e), with m a reference that rises only when an x passes it by more
-// than PB_RESCALE (2^64 of headroom in f32), so that a value costs one ex2
-// and no compare against a running max
-constexpr float PB_RESCALE = 64.f;
+// than PB_RESCALE (vocab_gemm.cuh), so that a value costs one ex2 and no
+// compare against a running max
 struct Running {
   float best[2], ch[2], m[2], se[2];
   int id[2];
@@ -227,96 +194,11 @@ __device__ __forceinline__ void fold_block(const Proj& p, Running& st, const flo
   }
 }
 
-__device__ __forceinline__ void merge_lse2(float& m, float& se, float om, float ose) {
-  const float mn = fmaxf(m, om);
-  if (mn == -INFINITY) return;
-  se = (m == -INFINITY ? 0.f : se * ex2(m - mn)) + (om == -INFINITY ? 0.f : ose * ex2(om - mn));
-  m = mn;
-}
-
-// the block's per-launch constants and its position in the ring
-struct Walk {
-  uint32_t hres;   // resident h (NS slices), 1 KB aligned; the ring follows
-  uint32_t ring;
-  float* sbias;    // the bias slots after the ring, generic
-  size_t r0;       // the block's first row
-  int t_begin, nt, NS, total;
-  int row0, c, wg;
-};
-
-// step i of the ring (tile i / NS of the split, d slice i % NS) into its
-// stage, and with a tile's first slice its bias into slot tile % 4; the
-// steps of the padding tiles past the split's last reload that one
-template <bool RES>
-__device__ __forceinline__ void load_step(const Proj& p, const Walk& k, int i) {
-  const uint32_t st = k.ring + (i % PB_STAGES) * pb_stage<RES>();
-  const int tl = i / k.NS, t = k.t_begin + min(tl, k.nt - 1), c0 = (i % k.NS) * PB_KS;
-  load_slice(st, p.w, (size_t)t * PB_VT, c0, p.D);
-  if (!RES) load_slice(st + PB_SLICE, p.h, k.r0, c0, p.D);
-  if (p.bias && c0 == 0 && tl < k.nt && threadIdx.x < PB_VT / 4)
-    cp_async16(smem_u32(k.sbias + (tl % PB_BIAS_SLOTS) * PB_VT + threadIdx.x * 4),
-               p.bias + (size_t)t * PB_VT + threadIdx.x * 4, 16);
-}
-
-// tile tl's products into `an`, then tile tl - 1's epilogue from `ac`, which
-// runs under the products still in flight. `ac`'s products retire before
-// `an`'s are issued, so only `an` is ever in flight while `ac` is read; every
-// pass issues its products (past the split's last tile they are padding),
-// and nothing but wgmma writes an accumulator: one written on some paths
-// only would be copied at the join, and ptxas then serializes the wgmma
-// pipeline.
-template <bool RES, bool NOISE>
-__device__ __forceinline__ void tile_pass(const Proj& p, const Walk& k, Running& st, float (&an)[64],
-                                          float (&ac)[64], int tl) {
-  wg_wait<0>();
-  fence_regs(ac);
-  for (int s = 0; s < k.NS; ++s) {
-    const int i = tl * k.NS + s;
-    cp_async_wait<PB_STAGES - 3>();  // this thread's copies of step i have landed
-    fence_proxy_async();
-    // every thread's copies of step i are visible, and every warpgroup's
-    // products of step i - 2 are done: its stage is free
-    __syncthreads();
-    if (i + PB_STAGES - 2 < k.total) load_step<RES>(p, k, i + PB_STAGES - 2);
-    cp_async_commit();
-    const uint32_t sw = k.ring + (i % PB_STAGES) * pb_stage<RES>();
-    const uint32_t sh = (RES ? k.hres + s * PB_SLICE : sw + PB_SLICE) + k.wg * (64 * 128);
-    fence_regs(an);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < PB_KS / 16; ++kk)
-      wgmma_ss<128, 0>(an, kmajor_desc(sh, kk), kmajor_desc(sw, kk), s > 0 || kk > 0);
-    wg_commit();
-    wg_wait<1>();  // step i - 1's products are done
-  }
-  if (tl >= 1 && tl <= k.nt) {  // tile tl - 1 is one of the split's
-    const int v0 = (k.t_begin + tl - 1) * PB_VT;
-    const float* sbias = p.bias ? k.sbias + ((tl - 1) % PB_BIAS_SLOTS) * PB_VT : nullptr;
-#pragma unroll
-    for (int n = 0; n < PB_BLOCKS; ++n) fold_block<NOISE>(p, st, ac, n, v0, sbias, k.row0, k.c);
-  }
-}
-
 template <bool RES, bool NOISE>
 __global__ void __launch_bounds__(PB_THREADS, 1) proj_wgmma_kernel(const __grid_constant__ Proj p) {
   extern __shared__ unsigned char smem_raw[];
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int split = blockIdx.y, T = p.V / PB_VT;
-  Walk k;
-  k.NS = p.D / PB_KS;
-  k.hres = smem_base_1k(smem_raw);
-  k.ring = k.hres + (RES ? k.NS * PB_SLICE : 0);
-  k.sbias = reinterpret_cast<float*>(smem_raw + (k.ring - smem_u32(smem_raw)) + PB_STAGES * pb_stage<RES>());
-  k.r0 = (size_t)blockIdx.x * PB_ROWS;
-  k.t_begin = split * T / p.splits;
-  k.nt = (split + 1) * T / p.splits - k.t_begin;
-  // passes: the split's tiles, then one whose epilogue is the last tile's,
-  // rounded up to an even count (two passes a trip below)
-  const int passes = (k.nt + 2) & ~1;
-  k.total = passes * k.NS;
-  k.wg = tid >> 7;
-  k.c = lane & 3;
-  k.row0 = (int)k.r0 + k.wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const Walk k = make_walk<RES>(p, smem_raw);
+  const int split = blockIdx.y;
 
   Running st;
 #pragma unroll
@@ -327,25 +209,11 @@ __global__ void __launch_bounds__(PB_THREADS, 1) proj_wgmma_kernel(const __grid_
     st.se[half] = 0.f;
     st.id[half] = 0x7fffffff;
   }
-  float acc0[64], acc1[64];
+  auto epilogue = [&](const float (&a)[64], int v0, const float* sbias) {
 #pragma unroll
-  for (int x = 0; x < 64; ++x) acc0[x] = acc1[x] = 0.f;
-
-  // resident h: all of the block's rows, with the first step's copies
-  if (RES)
-    for (int s = 0; s < k.NS; ++s) load_slice(k.hres + s * PB_SLICE, p.h, k.r0, s * PB_KS, p.D);
-#pragma unroll
-  for (int i = 0; i < PB_STAGES - 2; ++i) {
-    load_step<RES>(p, k, i);  // a split has at least one tile: 2 NS >= PB_STAGES - 2 steps
-    cp_async_commit();
-  }
-  // two passes a trip, so each accumulator keeps its role in the code
-  for (int tl = 0; tl < passes; tl += 2) {
-    tile_pass<RES, NOISE>(p, k, st, acc0, acc1, tl);
-    tile_pass<RES, NOISE>(p, k, st, acc1, acc0, tl + 1);
-  }
-  wg_wait<0>();
-  cp_async_wait<0>();
+    for (int n = 0; n < PB_BLOCKS; ++n) fold_block<NOISE>(p, st, a, n, v0, sbias, k.row0, k.c);
+  };
+  vocab_walk<RES>(p, k, epilogue);
 
   // the quad that shares a row merges its four running states; one partial
   // per (row, split)

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run on wgmma:
 // the attention forward (flash_attention.cu: kernels 1 and 3), the
-// backward's dQ and dK/dV (flash_attention_bwd.cu: kernels 4 and 5), the
-// projection sampler (proj_sample.cu: kernel 2) and the fused CE's dh and dW
+// backward's dQ, dK/dV and dBias (flash_attention_bwd.cu: kernels 4-6), the
+// projection sampler and the fused CE forward (proj_sample.cu and fused_ce.cu
+// through vocab_gemm.cuh: kernels 2 and 7) and the fused CE's dh and dW
 // (fused_ce.cu: kernels 8 and 9).
 //
 // Tiles are 64 rows. A warpgroup (128 threads) issues each product. Thread

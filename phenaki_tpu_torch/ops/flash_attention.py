@@ -185,7 +185,7 @@ def _kernel_operands(q, k, v, bias, kmask):
 def _wgmma_route(q) -> bool:
     """True where the call goes to the bf16 wgmma forward (d = 64 or 128 on a
     card), which moves q, k, v and the bias in 16-byte copies, as the wgmma
-    dQ and dK/dV kernels (d = 64) move them and dO."""
+    dQ, dK/dV and dBias kernels (d = 64) move them and dO."""
     return q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128) and _on_card(q)
 
 
@@ -311,8 +311,8 @@ def flash_attention_backward(q, k, v, bias, kmask, out, lse, do, *, scale: float
 def _backward_kernels(q, k, v, bias, kmask, do, lse, delta, scale, causal, offsets, need_dbias):
     """dQ, then dK/dV, then dBias (when asked for and there is a bias), on
     operands as `_kernel_operands` prepared them and a contiguous dO. On the
-    wgmma route dO, which the dQ and dK/dV kernels also move in 16-byte
-    copies, is copied when it does not start on a 16-byte boundary."""
+    wgmma route dO, which the three kernels also move in 16-byte copies, is
+    copied when it does not start on a 16-byte boundary."""
     if _wgmma_route(q) and do.data_ptr() % 16:
         do = do.clone()
     args = (q, k, v, bias, kmask, do, lse, delta)

@@ -21,14 +21,19 @@ The (rows, V) logits exist only in the plain versions.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from phenaki_tpu_torch import _build
 
 MAX_DIM = 2432  # the TPU gate's VMEM bound; the kernels walk d in 512-wide slices past 512
-RESIDENT_ROWS = 32  # rows of h a forward (and f32 dh) block holds (csrc/fused_ce.cu RES)
-VOCAB_TILE = 64  # vocab ids a forward / dh block takes a step (csrc/fused_ce.cu STR, CB_ROWS)
+RESIDENT_ROWS = 32  # rows of h an f32 forward or dh block holds (csrc/fused_ce.cu RES)
+VOCAB_TILE = 64  # vocab ids an f32 forward / dh block takes a step (csrc/fused_ce.cu STR, CB_ROWS)
 BWD_ROWS = 64  # rows of h a bf16 dh block holds; dh partials are padded to it (CB_ROWS)
+# csrc/vocab_gemm.cuh's tiling: the bf16 forward's, and the projection sampler's
+GEMM_ROWS = 128  # rows of h a block owns (PB_ROWS); h is zero-padded to a multiple
+GEMM_VOCAB_TILE = 128  # vocab ids a tile (PB_VT); a vocab split is a run of tiles
 
 
 def can_fuse_ce(d: int, v: int) -> bool:
@@ -129,11 +134,30 @@ def _sm_count(device) -> int:
 
 
 def _splits(rows: int, v: int, device) -> int:
-    """Vocab splits of the forward (and the f32 dh) grid: about 8 blocks per
-    SM in all, and at least one vocab tile a split."""
+    """Vocab splits of the f32 forward and dh grids: about 8 blocks per SM in
+    all, and at least one vocab tile a split."""
     tiles = v // VOCAB_TILE
     row_blocks = -(-rows // RESIDENT_ROWS)
     return max(1, min(tiles, -(-8 * _sm_count(device) // row_blocks)))
+
+
+@functools.lru_cache(maxsize=None)
+def wave_splits(rows: int, v: int, sms: int) -> int:
+    """Vocab splits S of a csrc/vocab_gemm.cuh grid ((row tiles, S) blocks,
+    one block an SM): the bf16 forward's and the projection sampler's. The S
+    that takes the fewest tile-times, waves x (tiles a split + 1 for the
+    pipeline's fill), ties to the smaller S: 14 at 1152 rows (126 blocks,
+    one wave of 132 SMs), 11 at the flagship train's 4608 rows (396 blocks,
+    3 waves)."""
+    row_tiles, tiles = -(-rows // GEMM_ROWS), v // GEMM_VOCAB_TILE
+    cost = lambda s: -(-row_tiles * s // sms) * (-(-tiles // s) + 1)  # noqa: E731
+    return min(range(1, tiles + 1), key=lambda s: (cost(s), s))
+
+
+def _row_padded(h, tile: int):
+    """h (rows, d) with zero rows appended up to a multiple of `tile`."""
+    pad = -h.shape[0] % tile
+    return h if pad == 0 else torch.cat([h, h.new_zeros(pad, h.shape[1])])
 
 
 def dh_splits(rows: int, v: int, sms: int) -> int:
@@ -154,11 +178,17 @@ def dh_splits(rows: int, v: int, sms: int) -> int:
 
 
 def fused_ce_fwd(h, weight, bias, labels):
-    """Forward kernel on prepared CUDA operands: (loss, lse), f32 (rows,)."""
+    """Forward kernel on prepared CUDA operands: (loss, lse), f32 (rows,).
+    bf16 takes the wgmma kernel, h zero-padded to whole GEMM_ROWS tiles and
+    `wave_splits` vocab splits; f32 the CUDA-core kernel."""
     _check_kernel_shape(h, weight)
     rows, d = h.shape
     v = weight.shape[0]
-    splits = _splits(rows, v, h.device)
+    if h.dtype == torch.bfloat16:
+        splits = wave_splits(rows, v, _sm_count(h.device))
+        h = _row_padded(h, GEMM_ROWS)
+    else:
+        splits = _splits(rows, v, h.device)
     f32 = dict(dtype=torch.float32, device=h.device)
     loss, lse, label_logit = (torch.empty(rows, **f32) for _ in range(3))
     partials = torch.empty((rows, splits, 2), **f32)

@@ -28,12 +28,13 @@ from typing import Optional, Tuple
 import torch
 
 from phenaki_tpu_torch import _build
-from phenaki_tpu_torch.ops.fused_ce import _aligned
+from phenaki_tpu_torch.ops.fused_ce import GEMM_ROWS as ROW_TILE
+from phenaki_tpu_torch.ops.fused_ce import GEMM_VOCAB_TILE as VOCAB_TILE
+from phenaki_tpu_torch.ops.fused_ce import _aligned, _row_padded, wave_splits
 from phenaki_tpu_torch.ops.sampling import gumbel, uniform
 
-# csrc/proj_sample.cu's constants
-ROW_TILE = 128  # rows of h a bf16 block owns (PB_ROWS); h is zero-padded to a multiple
-VOCAB_TILE = 128  # vocab ids a bf16 tile (PB_VT); a vocab split is a run of tiles
+# csrc/proj_sample.cu's constants (the bf16 kernel's tiles, ROW_TILE and
+# VOCAB_TILE, are csrc/vocab_gemm.cuh's)
 F32_VOCAB_CHUNK = 64  # vocab ids a block of the f32 kernel (VC), one partial each
 _NPART = 5  # floats a partial: best y, id, chosen logit, max, sum-exp
 _DEFAULT_SMS = 132  # an H100 SXM's SMs, for a tensor that is not on a card
@@ -48,16 +49,12 @@ def can_fuse_projection(d: int, v: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def vocab_splits(rows: int, v: int, dtype: torch.dtype, sms: int = _DEFAULT_SMS) -> int:
-    """The kernel's vocab splits S: one partial per (row, split). bf16 picks
-    the S whose grid of (row tiles, S) blocks, one block an SM, takes the
-    fewest tile-times: waves x (tiles a split + 1 for the pipeline's fill),
-    ties to the smaller S (9 x 14 = 126 blocks at 1152 rows on 132 SMs). The
-    f32 kernel writes one partial per 64-id chunk."""
+    """The kernel's vocab splits S: one partial per (row, split). bf16 takes
+    `fused_ce.wave_splits` (9 x 14 = 126 blocks at 1152 rows on 132 SMs);
+    the f32 kernel writes one partial per 64-id chunk."""
     if dtype == torch.float32:
         return v // F32_VOCAB_CHUNK
-    row_tiles, tiles = -(-rows // ROW_TILE), v // VOCAB_TILE
-    cost = lambda s: -(-row_tiles * s // sms) * (-(-tiles // s) + 1)  # noqa: E731
-    return min(range(1, tiles + 1), key=lambda s: (cost(s), s))
+    return wave_splits(rows, v, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,10 +193,7 @@ def _kernel_operands(h, weight, bias, noise):
     if h.dtype not in _build.DTYPES or weight.dtype != h.dtype:
         raise ValueError(f"project_sample kernel takes h and weight of one dtype in {list(_build.DTYPES)}")
     rows = b * n
-    rows_pad = -(-rows // ROW_TILE) * ROW_TILE
-    flat = h.reshape(rows, d)
-    if rows_pad != rows:
-        flat = torch.cat([flat, flat.new_zeros(rows_pad - rows, d)])
+    flat = _row_padded(h.reshape(rows, d), ROW_TILE)
     if bias is not None:
         if bias.shape != (v,):
             raise ValueError(f"bias must be ({v},)")

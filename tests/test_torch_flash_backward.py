@@ -11,9 +11,10 @@ gradients, fp32, the JAX tests' own (recomputing p from the saved lse is a
 different f32 rounding path from one-shot autodiff).
 
 The card's route of the three backward entries runs here with the C
-library stubbed (`_torch_card_stub`): the operands the dQ and dK/dV kernels
-move in 16-byte copies (q, k, v, the bias and dO) reach them aligned and
-contiguous, a ring chunk's bias slice is read in place, a failing launch
+library stubbed (`_torch_card_stub`): the operands the dQ, dK/dV and dBias
+kernels move in 16-byte copies (q, k, v, the bias and dO) reach them aligned
+and contiguous, a ring chunk's bias slice is read in place where its row
+stride is a multiple of 8 and copied otherwise, a failing launch
 raises, a CPU tensor never reaches a C entry, and each launch counts once.
 """
 
@@ -243,6 +244,33 @@ def test_ring_chunk_backward_reads_its_bias_slice_in_place(monkeypatch, dacc_dty
         assert (call["q_off"], call["k_off"], call["causal"]) == (64, 0, 1)
         assert call["do"] % 16 == 0 and torch.equal(call["data"]["do"], dacc.bfloat16())
         assert torch.equal(call["data"]["bias"], rows[..., 64:128])
+
+
+@pytest.mark.parametrize("row_width", [192, 190])
+def test_bf16_dbias_reaches_its_kernel_aligned(monkeypatch, row_width):
+    """The wgmma dBias entry through a ring chunk as its Function prepares
+    it: q, k, v one element past a 16-byte boundary arrive aligned; the
+    bias slice at column 64 of (h, i, row_width) rows is read in place when
+    its row stride is a multiple of 8 (192: ldb 192), and copied into rows
+    padded to a multiple of 8 otherwise (190: ldb 64). Either way the kernel
+    reads the slice, at the chunk's global offsets."""
+    monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
+    q, k, v, _, _ = _bf16_case(64, 64, 64, seed=6)
+    rows = torch.randn(2, 64, row_width).bfloat16()
+    lib = StubLibrary()
+    ops = _on_stub(lib, fa._chunk_operands, *(_misaligned(t) for t in (q, k, v)), rows[..., 64:128],
+                   None, torch.tensor([11.5]))
+    _on_stub(lib, fa.flash_attend_chunk_backward, *ops, torch.randn(q.shape), torch.randn(q.shape[:3]),
+             scale=SCALE, causal=True, offsets=(64, 0))
+    assert [name for name, _ in lib.calls] == ["dq", "dkv", "dbias"]
+    call = lib.calls[-1][1]
+    assert all(call[key] % 16 == 0 for key in ("q", "k", "v", "bias", "do"))
+    in_place = row_width % 8 == 0
+    assert call["ldb"] == (row_width if in_place else 64) and call["ldb"] % 8 == 0
+    assert (call["bias"] == rows[..., 64:128].data_ptr()) == in_place
+    assert (call["q_off"], call["k_off"], call["causal"], call["dtype"]) == (64, 0, 1, 1)
+    for key, want in (("q", q), ("k", k), ("v", v), ("bias", rows[..., 64:128])):
+        assert torch.equal(call["data"][key], want), key
 
 
 def test_cuda_core_backward_takes_do_in_place(monkeypatch):

@@ -8,8 +8,9 @@ contract the CUDA kernels are held to on the card (chip_smoke.py): the loss
 and the gradients of h, the weight and the bias against
 `fused_vocab_cross_entropy` and `jax.value_and_grad` of a weighted mean, the
 -1 pad label, the shape gate over d up to 2560, the kernels reached for
-every gated d on a CUDA tensor (entry points stubbed), the bf16 backward's
-launch geometry (vocab splits, padded dh partials), and `Phenaki.loss`
+every gated d on a CUDA tensor (entry points stubbed), the bf16 forward's
+and backward's launch geometry (vocab splits, padded rows and partials,
+aligned operands), and `Phenaki.loss`
 through the fused branch (d = 128 and d = 768) against the JAX loss with
 its fused branch on. Tolerances, fp32: the JAX tests' own, atol
 and rtol 1e-4 on the loss and 2e-4 on the gradients (blockwise online
@@ -123,6 +124,21 @@ def test_shape_gate_matches_pallas():
     assert can_fuse_ce(2432, 65536) and not can_fuse_ce(2560, 65536)
 
 
+def _misaligned(t):
+    """A contiguous copy of `t` whose data starts one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype)
+    view = flat[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def _read(ptr, n, dtype):
+    """n elements of `dtype` at address `ptr`, copied."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return torch.frombuffer(bytearray(ctypes.string_at(ptr, n * size)), dtype=dtype).clone()
+
+
 class _StubCELibrary:
     """Records each C call of the CE kernels; writes zeros to its outputs."""
 
@@ -132,6 +148,17 @@ class _StubCELibrary:
     def fused_ce_fwd(self, h, w, bias, labels, loss, lse, label_logit, partials, rows, d, v, splits,
                      dtype, stream):
         self.calls.append(("fwd", d, v))
+        # what the kernel reads: bf16 h holds whole 128-row tiles
+        tdtype = next(t for t, code in _build.DTYPES.items() if code == dtype)
+        h_rows = -(-rows // fce.GEMM_ROWS) * fce.GEMM_ROWS if tdtype == torch.bfloat16 else rows
+        data = {"h": _read(h.value, h_rows * d, tdtype).view(h_rows, d),
+                "w": _read(w.value, v * d, tdtype).view(v, d),
+                "labels": _read(labels.value, rows, torch.int32)}
+        if bias.value:
+            data["bias"] = _read(bias.value, v, torch.float32)
+        self.geometry.append(("fwd", dict(rows=rows, splits=splits, partials=partials.value, dtype=dtype,
+                                          h=h.value, w=w.value, bias=bias.value, labels=labels.value,
+                                          data=data)))
         for out in (loss, lse):
             ctypes.memset(out.value, 0, 4 * rows)
         return 0
@@ -213,6 +240,60 @@ def test_bf16_backward_launch_geometry(monkeypatch):
     for kernel in (fce.fused_ce_bwd_dh, fce.fused_ce_bwd_dw):
         with pytest.raises(ValueError, match="do not take"):
             kernel(*args)
+    assert len(lib.geometry) == 2
+
+
+def test_bf16_forward_launch_geometry(monkeypatch):
+    """On a (stubbed) card with 132 SMs, 1000 rows (no whole 128-row tile)
+    of misaligned bf16 h, weight, bias and labels reach the bf16 forward
+    16-byte aligned, h zero-padded to 1024 rows, with the vocab splits that
+    fill whole waves of one block an SM (8 row tiles x 16 splits = 128
+    blocks, one wave) and a (1000, 16, 2) f32 partial buffer. The flagship
+    train rows (4608, 36 tiles) take 11 splits (3 waves) and no padding
+    copy. The kernels take a vocab of 512-wide blocks (csrc/fused_ce.cu
+    `shape_ok`): V = 1088, a multiple of 64 (what its C entry once took)
+    but not of 512, is refused before the card."""
+    lib = _StubCELibrary()
+    monkeypatch.setattr(fce, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(fce, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda device: ctypes.c_void_p(0))
+    allocated, empty = [], torch.empty
+
+    def spy_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        allocated.append((t.data_ptr(), tuple(t.shape), t.dtype))
+        return t
+
+    rows, d, v = 1000, 256, 4096
+    rng = np.random.RandomState(7)
+    h = torch.from_numpy(rng.randn(rows, d).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.randn(v, d).astype(np.float32)).bfloat16()
+    bias = torch.from_numpy(rng.randn(v).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(-1, v, rows).astype(np.int32))
+    monkeypatch.setattr(fce.torch, "empty", spy_empty)
+    loss = fused_vocab_cross_entropy(*(_misaligned(t) for t in (h, w, bias, labels)))
+    assert loss.shape == (rows,) and loss.dtype == torch.float32
+    (kind, call), = lib.geometry
+    assert kind == "fwd" and call["dtype"] == _build.DTYPES[torch.bfloat16]
+    assert fce.wave_splits(rows, v, 132) == 16 and call["rows"] == rows and call["splits"] == 16
+    assert {ptr: (shape, dtype) for ptr, shape, dtype in allocated}[call["partials"]] == (
+        (rows, 16, 2), torch.float32)
+    assert all(call[key] % 16 == 0 for key in ("h", "w", "bias", "labels"))
+    staged = call["data"]
+    assert staged["h"].shape == (1024, d) and torch.equal(staged["h"][:rows], h)
+    assert not staged["h"][rows:].any()
+    for key, want in (("w", w), ("bias", bias), ("labels", labels)):
+        assert torch.equal(staged[key], want), key
+
+    flagship = torch.zeros(4608, d, dtype=torch.bfloat16)
+    fce.fused_ce_fwd(flagship, w, None, torch.zeros(4608, dtype=torch.int32))
+    assert lib.geometry[-1][1]["splits"] == fce.wave_splits(4608, v, 132)
+    assert fce.wave_splits(4608, 65536, 132) == 11
+    assert lib.geometry[-1][1]["h"] == flagship.data_ptr()  # whole tiles: no padding copy
+    wide_vocab = torch.zeros(1088, d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="do not take"):
+        fce.fused_ce_fwd(h, wide_vocab, None, labels)
     assert len(lib.geometry) == 2
 
 
