@@ -9,6 +9,10 @@ and without a critic, on one NVIDIA GPU.
                                                   # flagship sample (rank 0) written to OUT.txt
     python3 chip_smoke.py --profile-sample OUT.txt # and a profile of three b = 1 flagship
                                                   # samples written to OUT.txt
+    python3 chip_smoke.py --profile-scene OUT.txt  # and a profile of three primed flagship
+                                                  # scenes (16 frames after 5) written to OUT.txt
+    python3 chip_smoke.py --profile-tokenize OUT.txt  # and a profile of three B = 32
+                                                  # tokenize calls written to OUT.txt
 
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc (and
 checks that the SASS of the bf16 attention forward, its dQ, dK/dV and dBias
@@ -17,13 +21,24 @@ kernels holds wgmma), holds each
 kernel against its plain PyTorch version at the flagship shapes (the
 flash-attention forward and its three backward kernels, the projection
 sampler, the fused cross-entropy forward and its two backward kernels, the
-logits-path sampler), checks small fp32 models sampled and trained on the
+logits-path sampler; the attention forward also at the C-ViViT encoder's
+tokenize shape and the primed MaskGit's, the projection sampler also on
+the strided scene rows of primed embeddings), checks small fp32 models sampled and trained on the
 card against the same models on the CPU (with and without a critic, and on
 the logits path), and drives the flagship model (random weights from a
 seed) through its entry points: `flagship_phenaki(...).sample(...)` plain,
 with a TokenCritic and with a SelfCritic; the logits path of
 `maskgit_sample_loop`; and `PhenakiTrainer(...).train_step()` on seeded
 random token ids, without a critic and with a TokenCritic. Then the
+primed flagship (`flagship_phenaki(num_frames=21)`): `CViViT.tokenize` of
+B = 32 videos of 17 x 256 x 128 (videos/s over two windows of back-to-back
+calls, the median call, peak memory; an f32 copy of the C-ViViT on the card
+against one on the CPU), `make_video` of 17 hash-encoded texts into 273
+frames, each scene after the first primed with the last 5 frames of the one
+before (the seconds of two bare calls; seconds, prime tokenize ms and
+launches a scene from an instrumented pass between them), and
+`sample_images`.
+Then the
 sequence-parallel paths on SP = 2 spawned ranks (NCCL with a GPU a rank
 when there are enough cards, otherwise gloo with both ranks on the one
 card): kernel 3 (the ring chunk) and the offset backward kernels against
@@ -84,6 +99,21 @@ LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18}
 TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
 CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1)
 TRAIN_BATCH, TRAIN_STEPS, CRITIC_TRAIN_STEPS = 4, 5, 3
+# the tokenize path: the flagship C-ViViT on B = 32 videos of 17 frames; a
+# call launches kernel 1 once for each of the encoder's 4 spatial layers
+# (its temporal attention, over 9 latent frames, takes the plain path)
+TOKENIZE_BATCH, TOKENIZE_CALLS = 32, 5
+TOKENIZE_LAUNCHES = {"fwd": 4}
+# the long video: 17 scenes, the first of 17 frames, each later one 16 new
+# frames primed with the previous scene's last 5 (3 latent frames, 384
+# tokens, in front of the scene's 1024). Scene 1 launches what a 17-frame
+# sample does; a primed scene adds the prime's tokenize (4 encoder spatial
+# layers), and its decode of 11 latent frames is one call a spatial layer
+LONG_VIDEO_FRAMES = (17,) + (16,) * 16
+LONG_VIDEO_PRIME = 5
+PRIMED_SCENE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4 + 4, "proj": 18}
+# sample_images: one latent frame of 128 tokens, decoded by one frame
+IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18}
 # the sequence-sharded flagship over SP ranks (1152 / 2 = 576 rows a rank):
 # a sample launches, on each rank, 2 ring chunks (kernel 3) for each of the 6
 # MaskGit self-attention layers on each of the 18 steps; cross-attention (6 x
@@ -182,13 +212,15 @@ def qk(shape, gen, dtype):
 
 # kernel 1's main-path shapes: each is timed beside its bound and one SDPA
 # call on the same inputs
-FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self")
+FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self",
+                     "cvivit_encode_spatial_b32", "maskgit_self_primed")
 
 
 def flash_cases(torch, dtype, gen):
     """The flagship shapes at b = 1 (CFG stacks 2 rows): MaskGit
     self-attention with the CPB bias, the TokenCritic's self-attention
-    without one, cross-attention, the C-ViViT's spatial attention; the
+    without one, cross-attention, the C-ViViT's spatial attention, its
+    encoder's at tokenize B = 32, the primed MaskGit self-attention; the
     cross-attention with every key of one batch row hard-masked (out = 0,
     lse = -inf), a causal case, ragged tiles (i = j = 1000 with a bias), and
     d = 128 with ragged tiles."""
@@ -213,6 +245,17 @@ def flash_cases(torch, dtype, gen):
     qs, ks = qk((9, 8, 128, 64), gen, dtype), qk((9, 8, 128, 64), gen, dtype)
     vs = torch.randn(9, 8, 128, 64, generator=gen).to("cuda", dtype)
     cases["cvivit_spatial"] = (qs, ks, vs, torch.randn(8, 128, 128, generator=gen).to("cuda", dtype), None, False)
+    # the C-ViViT encoder's spatial attention at tokenize B = 32 (9 latent
+    # frames a video), and the MaskGit's self-attention over a primed scene
+    # (384 prime + 1024 scene tokens)
+    qe, ke = qk((288, 8, 128, 64), gen, dtype), qk((288, 8, 128, 64), gen, dtype)
+    ve = torch.randn(288, 8, 128, 64, generator=gen).to("cuda", dtype)
+    cases["cvivit_encode_spatial_b32"] = (qe, ke, ve, torch.randn(8, 128, 128, generator=gen).to("cuda", dtype),
+                                          None, False)
+    qp, kp = qk((2, 8, 1408, 64), gen, dtype), qk((2, 8, 1408, 64), gen, dtype)
+    vp = torch.randn(2, 8, 1408, 64, generator=gen).to("cuda", dtype)
+    cases["maskgit_self_primed"] = (qp, kp, vp, torch.randn(8, 1408, 1408, generator=gen).to("cuda", dtype),
+                                    None, False)
     qa, ka = qk((2, 8, 256, 64), gen, dtype), qk((2, 8, 320, 64), gen, dtype)
     va = torch.randn(2, 8, 320, 64, generator=gen).to("cuda", dtype)
     cases["causal_alibi"] = (qa, ka, va, alibi_bias(8, 256, 320, device="cuda").to(dtype), None, True)
@@ -870,6 +913,46 @@ def check_proj(torch):
     return result
 
 
+def check_proj_primed_slice(torch):
+    """Kernel 2 on the scene rows of primed embeddings, as the primed decode
+    loop calls it: h[:, 384:] of (b, 1408, 512) bf16. At b = 1 the slice is
+    contiguous (an offset view, read in place); at b = 2 it is strided and
+    the wrapper copies its rows. Ids and scores against the plain version on
+    injected noise; `ms` is the Philox call on the slice (any copy
+    included), `contiguous_ms` the same call on a contiguous copy, `copy_ms`
+    the copy alone. Returns the b = 1 numbers, the main path's, with b = 2's
+    under "b2"."""
+    from phenaki_tpu_torch.ops.fused_sampling import project_sample, project_sample_plain
+
+    gen = torch.Generator().manual_seed(4)
+    d, v, prime, n, temp = 512, 65536, 384, 1024, 0.85
+    w = ((torch.rand(v, d, generator=gen) * 2 - 1) * 16 / d**0.5).to("cuda", torch.bfloat16)
+    bias = ((torch.rand(v, generator=gen) * 2 - 1) / d**0.5).cuda()
+    result = {}
+    for b in (1, 2):
+        h = torch.randn(b, prime + n, d, generator=gen).to("cuda", torch.bfloat16)[:, prime:]
+        noise = torch.rand(b, n, v, generator=gen).cuda()
+        ids, score = project_sample(h, w, bias, temp, noise=noise)
+        ref_ids, ref_score = project_sample_plain(h, w, bias, temp, noise=noise)
+        torch.cuda.synchronize()
+        same = ids == ref_ids
+        agree = same.float().mean().item()
+        err = (score - ref_score)[same].abs().max().item()
+        hc, gseed = h.contiguous(), torch.Generator().manual_seed(7)
+        numbers = dict(ms=cuda_ms(lambda: project_sample(h, w, bias, temp, generator=gseed), reps=10),
+                       contiguous_ms=cuda_ms(lambda: project_sample(hc, w, bias, temp, generator=gseed),
+                                             reps=10),
+                       copy_ms=cuda_ms(lambda: h.contiguous(), reps=10))
+        numbers["bound_ms"], numbers["bound_by"] = bound(nbytes(hc, w, bias) + b * n * 8, 2 * b * n * d * v)
+        phase(f"project_sample primed_slice b{b}", rows=b * n, d=d, vocab=v,
+              contiguous_input=h.is_contiguous(), id_agreement=agree, score_max_abs_err=err, **numbers)
+        check(h.is_contiguous() == (b == 1), f"primed slice b{b}: contiguous is {h.is_contiguous()}")
+        check(agree >= 0.999, f"project_sample primed_slice b{b}: ids agree on {agree} < 0.999 of rows")
+        check(err <= 1e-4, f"project_sample primed_slice b{b}: score err {err} > 1e-4")
+        result[f"b{b}"] = dict(max_abs_err=err, id_agreement=agree, **numbers)
+    return dict(result["b1"], b2=result["b2"])
+
+
 def check_gumbel_kernel(torch):
     """`gumbel_sample_with_score` (kernel 10) against its plain version with
     injected noise: the stacked CFG logits of a flagship logits-path decode
@@ -1051,11 +1134,11 @@ def device_shares(torch, events, kernel="flash_fwd_wgmma"):
     return device_ms, kernel_ms
 
 
-def profile_samples(torch, sample, path, n=3):
+def profile_samples(torch, sample, path, n=3, label="sample profile"):
     """`torch.profiler` over `n` more b = 1 flagship samples (the path has
     warmed up), written to `path`: device time by kernel and operator. The
-    phase line gives device and wall milliseconds a sample, the idle share
-    (1 - device / wall) and kernel 1's device time and share."""
+    phase line (`label`) gives device and wall milliseconds a sample, the
+    idle share (1 - device / wall) and kernel 1's device time and share."""
     from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile
@@ -1074,7 +1157,7 @@ def profile_samples(torch, sample, path, n=3):
     Path(path).write_text(
         events.table(sort_by="self_device_time_total", row_limit=50, max_name_column_width=100)
         + "\n" + events.table(sort_by="cpu_time_total", row_limit=40, max_name_column_width=100))
-    phase("sample profile", path=str(path), samples=n, device_ms_per_sample=device_ms,
+    phase(label, path=str(path), samples=n, device_ms_per_sample=device_ms,
           wall_ms_per_sample=wall_ms, idle=1 - device_ms / wall_ms, flash_fwd_ms_per_sample=flash_ms,
           flash_fwd_share=flash_ms / device_ms)
 
@@ -1113,6 +1196,218 @@ def run_sample_paths(torch, profile_path=None):
                                                           LOGITS_SAMPLE_LAUNCHES)
         del ph
         torch.cuda.empty_cache()
+    return paths
+
+
+def timed(torch, fn):
+    """(fn's result, host seconds of fn ending in a synchronise)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def run_tokenize_path(torch, cvivit, card, profile_path=None):
+    """`CViViT.tokenize` of the seeded flagship C-ViViT (bf16) on B = 32
+    seeded uniform videos of 17 x 256 x 128. After a warm-up call, a window
+    of `TOKENIZE_CALLS` calls back to back, synchronised only at its ends,
+    gives the path's launches, exactly `TOKENIZE_LAUNCHES` a call. Then as
+    many calls each timed alone give the median s a call, each with exact
+    launches and ids (32, 9, 16, 8) in [0, 65536); then a second window.
+    videos/s is B x calls over the two windows' seconds, each window's
+    beside it (the first comes straight after the warm-up, so the two show
+    whether order moves it). Then the kernel route against the plain
+    one: the weights copied into an f32 C-ViViT on the card and one on the
+    CPU, the full forward of two of the videos through both. With
+    `profile_path`, three more calls are profiled (`profile_samples`)."""
+    import copy
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    videos = torch.rand(TOKENIZE_BATCH, 17, 256, 128, 3, generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cvivit.tokenize(videos)  # warm-up
+    reset_kernel_counts()
+    window_s = [timed(torch, lambda: [cvivit.tokenize(videos) for _ in range(TOKENIZE_CALLS)])[1]]
+    launches = kernel_counts()
+    window = {k: v * TOKENIZE_CALLS for k, v in TOKENIZE_LAUNCHES.items()}
+    check(launches == exact(window), f"tokenize: launches {nonzero(launches)} != {window}")
+    seconds = []
+    for _ in range(TOKENIZE_CALLS):
+        before = kernel_counts()
+        ids, s = timed(torch, lambda: cvivit.tokenize(videos))
+        seconds.append(s)
+        counts = launched_since(before)
+        check(counts == exact(TOKENIZE_LAUNCHES), f"tokenize: launches {nonzero(counts)} != {TOKENIZE_LAUNCHES}")
+    check(tuple(ids.shape) == (TOKENIZE_BATCH, 9, 16, 8), f"tokenize: ids shape {tuple(ids.shape)}")
+    check(0 <= ids.min().item() and ids.max().item() < 65536, "tokenize: ids out of the codebook")
+    window_s.append(timed(torch, lambda: [cvivit.tokenize(videos) for _ in range(TOKENIZE_CALLS)])[1])
+    per_call = statistics.median(seconds)
+    phase("tokenize path", card=card, batch=TOKENIZE_BATCH, frames=17, calls_per_window=TOKENIZE_CALLS,
+          window_s=window_s, vids_per_s=TOKENIZE_BATCH * TOKENIZE_CALLS * len(window_s) / sum(window_s),
+          window_vids_per_s=[TOKENIZE_BATCH * TOKENIZE_CALLS / w for w in window_s],
+          median_seconds_per_call=per_call, median_call_vids_per_s=TOKENIZE_BATCH / per_call,
+          seconds_per_call=seconds, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+          distinct_ids=ids.unique().numel(), launches=nonzero(launches))
+    if profile_path:
+        profile_samples(torch, lambda emb, gen: cvivit.tokenize(videos), profile_path, label="tokenize profile")
+
+    # the kernel route (f32 flash on the card) against the plain one (CPU)
+    small = videos[:2]
+    mods = {"cuda": copy.deepcopy(cvivit).float(), "cpu": copy.deepcopy(cvivit).float().cpu()}
+    out = {}
+    with torch.no_grad():
+        for device, mod in mods.items():
+            x = small.to(device)
+            z = mod.vq.pre_sign(mod.encode(mod._to_patch_tokens(x)).reshape(2, -1, 512))
+            recon, ids2, aux = mod(x)
+            out[device] = dict(z=z.cpu(), recon=recon.cpu(), ids=ids2.cpu(), aux=aux.item())
+        same_ids = out["cpu"]["ids"].to("cuda")
+        decoded = {device: mod.decode_from_codebook_indices(same_ids.to(device)).cpu()
+                   for device, mod in mods.items()}
+    agree = (out["cuda"]["ids"] == out["cpu"]["ids"]).float().mean().item()
+    z_err = (out["cuda"]["z"] - out["cpu"]["z"]).abs().max().item()
+    recon_err = (out["cuda"]["recon"] - out["cpu"]["recon"]).abs().max().item()
+    decode_err = (decoded["cuda"] - decoded["cpu"]).abs().max().item()
+    aux_rel = abs(out["cuda"]["aux"] - out["cpu"]["aux"]) / max(abs(out["cpu"]["aux"]), 1e-6)
+    phase("tokenize f32 card vs cpu", batch=2, id_agreement=agree, z_max_abs_err=z_err,
+          recon_max_abs_err=recon_err, decode_same_ids_max_abs_err=decode_err, aux_loss_rel_err=aux_rel)
+    check(agree >= 0.999, f"tokenize: card and CPU ids agree on {agree} < 0.999")
+    check(z_err <= 1e-3, f"tokenize: pre-sign activations differ by {z_err} > 1e-3")
+    check(decode_err <= 1e-3, f"tokenize: decode of the same ids differs by {decode_err} > 1e-3")
+    check(agree < 1.0 or recon_err <= 1e-3, f"tokenize: recon differs by {recon_err} > 1e-3 on equal ids")
+    check(aux_rel <= 1e-4, f"tokenize: aux loss differs by {aux_rel} relative")
+    del videos, mods
+    return launches
+
+
+LONG_VIDEO_TEXTS = [f"scene {k}: a red ball rolls across a green field and turns {k} times"
+                    for k in range(len(LONG_VIDEO_FRAMES))]
+
+
+def run_long_video_path(torch, ph, profile_path=None):
+    """`make_video` over 17 hash-encoded texts, 17 + 16 x 16 = 273 frames of
+    256 x 128, each scene after the first primed with the last 5 frames of
+    the one before, after a two-scene warm-up. The timed pass is the bare
+    call, synchronised only at its ends: its seconds and the path's
+    launches, exactly `SAMPLE_LAUNCHES` + 16 x `PRIMED_SCENE_LAUNCHES`; the
+    video is (1, 273, 256, 128, 3) and finite. A second pass with the same
+    seed reads each scene's host seconds, its prime's tokenize milliseconds
+    and its launches around `Phenaki.sample` and `CViViT.tokenize` (the
+    functions make_video calls; each read synchronises): scene 1 launches
+    exactly `SAMPLE_LAUNCHES`, each primed scene `PRIMED_SCENE_LAUNCHES`.
+    A third pass, bare again, times the call once more (the first comes
+    straight after the warm-up); frames/s is the frames of the two bare
+    passes over their seconds. All three give the same video.
+    With `profile_path`, three more primed scenes (the video's last 5
+    frames as their prime) are profiled (`profile_samples`)."""
+    from phenaki_tpu_torch.models.phenaki import make_video
+
+    def run(n_scenes, seed):
+        return make_video(ph, LONG_VIDEO_TEXTS[:n_scenes], num_frames=LONG_VIDEO_FRAMES[:n_scenes],
+                          prime_lengths=LONG_VIDEO_PRIME, cond_scale=5.0,
+                          generator=torch.Generator().manual_seed(seed))
+
+    run(2, 30)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    (video, parts), seconds = timed(torch, lambda: run(len(LONG_VIDEO_FRAMES), 31))
+    launches = kernel_counts()
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_primed = len(LONG_VIDEO_FRAMES) - 1
+    whole = {k: SAMPLE_LAUNCHES.get(k, 0) + n_primed * PRIMED_SCENE_LAUNCHES.get(k, 0)
+             for k in SAMPLE_LAUNCHES.keys() | PRIMED_SCENE_LAUNCHES.keys()}
+    check(launches == exact(whole), f"long video: launches {nonzero(launches)} != {whole}")
+    frames = sum(LONG_VIDEO_FRAMES)
+    check(len(parts) == len(LONG_VIDEO_FRAMES), f"long video: {len(parts)} scenes sampled")
+    check(tuple(video.shape) == (1, frames, 256, 128, 3), f"long video: shape {tuple(video.shape)}")
+    check(torch.isfinite(video).all().item(), "long video: non-finite values")
+
+    # the instrumented pass: each scene and each prime tokenize timed alone
+    sample, tokenize = ph.sample, ph.cvivit.tokenize
+    scenes, tokenize_s = [], []
+
+    def timed_tokenize(video):
+        ids, s = timed(torch, lambda: tokenize(video))
+        tokenize_s.append(s)
+        return ids
+
+    def timed_sample(**kw):
+        before, primes = kernel_counts(), len(tokenize_s)
+        video, s = timed(torch, lambda: sample(**kw))
+        scenes.append(dict(seconds=s, prime_tokenize_ms=sum(tokenize_s[primes:]) * 1e3,
+                           launches=launched_since(before)))
+        return video
+
+    ph.sample, ph.cvivit.tokenize = timed_sample, timed_tokenize
+    try:
+        traced, _ = run(len(LONG_VIDEO_FRAMES), 31)
+    finally:
+        del ph.sample, ph.cvivit.tokenize
+    for k, scene in enumerate(scenes):
+        per_scene = SAMPLE_LAUNCHES if k == 0 else PRIMED_SCENE_LAUNCHES
+        phase(f"long video scene {k + 1}", frames=parts[k].shape[1], seconds=scene["seconds"],
+              prime_tokenize_ms=scene["prime_tokenize_ms"], launches=nonzero(scene["launches"]))
+        check(scene["launches"] == exact(per_scene),
+              f"long video scene {k + 1}: launches {nonzero(scene['launches'])} != {per_scene}")
+    (again, _), seconds2 = timed(torch, lambda: run(len(LONG_VIDEO_FRAMES), 31))
+    phase("long video path", scenes=len(parts), frames=frames, seconds=[seconds, seconds2],
+          frames_per_s=2 * frames / (seconds + seconds2), instrumented_seconds=sum(x["seconds"] for x in scenes),
+          seconds_per_scene=[x["seconds"] for x in scenes],
+          median_primed_scene_s=statistics.median(x["seconds"] for x in scenes[1:]),
+          peak_mem_gb=peak_mem_gb, video_mean=video.float().mean().item(),
+          video_std=video.float().std().item(), launches=nonzero(launches))
+    check(len(scenes) == len(LONG_VIDEO_FRAMES), f"long video: {len(scenes)} scenes in the instrumented pass")
+    check(torch.equal(traced, video) and torch.equal(again, video), "long video: a pass gave another video")
+    del traced, again
+    if profile_path:
+        prime = video[:, -LONG_VIDEO_PRIME:]
+        profile_samples(torch, lambda emb, gen: ph.sample(num_frames=16, text_embeds=emb, prime_frames=prime,
+                                                          cond_scale=5.0, generator=gen),
+                        profile_path, label="primed scene profile")
+    return launches
+
+
+def run_sample_images_path(torch, ph):
+    """`Phenaki.sample_images` at b = 1 from a text, after a warm-up: each
+    call launches exactly `IMAGE_LAUNCHES` and gives a finite (1, 256, 128,
+    3) image; the same seed gives the same image."""
+    text = "a red ball on green grass"
+    ph.sample_images(texts=text, cond_scale=5.0, generator=torch.Generator().manual_seed(40))
+    reset_kernel_counts()
+    images, seconds = [], []
+    for seed in (41, 42, 41):
+        before = kernel_counts()
+        image, s = timed(torch, lambda: ph.sample_images(texts=text, cond_scale=5.0,
+                                                         generator=torch.Generator().manual_seed(seed)))
+        counts = launched_since(before)
+        check(counts == exact(IMAGE_LAUNCHES), f"sample_images: launches {nonzero(counts)} != {IMAGE_LAUNCHES}")
+        check(tuple(image.shape) == (1, 256, 128, 3), f"sample_images: shape {tuple(image.shape)}")
+        check(torch.isfinite(image).all().item(), "sample_images: non-finite values")
+        images.append(image)
+        seconds.append(s)
+    launches = kernel_counts()
+    phase("sample_images path", batch=1, seconds=seconds, launches=nonzero(launches))
+    check(torch.equal(images[0], images[2]), "sample_images: the same seed gave another image")
+    return launches
+
+
+def run_long_video_paths(torch, card, tokenize_profile=None, scene_profile=None):
+    """The primed flagship (`flagship_phenaki(num_frames=21)`: max_seq_len
+    11 x 128 = 1408, a 5-frame prime and a 16-frame scene): its C-ViViT's
+    tokenize path, the 17-scene long video and `sample_images`. Returns
+    each path's launches. The profiles as for `run_tokenize_path` and
+    `run_long_video_path`."""
+    from phenaki_tpu_torch.presets import flagship_phenaki
+
+    ph, s = timed(torch, lambda: flagship_phenaki(seed=0, device="cuda", num_frames=21))
+    phase("primed model", build_model_s=s)
+    paths = {"tokenize": run_tokenize_path(torch, ph.cvivit, card, tokenize_profile)}
+    torch.cuda.empty_cache()
+    paths["long_video"] = run_long_video_path(torch, ph, scene_profile)
+    paths["sample_images"] = run_sample_images_path(torch, ph)
+    del ph
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -1678,6 +1973,7 @@ def main() -> int:
     chunk = check_chunk(torch)["flagship_other_shard_bfloat16"]
     check_chunk_bwd(torch)
     proj = check_proj(torch)["d512_bfloat16"]
+    proj_slice = check_proj_primed_slice(torch)
     ce = check_fused_ce(torch)["train_bfloat16"]
     gumbel = check_gumbel_kernel(torch)["stacked_bfloat16"]
     check_small_model(torch)
@@ -1688,6 +1984,9 @@ def main() -> int:
     args = sys.argv[1:]
     sample_profile = args[args.index("--profile-sample") + 1] if "--profile-sample" in args else None
     paths = run_sample_paths(torch, sample_profile)
+    tokenize_profile = args[args.index("--profile-tokenize") + 1] if "--profile-tokenize" in args else None
+    scene_profile = args[args.index("--profile-scene") + 1] if "--profile-scene" in args else None
+    paths.update(run_long_video_paths(torch, card, tokenize_profile, scene_profile))
     profile_path = args[args.index("--profile-train") + 1] if "--profile-train" in args else None
     paths["train"] = run_train_path(torch, "train path", TRAIN_PER_STEP, TRAIN_STEPS, profile_path)
     paths["token_critic_train"] = run_train_path(torch, "token critic train path", CRITIC_TRAIN_PER_STEP,
@@ -1719,7 +2018,7 @@ def main() -> int:
         dict(name="proj_sample", route="cuda", source=PROJ_SRC, replaces=PROJ_TPU,
              launches=launches["proj"], **{k: proj[k] for k in keys},
              **{k: proj[k] for k in ("graph_ms", "ms_philox", "graph_ms_philox", "bound_ms_philox",
-                                     "bound_by_philox", "matmul_ms")}),
+                                     "bound_by_philox", "matmul_ms")}, primed_slice=proj_slice),
         dict(name="gumbel_sample", route="cuda", source=GUMBEL_SRC, replaces=GUMBEL_TPU,
              launches=launches["gumbel"], ms_philox=gumbel["ms_philox"], **{k: gumbel[k] for k in keys}),
     ]

@@ -17,7 +17,13 @@ flax params), so this module needs no JAX. Mapping rules:
 
 The same rules load a TokenCritic's tree and a SelfCritic's `{"to_pred"}`
 head; `load_phenaki_params` takes the `{"maskgit", "critic"}` dict of the
-TPU package's `Phenaki.init`.
+TPU package's `Phenaki.init`, and `load_cvivit_variables` a C-ViViT's whole
+variables, `{"params", "vq_stats"}`: a cosine VQ keeps its codebook in the
+`vq_stats` collection (`codebook` -> the `embed` buffer, `cluster_size`).
+
+Loading is strict both ways: every parameter and buffer of the module must
+have an entry, and every entry must land in the module. No tree the TPU
+package builds for a ported module carries an entry the port drops.
 """
 
 from __future__ import annotations
@@ -76,22 +82,40 @@ def _map_leaves(tree, fn):
     return {k: _map_leaves(v, fn) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
 
 
+def _listed(names) -> str:
+    return f"{names[:8]}{' ...' if len(names) > 8 else ''}"
+
+
 @torch.no_grad()
 def load_flax_params(module: nn.Module, tree: Mapping) -> nn.Module:
-    """Copy a flax param tree into `module`. Entries the module does not have
-    (the C-ViViT encoder, for the decode-only port) are ignored; a parameter
-    of the module with no entry, or a shape mismatch, raises."""
+    """Copy a flax param tree into `module`. A parameter or buffer of the
+    module with no entry, an entry that lands nowhere in the module, or a
+    shape mismatch raises."""
     sd = flax_to_state_dict(tree)
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     if missing:
-        raise KeyError(f"flax tree lacks {missing[:8]}{' ...' if len(missing) > 8 else ''}")
+        raise KeyError(f"flax tree lacks {_listed(missing)}")
+    unused = sorted(set(sd) - set(own))
+    if unused:
+        raise KeyError(f"flax entries land nowhere in {type(module).__name__}: {_listed(unused)}")
     for name, target in own.items():
         src = sd[name]
         if tuple(src.shape) != tuple(target.shape):
             raise ValueError(f"{name}: flax {tuple(src.shape)} vs port {tuple(target.shape)}")
         target.copy_(src.to(target.dtype))
     return module
+
+
+def load_cvivit_variables(cvivit, variables: Mapping):
+    """Copy the TPU package's C-ViViT variables, `{"params": ...}` and, for a
+    cosine VQ, `{"vq_stats": {"vq": {"codebook", "cluster_size"}}}`, into a
+    port `CViViT`."""
+    tree = dict(variables["params"])
+    if "vq_stats" in variables:
+        stats = variables["vq_stats"]["vq"]
+        tree["vq"] = {"embed": stats["codebook"], "cluster_size": stats["cluster_size"]}
+    return load_flax_params(cvivit, tree)
 
 
 def load_phenaki_params(phenaki, params: Mapping):

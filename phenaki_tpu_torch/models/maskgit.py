@@ -61,6 +61,15 @@ def _with_cond_scale(forward: Callable[..., torch.Tensor], x, *, cond_scale: flo
     return null + (cond - null) * cond_scale
 
 
+def _check_seq_len(n: int, max_seq_len: int) -> None:
+    """The position table covers `max_seq_len` tokens: a primed scene needs
+    it to cover the prime tokens and the scene's."""
+    if n > max_seq_len:
+        raise ValueError(f"sequence length {n} exceeds max_seq_len {max_seq_len} — when sampling"
+                         " with prime frames, max_seq_len must cover the prime tokens plus the new"
+                         " scene's tokens")
+
+
 def _cond_dropout(text_mask, cond_drop_prob: float, b: int, generator, device):
     """Whole-sample conditioning dropout for CFG: drop each sample's text
     with probability `cond_drop_prob`, drawn from `generator`."""
@@ -115,8 +124,7 @@ class MaskGit(nn.Module):
         if video_patch_shape is None:
             raise ValueError("video patch shape must be given")
         b, n = x.shape
-        if n > self.max_seq_len:
-            raise ValueError(f"sequence length {n} exceeds max_seq_len {self.max_seq_len}")
+        _check_seq_len(n, self.max_seq_len)
         rel_pos_bias = attn_bias if attn_bias is not None else self.rel_pos_bias(video_patch_shape)
         if self.unconditional:
             context = text_mask = None
@@ -195,6 +203,7 @@ class TokenCritic(nn.Module):
         if video_patch_shape is None:
             raise ValueError("video patch shape must be given")
         b, n = x.shape
+        _check_seq_len(n, self.max_seq_len)
         if not self.has_cross_attn:
             context = text_mask = None
         if context is not None:

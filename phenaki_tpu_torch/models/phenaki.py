@@ -1,13 +1,18 @@
-"""Phenaki: text-to-video sampling and the MaskGit + critic training loss
-(counterpart of phenaki_tpu/models/phenaki.py: `Phenaki.sample` without
-prime frames, and `Phenaki.loss` on pre-tokenized video ids; text comes in
-as `text_embeds`).
+"""Phenaki: text-to-video sampling, prime-frame continuation, long videos
+and the MaskGit + critic training loss (counterpart of
+phenaki_tpu/models/phenaki.py: `Phenaki.sample`, `sample_images`,
+`make_video`, and `Phenaki.loss` on pre-tokenized video ids).
 
-A sample: pad the text embeddings to `max_text_len` (text mask = rows that
-are not all zero) -> the MaskGit 3-D position bias, computed once -> the
-18-step decode loop (CFG in embedding space, `to_logits` feeding the
-projection sampler; with a critic, the critic's CFG-combined logits score
-the tokens for the re-mask) -> C-ViViT decode of the ids to video.
+A sample: the texts through the text encoder (`embed_texts`), or given
+text embeddings, padded to `max_text_len` (text mask = rows that are not
+all zero) -> the prime frames, if any, tokenized by the C-ViViT in eval
+mode -> the MaskGit 3-D position bias over the primed patch grid, computed
+once -> the 18-step decode loop over the scene's tokens with the prime ids
+in front (CFG in embedding space, `to_logits` feeding the projection
+sampler; with a critic, the critic's CFG-combined logits score the tokens
+for the re-mask) -> C-ViViT decode of the prime and scene ids to video, the
+prime's frames dropped. `make_video` chains scenes, each primed with the
+last frames of the one before.
 
 The loss: a random step per sample gives the cosine mask fraction, that
 many valid tokens are replaced by the mask id, and the masked tokens'
@@ -27,7 +32,7 @@ tokens differ from the video's.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -39,18 +44,21 @@ from phenaki_tpu_torch.models.sampling_loop import maskgit_sample_loop
 from phenaki_tpu_torch.ops.fused_ce import can_fuse_ce, fused_vocab_cross_entropy
 from phenaki_tpu_torch.ops.fused_sampling import project_sample
 from phenaki_tpu_torch.ops.sampling import get_mask_subset_with_prob, gumbel_sample, uniform
+from phenaki_tpu_torch.text.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 
 
 class Phenaki:
-    def __init__(self, *, maskgit: MaskGit, cvivit: CViViT, text_embed_dim: int,
-                 steps: int = 18, max_text_len: int = 128, cond_drop_prob: float = 0.25,
+    def __init__(self, *, maskgit: MaskGit, cvivit: CViViT, t5_name: str = DEFAULT_T5_NAME,
+                 text_embed_dim: Optional[int] = None, steps: int = 18, max_text_len: int = 128,
+                 cond_drop_prob: float = 0.25,
                  critic: Optional[TokenCritic] = None, self_token_critic: bool = False,
                  critic_loss_weight: float = 1.0, critic_noise_anneal_schedule: str = "decay",
                  critic_train_sample_temperature: float = 1.0):
         """`critic` is a TokenCritic, with cross-attention exactly when the
         MaskGit is conditional; `self_token_critic` builds a SelfCritic on
         the MaskGit's trunk instead (its head `to_pred` drawn by torch's
-        default init, on the MaskGit's device and dtype)."""
+        default init, on the MaskGit's device and dtype). `t5_name` picks
+        the text encoder of `texts`; `text_embed_dim` defaults to its width."""
         if not cond_drop_prob > 0:
             raise ValueError("cond_drop_prob must be > 0")
         if self_token_critic and critic is not None:
@@ -68,7 +76,8 @@ class Phenaki:
         self.critic_noise_anneal_schedule = critic_noise_anneal_schedule
         self.critic_train_sample_temperature = critic_train_sample_temperature
         self.steps = steps
-        self.text_embed_dim = text_embed_dim
+        self.t5_name = t5_name
+        self.text_embed_dim = text_embed_dim if text_embed_dim is not None else get_encoded_dim(t5_name)
         self.max_text_len = max_text_len
         self.cond_drop_prob = cond_drop_prob
 
@@ -88,25 +97,77 @@ class Phenaki:
             return emb[:, : self.max_text_len]
         return torch.cat([emb, emb.new_zeros(b, self.max_text_len - L, d)], dim=1)
 
+    def embed_texts(self, texts: Sequence[str]) -> torch.Tensor:
+        """texts -> (b, max_text_len, d) f32 on the MaskGit's device,
+        zero-padded, from the text encoder of `t5_name` (HF T5 on that
+        device where its weights are on disk, else the offline hash encoder
+        of width `text_embed_dim`)."""
+        device = self.maskgit.to_logits.weight.device
+        emb = t5_encode_text(texts, name=self.t5_name, fallback_dim=self.text_embed_dim, device=device)
+        return self.pad_text_embeds(torch.from_numpy(emb).to(device))
+
+    def _text_batch(self, texts, text_embeds, batch_size: int):
+        """The text embeddings to condition on and the batch they set:
+        `texts` (a string or a list) and `text_embeds` exclude each other."""
+        if texts is not None and text_embeds is not None:
+            raise ValueError("give texts or text_embeds, not both")
+        if isinstance(texts, str):
+            texts = [texts]
+        if texts is not None:
+            text_embeds = self.embed_texts(texts)
+        if text_embeds is not None:
+            batch_size = text_embeds.shape[0]
+        return text_embeds, batch_size
+
+    def tokenize_prime(self, prime_frames: torch.Tensor) -> torch.Tensor:
+        """Prime frames (b, f, H, W, c), f - 1 a multiple of the temporal
+        patch size -> their token ids (b, P), by the C-ViViT in eval mode."""
+        device = self.maskgit.to_logits.weight.device
+        ids = self.cvivit.tokenize(prime_frames.to(device))
+        return ids.reshape(ids.shape[0], -1)
+
     @torch.inference_mode()
-    def sample(self, *, num_frames: int, text_embeds: Optional[torch.Tensor] = None,
-               batch_size: int = 1, cond_scale: float = 3.0, starting_temperature: float = 0.9,
-               noise_K: float = 1.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def sample(self, *, num_frames: int, texts: Union[List[str], str, None] = None,
+               text_embeds: Optional[torch.Tensor] = None,
+               prime_frames: Optional[torch.Tensor] = None, batch_size: int = 1,
+               cond_scale: float = 3.0, starting_temperature: float = 0.9, noise_K: float = 1.0,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Text-to-video sampling: (b, num_frames, H, W, c) in the C-ViViT pixel
-        space. `generator` (a CPU torch.Generator) seeds the sampling noise;
-        `noise_K` scales the critic's score noise."""
-        ids = self.sample_ids(num_frames=num_frames, text_embeds=text_embeds,
+        space. `texts` go through `embed_texts`; `text_embeds` are given
+        embeddings (b, L, d) instead. `prime_frames` (b, f, H, W, c) are
+        continued: the scene's `num_frames` (a multiple of the temporal patch
+        size) follow them, and the MaskGit's `max_seq_len` must cover the
+        prime's tokens and the scene's. `generator` (a CPU torch.Generator)
+        seeds the sampling noise; `noise_K` scales the critic's score noise."""
+        text_embeds, batch_size = self._text_batch(texts, text_embeds, batch_size)
+        prime_ids = self.tokenize_prime(prime_frames) if prime_frames is not None else None
+        ids = self.sample_ids(num_frames=num_frames, text_embeds=text_embeds, prime_ids=prime_ids,
                               batch_size=batch_size, cond_scale=cond_scale,
                               starting_temperature=starting_temperature, noise_K=noise_K,
                               generator=generator)
-        return self.cvivit.decode_from_codebook_indices(ids)
+        if prime_ids is None:
+            return self.cvivit.decode_from_codebook_indices(ids)
+        video = self.cvivit.decode_from_codebook_indices(torch.cat([prime_ids, ids], dim=-1))
+        return video[:, prime_frames.shape[1]:]
+
+    @torch.inference_mode()
+    def sample_images(self, *, texts: Union[List[str], str, None] = None, batch_size: int = 1,
+                      cond_scale: float = 3.0, starting_temperature: float = 0.9,
+                      noise_K: float = 1.0, num_frames: int = 1, **kwargs) -> torch.Tensor:
+        """One-frame samples (b, H, W, c). `num_frames` is accepted, as the
+        trainer passes it, and ignored: an image is one frame."""
+        video = self.sample(texts=texts, num_frames=1, batch_size=batch_size, cond_scale=cond_scale,
+                            starting_temperature=starting_temperature, noise_K=noise_K, **kwargs)
+        return video[:, 0]
 
     @torch.inference_mode()
     def sample_ids(self, *, num_frames: int, text_embeds: Optional[torch.Tensor] = None,
-                   batch_size: int = 1, cond_scale: float = 3.0,
-                   starting_temperature: float = 0.9, noise_K: float = 1.0,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """The decode loop of `sample`: video token ids (b, n) int64."""
+                   prime_ids: Optional[torch.Tensor] = None, batch_size: int = 1,
+                   cond_scale: float = 3.0, starting_temperature: float = 0.9,
+                   noise_K: float = 1.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The decode loop of `sample`: the scene's token ids (b, n) int64.
+        `prime_ids` (b, P) are the tokens of the prime frames
+        (`tokenize_prime`), in front of the scene's."""
         self.maskgit.eval()
         dtype = self.maskgit.compute_dtype
         weight = self.maskgit.to_logits.weight
@@ -118,8 +179,13 @@ class Phenaki:
             text_mask = (text_embeds != 0).any(dim=-1)
             context = text_embeds.to(dtype)
 
-        num_tokens = self.cvivit.num_tokens_per_frames(num_frames)
-        patch_shape = self.cvivit.get_video_patch_shape(num_frames)
+        prime_num_frames = 0
+        if prime_ids is not None:
+            if prime_ids.shape[0] != batch_size:
+                raise ValueError(f"prime frames of batch {prime_ids.shape[0]} for a batch of {batch_size}")
+            prime_num_frames = self.cvivit.frames_per_num_tokens(prime_ids.shape[1])
+        num_tokens = self.cvivit.num_tokens_per_frames(num_frames, include_first_frame=not prime_num_frames)
+        patch_shape = self.cvivit.get_video_patch_shape(num_frames + prime_num_frames)
         rel_pos_bias = self.maskgit.rel_pos_bias(patch_shape)
 
         def embeds_fn(ids):
@@ -154,6 +220,7 @@ class Phenaki:
             critic_noise_anneal_schedule=self.critic_noise_anneal_schedule,
             embeds_fn=embeds_fn,
             vocab_proj=(weight.to(dtype), self.maskgit.to_logits.bias),
+            prime_ids=prime_ids,
         )
 
     def _loss_draws(self, b: int, n: int, generator: Optional[torch.Generator], device):
@@ -260,3 +327,23 @@ class Phenaki:
         loss = critic_loss if only_train_critic else gen_loss + critic_loss * self.critic_loss_weight
         metrics["loss"] = loss
         return loss, metrics
+
+
+def make_video(phenaki: Phenaki, texts: Sequence[str], num_frames, prime_lengths, **sample_kwargs):
+    """A long video as a chain of scenes, one a text: scene k + 1 is sampled
+    with the last `prime_lengths[k]` frames of scene k as its prime frames
+    (the last scene primes nothing). `num_frames` and `prime_lengths` are a
+    number for every scene or a tuple; the keyword arguments go to every
+    `Phenaki.sample`. Returns (the whole video (b, sum of frames, H, W, c),
+    the list of scenes)."""
+    num_scenes = len(texts)
+    num_frames = num_frames if isinstance(num_frames, tuple) else (num_frames,) * num_scenes
+    prime_lengths = prime_lengths if isinstance(prime_lengths, tuple) else (prime_lengths,) * (num_scenes - 1)
+    prime_lengths = (*prime_lengths, 0)
+    video_prime, scenes = None, []
+    for text, scene_frames, next_prime_len in zip(texts, num_frames, prime_lengths):
+        video = phenaki.sample(texts=text, prime_frames=video_prime, num_frames=scene_frames,
+                               **sample_kwargs)
+        scenes.append(video)
+        video_prime = video[:, -next_prime_len:] if next_prime_len > 0 else None
+    return torch.cat(scenes, dim=1), scenes

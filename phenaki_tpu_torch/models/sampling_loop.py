@@ -22,8 +22,13 @@ critic and leaves zeros. Random draws, in this order each step, all from
 the CPU `generator`: the sampler's (a seed on the card, the (b, n, V)
 uniforms on the CPU), then, on a step that runs the critic, the critic
 noise's (b, n) uniforms. The loop never reads a device value on the host:
-k, the temperature and the multiplier are Python numbers. Prime ids are
-not ported yet (they need the C-ViViT encoder).
+k, the temperature and the multiplier are Python numbers.
+
+`prime_ids` (b, P), the tokens of the frames a scene continues, go in front
+of the scene's n ids before every forward (the MaskGit's and the critic's);
+their outputs are sliced back to the scene's n rows (`h[:, P:]`: at b = 1
+a contiguous view the projection sampler reads in place, at b > 1 strided
+rows it copies) and only those n positions are masked, sampled and scored.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ def maskgit_sample_loop(
     stacked_cfg_scale: Optional[float] = None,
     embeds_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     vocab_proj: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+    prime_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run the decode; returns the final token ids (b, num_tokens_seq) int64.
 
@@ -83,7 +89,8 @@ def maskgit_sample_loop(
     when given, `logits_fn` and `stacked_cfg_scale` are ignored.
     `logits_fn(ids)` maps them to (b, n, V) logits, or to the stacked
     (2b, n, V) cond/null logits when `stacked_cfg_scale` is set.
-    `critic_fn(ids)` maps them to (b, n) critic logits."""
+    `critic_fn(ids)` maps them to (b, n) critic logits. With `prime_ids`
+    (b, P) each function takes (b, P + n) ids and gives P + n rows."""
     if embeds_fn is not None and vocab_proj is None:
         raise ValueError("embeds_fn requires vocab_proj=(weight, bias)")
     if embeds_fn is None and logits_fn is None:
@@ -91,6 +98,14 @@ def maskgit_sample_loop(
     if critic_noise_anneal_schedule not in ANNEAL_SCHEDULES:
         raise ValueError(f"invalid critic noise anneal schedule {critic_noise_anneal_schedule!r}")
     n = num_tokens_seq
+    prime_len = prime_ids.shape[-1] if prime_ids is not None else 0
+
+    def primed(fn, ids):
+        """`fn` over the prime ids and `ids`, sliced to the scene's rows."""
+        if not prime_len:
+            return fn(ids)
+        return fn(torch.cat([prime_ids.to(ids), ids], dim=-1))[:, prime_len:]
+
     ids = torch.full((batch, n), mask_id, dtype=torch.long, device=device)
     scores = torch.zeros((batch, n), dtype=torch.float32, device=device)
     for step in range(steps):
@@ -101,16 +116,16 @@ def maskgit_sample_loop(
         temperature = starting_temperature * (steps - step - 1) / steps
         if embeds_fn is not None:
             weight, bias = vocab_proj
-            pred_ids, pred_scores = project_sample(embeds_fn(ids), weight, bias, temperature,
+            pred_ids, pred_scores = project_sample(primed(embeds_fn, ids), weight, bias, temperature,
                                                    generator=generator)
         else:
             pred_ids, pred_scores = gumbel_sample_with_score(
-                logits_fn(ids), temperature, cond_scale=stacked_cfg_scale, generator=generator)
+                primed(logits_fn, ids), temperature, cond_scale=stacked_cfg_scale, generator=generator)
         ids = torch.where(remask, pred_ids, ids)
         if critic_fn is None:
             scores = torch.where(remask, pred_scores, NEG_SCORE)
         elif step < steps - 1:
-            critic = critic_fn(ids).float()
+            critic = primed(critic_fn, ids).float()
             mult = float(critic_noise_multiplier(critic_noise_anneal_schedule, step, steps))
             scores = critic + noise_K * (uniform(critic.shape, generator, device) - 0.5) * mult
         else:

@@ -13,7 +13,9 @@ a scalar head. Sampling: 18 steps.
 compute, as the TPU package's flagship trains (`dtype=jnp.bfloat16`).
 `critic=True` adds a TokenCritic, `self_token_critic=True` a SelfCritic on
 the MaskGit's trunk; the C-ViViT and MaskGit weights do not change with
-either (the critic's are drawn after them).
+either (the critic's are drawn after them). The C-ViViT's encoder
+(`CViViT.encoder_modules`) is drawn last of all, so every other weight is
+what it was before the port had an encoder.
 """
 
 from __future__ import annotations
@@ -90,8 +92,13 @@ def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype, crit
             modules.append(flagship_token_critic(max_seq_len=n, dtype=compute_dtype))
         elif self_token_critic:
             modules.append(nn.Linear(512, 1))  # the SelfCritic's head, to_pred
-    modules = [init_parameters(m.to_empty(device="cpu"), gen).to(device=device, dtype=dtype)
-               for m in modules]
+    modules = [m.to_empty(device="cpu") for m in modules]
+    encoder = cvivit.encoder_modules()
+    for i, m in enumerate(modules):
+        init_parameters(m, gen, skip=encoder if i == 0 else ())
+    for m in encoder:
+        init_parameters(m, gen)
+    modules = [m.to(device=device, dtype=dtype) for m in modules]
     ph = Phenaki(maskgit=modules[1], cvivit=modules[0], text_embed_dim=FLAGSHIP_TEXT_DIM,
                  steps=steps, max_text_len=128, critic=modules[2] if critic else None,
                  self_token_critic=self_token_critic)

@@ -1,7 +1,7 @@
 """The port's C-ViViT decode path (phenaki_tpu_torch/models/cvivit.py)
-against the flax module on bridged weights (the encoder's parameters are
-not used), fp32 on the CPU, atol 1e-4: `decode_from_codebook_indices` from
-flat and from (b, t, h, w) ids, and the token/frame arithmetic.
+against the flax module on bridged weights, fp32 on the CPU, atol 1e-4:
+`decode_from_codebook_indices` from flat and from (b, t, h, w) ids, and the
+token/frame arithmetic. The encode side is in test_torch_cvivit_encode.py.
 """
 
 import numpy as np
