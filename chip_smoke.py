@@ -37,8 +37,13 @@ against one on the CPU), `make_video` of 17 hash-encoded texts into 273
 frames, each scene after the first primed with the last 5 frames of the one
 before (the seconds of two bare calls; seconds, prime tokenize ms and
 launches a scene from an instrumented pass between them), and
-`sample_images`.
-Then the
+`sample_images`. Then the raw train path: `PhenakiTrainer(
+flagship_train_phenaki(), dataset=...)` on 8 seeded GIFs of 17 x 256 x 128
+written and read back by the port's codecs and `VideoDataset`, each with a
+caption (the data wait, tokenize's device time and the step's beside it),
+5 steps at b = 4 whose first milestone samples 4 GIFs and saves a
+checkpoint, and a trainer resumed from a checkpoint that must take the
+same two steps, bit for bit, as one that ran on. Then the
 sequence-parallel paths on SP = 2 spawned ranks (NCCL with a GPU a rank
 when there are enough cards, otherwise gloo with both ranks on the one
 card): kernel 3 (the ring chunk) and the offset backward kernels against
@@ -53,12 +58,15 @@ Needs no JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 FLASH_TPU = "phenaki_tpu/ops/pallas_attention.py:79"  # _flash_kernel
 PROJ_TPU = "phenaki_tpu/ops/pallas_sampling.py:220"  # _proj_kernel
@@ -128,6 +136,19 @@ SEQ_TRAIN_PER_STEP = {"chunk": 6 * SP, "fwd": 6, "dq": 6 + 6 * SP, "dkv": 6 + 6 
 SEQ_TRAIN_STEPS = 3
 RANK_TIMEOUT_S = 600  # the spawned ranks' join timeout
 LEARN_MARGIN = 3.0  # nats the learning check's loss must fall by
+# every trainer samples and checkpoints at its step-1 milestone; the paths
+# that measure steps sample one video there, with this caption
+SAMPLE_TEXT = "a red ball rolls across a green field"
+# the raw train path: 8 seeded GIFs of 17 x 256 x 128 read back through
+# VideoDataset, each with a caption; 5 steps at b = 4, the first of them the
+# milestone, which samples 4 videos (one b = 4 group: the launches of one
+# flagship sample) and saves a checkpoint. A step launches what a train step
+# on ids does, and the C-ViViT's tokenize of the batch (kernel 1 in its 4
+# spatial layers). Then the resume check: 2 steps on a fixed dataset
+RAW_VIDEOS, RAW_TRAIN_STEPS, RAW_SAMPLES, RESUME_STEPS = 8, 5, 4, 2
+RAW_CAPTIONS = [f"clip {k}: a ball bounces {k + 1} times on a wooden floor" for k in range(RAW_VIDEOS)]
+RAW_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=TRAIN_PER_STEP["fwd"] + TOKENIZE_LAUNCHES["fwd"])
+MILESTONE_LAUNCHES = SAMPLE_LAUNCHES
 
 
 class CheckFailed(RuntimeError):
@@ -213,14 +234,15 @@ def qk(shape, gen, dtype):
 # kernel 1's main-path shapes: each is timed beside its bound and one SDPA
 # call on the same inputs
 FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self",
-                     "cvivit_encode_spatial_b32", "maskgit_self_primed")
+                     "cvivit_encode_spatial_b4", "cvivit_encode_spatial_b32", "maskgit_self_primed")
 
 
 def flash_cases(torch, dtype, gen):
     """The flagship shapes at b = 1 (CFG stacks 2 rows): MaskGit
     self-attention with the CPB bias, the TokenCritic's self-attention
     without one, cross-attention, the C-ViViT's spatial attention, its
-    encoder's at tokenize B = 32, the primed MaskGit self-attention; the
+    encoder's at the raw train step's b = 4 and at tokenize B = 32, the
+    primed MaskGit self-attention; the
     cross-attention with every key of one batch row hard-masked (out = 0,
     lse = -inf), a causal case, ragged tiles (i = j = 1000 with a bias), and
     d = 128 with ragged tiles."""
@@ -265,6 +287,13 @@ def flash_cases(torch, dtype, gen):
     qd, kd = qk((1, 4, 200, 128), gen, dtype), qk((1, 4, 200, 128), gen, dtype)
     vd = torch.randn(1, 4, 200, 128, generator=gen).to("cuda", dtype)
     cases["dim_head_128"] = (qd, kd, vd, torch.randn(4, 200, 200, generator=gen).to("cuda", dtype), None, False)
+    # the C-ViViT encoder's spatial attention in the raw train step's
+    # tokenize (b = 4, 9 latent frames a video); drawn last, so that the
+    # cases above keep their inputs
+    q4, k4 = qk((36, 8, 128, 64), gen, dtype), qk((36, 8, 128, 64), gen, dtype)
+    v4 = torch.randn(36, 8, 128, 64, generator=gen).to("cuda", dtype)
+    cases["cvivit_encode_spatial_b4"] = (q4, k4, v4, torch.randn(8, 128, 128, generator=gen).to("cuda", dtype),
+                                         None, False)
     return cases
 
 
@@ -1139,8 +1168,6 @@ def profile_samples(torch, sample, path, n=3, label="sample profile"):
     warmed up), written to `path`: device time by kernel and operator. The
     phase line (`label`) gives device and wall milliseconds a sample, the
     idle share (1 - device / wall) and kernel 1's device time and share."""
-    from pathlib import Path
-
     from torch.profiler import ProfilerActivity, profile
 
     emb = sample_requests(torch)[1][1]
@@ -1613,12 +1640,14 @@ def check_learning(torch):
     from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
 
     mg, cv = small_train_models(torch, 8)
-    ph = Phenaki(maskgit=mg.cuda(), cvivit=cv, text_embed_dim=64, steps=18, max_text_len=16)
+    ph = Phenaki(maskgit=mg.cuda(), cvivit=cv.cuda(), text_embed_dim=64, steps=18, max_text_len=16)
     gen = torch.Generator().manual_seed(9)
     item = (torch.randint(0, 512, (2, 8, 8), generator=gen), torch.randn(8, 64, generator=gen))
-    trainer = PhenakiTrainer(ph, dataset=[item] * 4, batch_size=4, train_lr=1e-3, seed=0,
-                             log_every=10**9)
-    losses = [trainer.train_step().item() for _ in range(40)]
+    with tempfile.TemporaryDirectory() as results:  # the step-1 milestone: a 3-frame sample
+        trainer = PhenakiTrainer(ph, dataset=[item] * 4, batch_size=4, train_lr=1e-3, seed=0,
+                                 log_every=10**9, num_frames=3, num_samples=1,
+                                 sample_texts=[SAMPLE_TEXT], results_folder=results)
+        losses = [trainer.train_step().item() for _ in range(40)]
     first, last = statistics.mean(losses[:3]), statistics.mean(losses[-5:])
     noise = statistics.stdev(b - a for a, b in zip(losses[-11:], losses[-10:]))
     phase("learning check", first=first, last=last, step_noise=noise, losses=losses[::5])
@@ -1630,7 +1659,8 @@ def check_learning(torch):
 def run_train_path(torch, label, per_step, steps, profile_path=None, **preset):
     """The flagship (f32 parameters, bf16 compute; `preset` adds a critic)
     trained through `PhenakiTrainer.train_step()` at b = 4 on seeded random
-    token ids and text embeddings: a warm-up step, then `steps` timed steps,
+    token ids and text embeddings: a warm-up step (with the step-1
+    milestone: one sample and a checkpoint), then `steps` timed steps,
     each with exactly `per_step` kernel launches (counts set to 0 after the
     warm-up, read after the last step); the losses finite and every
     parameter, the MaskGit's and the critic's, moved."""
@@ -1644,8 +1674,10 @@ def run_train_path(torch, label, per_step, steps, profile_path=None, **preset):
     gen = torch.Generator().manual_seed(20)
     ids = torch.randint(0, 65536, (2 * TRAIN_BATCH, 9, 16, 8), generator=gen)
     emb = torch.randn(2 * TRAIN_BATCH, 50, 768, generator=gen)
+    results = tempfile.TemporaryDirectory()
     trainer = PhenakiTrainer(ph, dataset=torch.utils.data.TensorDataset(ids, emb),
-                             batch_size=TRAIN_BATCH, seed=0, log_every=10**9)
+                             batch_size=TRAIN_BATCH, seed=0, log_every=10**9, num_samples=1,
+                             sample_texts=[SAMPLE_TEXT], results_folder=results.name)
     params = {f"maskgit.{n}": p for n, p in ph.maskgit.named_parameters()}
     if ph.critic is not None:
         params.update({f"critic.{n}": p for n, p in ph.critic.named_parameters()})
@@ -1677,8 +1709,243 @@ def run_train_path(torch, label, per_step, steps, profile_path=None, **preset):
     if profile_path:
         profile_train_steps(torch, trainer, profile_path)
     del trainer, ph
+    results.cleanup()
     torch.cuda.empty_cache()
     return launches
+
+
+class CaptionedVideos:
+    """`VideoDataset` items paired with captions, the k-th item with the
+    k-th caption: the (video, text) tuples the trainer takes."""
+
+    def __init__(self, videos, captions):
+        self.videos, self.captions = videos, captions
+
+    def __len__(self):
+        return len(self.videos)
+
+    def __getitem__(self, i):
+        return self.videos[i], self.captions[i]
+
+
+def _timed_batches(it, waits):
+    """The batches of `it`, each one's host seconds appended to `waits`."""
+    while True:
+        t = time.perf_counter()
+        batch = next(it)
+        waits.append(time.perf_counter() - t)
+        yield batch
+
+
+def _instrument_raw_trainer(torch, trainer, events, milestone):
+    """Record CUDA events around each `tokenize` call (into `events`), and
+    the seconds, launches and drawn captions of each milestone's sampling
+    and the seconds of its save (into `milestone`)."""
+    cvivit, tokenize = trainer.model.cvivit, trainer.model.cvivit.tokenize
+    sample_artifacts, save = trainer._sample_artifacts, trainer.save
+
+    def timed_tokenize(video):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.profiler.record_function("raw_train.tokenize"):
+            ids = tokenize(video)
+        end.record()
+        events.append((start, end))
+        return ids
+
+    def timed_artifacts(m):
+        before = kernel_counts()
+        milestone["captions"], milestone["sample_s"] = timed(torch, lambda: sample_artifacts(m))
+        milestone["launches"] = launched_since(before)
+        return milestone["captions"]
+
+    def timed_save(m):
+        milestone["save_s"] = timed(torch, lambda: save(m))[1]
+
+    cvivit.tokenize = timed_tokenize
+    trainer._sample_artifacts, trainer.save = timed_artifacts, timed_save
+
+
+def raw_trainer(dataset, results, **kw):
+    from phenaki_tpu_torch.presets import flagship_train_phenaki
+    from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
+
+    args = dict(batch_size=TRAIN_BATCH, num_frames=17, save_and_sample_every=1000, seed=0,
+                log_every=10**9, sample_texts=RAW_CAPTIONS, results_folder=results)
+    args.update(kw)
+    return PhenakiTrainer(flagship_train_phenaki(seed=0, device="cuda"), dataset=dataset, **args)
+
+
+def run_raw_train_path(torch, card):
+    """The flagship trained from raw videos and texts at b = 4: 8 seeded
+    GIFs of 17 x 256 x 128 written by `video_tensor_to_gif` and read back
+    through `VideoDataset` (the native route or PIL, reported), each with a
+    caption, into `PhenakiTrainer(flagship_train_phenaki(), dataset=...)`.
+    Each step embeds its texts and tokenizes its pixels with the frozen bf16
+    C-ViViT. Counts set to 0 before the first step and read after the
+    fifth: step 1's milestone (4 sampled GIFs, one b = 4 group, and a
+    checkpoint) launches exactly MILESTONE_LAUNCHES, every step exactly
+    RAW_TRAIN_PER_STEP. Steps 2-5 give the seconds a step, the host's wait
+    for data apart, tokens/s, peak memory and the CUDA-event spans of
+    tokenize and of the step; two more steps under `torch.profiler` give the
+    device time a step and tokenize's. Each GIF's decode is timed once
+    alone first. Then `resume_check`."""
+    import numpy as np
+
+    from phenaki_tpu_torch.data.codecs import gif_to_tensor, video_tensor_to_gif
+    from phenaki_tpu_torch.data.datasets import VideoDataset
+    from phenaki_tpu_torch.presets import FLAGSHIP_IMAGE_SIZE
+    from phenaki_tpu_torch.training.phenaki_trainer import simple_slugify
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "videos").mkdir()
+        rng = np.random.RandomState(22)
+        t = time.perf_counter()
+        for k in range(RAW_VIDEOS):
+            video_tensor_to_gif(rng.rand(17, *FLAGSHIP_IMAGE_SIZE, 3).astype(np.float32),
+                                str(tmp / "videos" / f"{k}.gif"))
+        gif_write_s = time.perf_counter() - t
+        videos = VideoDataset(str(tmp / "videos"), FLAGSHIP_IMAGE_SIZE, num_frames=17)
+        check(len(videos) == RAW_VIDEOS, f"raw train: {len(videos)} videos found")
+        decode_s = [timed(torch, lambda: videos[k])[1] for k in range(RAW_VIDEOS)]
+        gc.collect()  # earlier phases' trainers may sit in reference cycles until collected
+        torch.cuda.empty_cache()
+        baseline_gb = torch.cuda.memory_allocated() / 1e9
+        trainer, build_s = timed(torch, lambda: raw_trainer(CaptionedVideos(videos, RAW_CAPTIONS),
+                                                            str(tmp / "results"), num_samples=RAW_SAMPLES))
+        ph = trainer.model
+        check(ph.cvivit.dtype == torch.bfloat16, "raw train: the C-ViViT is not bf16")
+        check(ph.maskgit.to_logits.weight.dtype == torch.float32, "raw train: the MaskGit is not f32")
+        waits, tok_events, milestone = [], [], {}
+        trainer.dl = _timed_batches(trainer.dl, waits)
+        _instrument_raw_trainer(torch, trainer, tok_events, milestone)
+
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, losses, step_ms = [], [], []
+        for step in range(RAW_TRAIN_STEPS):
+            before = kernel_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            loss = trainer.train_step()
+            end.record()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            step_ms.append(start.elapsed_time(end))
+            losses.append(loss.item())
+            launched = launched_since(before)
+            expected = dict(RAW_TRAIN_PER_STEP)
+            if step == 0:
+                expected = {k: expected.get(k, 0) + MILESTONE_LAUNCHES.get(k, 0)
+                            for k in {*expected, *MILESTONE_LAUNCHES}}
+            check(launched == exact(expected),
+                  f"raw train step {step + 1}: launches {nonzero(launched)} != {expected}")
+        launches = kernel_counts()
+        check(milestone["launches"] == exact(MILESTONE_LAUNCHES),
+              f"raw train milestone: launches {nonzero(milestone['launches'])} != {MILESTONE_LAUNCHES}")
+        check(all(map(math.isfinite, losses)), f"raw train: non-finite loss {losses}")
+        # one GIF a distinct caption drawn (a caption drawn twice keeps its
+        # last sample), each of 17 full-size frames
+        captions = milestone["captions"]
+        gifs = sorted(g.name for g in (tmp / "results" / "videos.0").glob("*.gif"))
+        check(len(captions) == RAW_SAMPLES and gifs == sorted(f"{simple_slugify(c)}.gif" for c in set(captions))
+              and all(gif_to_tensor(str(tmp / "results" / "videos.0" / g)).shape == (17, *FLAGSHIP_IMAGE_SIZE, 3)
+                      for g in gifs),
+              f"raw train milestone: sampled GIFs {gifs} for captions {captions}")
+        ckpt = trainer.checkpoints.path(0)
+        check(trainer.checkpoints.all_steps() == [0],
+              f"raw train: checkpoints {trainer.checkpoints.all_steps()}")
+        tok_ms = [s.elapsed_time(e) for s, e in tok_events]
+        timed_steps = slice(1, None)  # step 1 is the warm-up and the milestone
+        per_step = statistics.median(seconds[timed_steps])
+        wait = statistics.median(waits[timed_steps])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        device_ms, tok_device_ms, h2d_device_ms, wall_ms = profile_raw_steps(torch, trainer)
+        phase("raw train path", card=card, batch=TRAIN_BATCH, frames=17, videos=RAW_VIDEOS,
+              gif_decode_route="native" if videos.native_fast_path() else "pil",
+              gif_write_s=gif_write_s, gif_item_decode_s=decode_s, build_model_s=build_s,
+              tokens_per_step=TRAIN_BATCH * 1152,
+              seconds_per_step=per_step, step_seconds=seconds, data_wait_s=wait, data_wait_seconds=waits,
+              seconds_per_step_without_data_wait=statistics.median(
+                  [s - w for s, w in zip(seconds[timed_steps], waits[timed_steps])]),
+              tokens_per_s=TRAIN_BATCH * 1152 / per_step, peak_mem_gb=peak, allocated_before_gb=baseline_gb,
+              step_event_ms=step_ms, tokenize_event_ms=tok_ms,
+              rest_event_ms=[s - k for s, k in zip(step_ms, tok_ms)],
+              profiled_device_ms_per_step=device_ms, profiled_tokenize_device_ms_per_step=tok_device_ms,
+              profiled_rest_device_ms_per_step=device_ms - tok_device_ms,
+              profiled_h2d_device_ms_per_step=h2d_device_ms,
+              profiled_wall_ms_per_step=wall_ms, profiled_idle=1 - device_ms / wall_ms, losses=losses,
+              launches_per_step=RAW_TRAIN_PER_STEP, launches=nonzero(launches),
+              milestone={"sample_s": milestone["sample_s"], "samples": RAW_SAMPLES, "gifs": len(gifs),
+                         "distinct_captions": len(set(captions)),
+                         "launches": nonzero(milestone["launches"]), "checkpoint_bytes": ckpt.stat().st_size,
+                         "save_s": milestone["save_s"]})
+        fixed_video = videos[0]
+        del trainer, ph
+        gc.collect()  # the instrumented trainer is a reference cycle
+        torch.cuda.empty_cache()
+        resume_check(torch, fixed_video, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_raw_steps(torch, trainer, n=2):
+    """`torch.profiler` over `n` more raw steps: (device ms a step, the
+    device ms a step of the kernels that tokenize launched, the device ms a
+    step of the host-to-device copies, wall ms a step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            trainer.train_step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / n
+    events = prof.key_averages()
+    device_ms, h2d_ms = device_shares(torch, events, kernel="Memcpy HtoD")
+    tok_ms = sum(e.device_time_total for e in events
+                 if e.key == "raw_train.tokenize" and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    return device_ms / n, tok_ms / n, h2d_ms / n, wall_ms
+
+
+def resume_check(torch, video, tmp):
+    """JAX's `test_phenaki_trainer_true_resume_bitwise` contract at full
+    width: a trainer on a fixed dataset (one of the GIFs, one caption)
+    takes step 1, whose milestone writes checkpoint 0, then RESUME_STEPS
+    more; a second trainer, its MaskGit moved off the seeded weights, loads
+    checkpoint 0 and takes the same RESUME_STEPS. The parameters and Adam's
+    state must be bit-equal."""
+    fixed = [(video, RAW_CAPTIONS[0])] * RAW_VIDEOS
+    folder = str(tmp / "resume")
+    ran_on = raw_trainer(fixed, folder, num_samples=1)
+    ran_on.train_step()
+    resumed = raw_trainer(fixed, folder, num_samples=1)
+    with torch.no_grad():
+        for p in resumed.model.maskgit.parameters():
+            p.add_(1.0)
+    _, load_s = timed(torch, lambda: resumed.load(0))
+    check(resumed.step == 1, f"resume: step {resumed.step} after the load")
+    for _ in range(RESUME_STEPS):
+        ran_on.train_step()
+        resumed.train_step()
+    torch.cuda.synchronize()
+    params = dict(ran_on.model.maskgit.named_parameters())
+    differ = {n: (p - params[n]).abs().max().item() / max(params[n].abs().max().item(), 1e-30)
+              for n, p in resumed.model.maskgit.named_parameters() if not torch.equal(p, params[n])}
+    sa, sb = ran_on.opt.state_dict()["state"], resumed.opt.state_dict()["state"]
+    adam_differ = [(k, key) for k in sa for key in sa[k] if not torch.equal(sa[k][key], sb[k][key])]
+    ckpt = ran_on.checkpoints.path(0)
+    phase("raw train resume", steps_after_load=RESUME_STEPS, checkpoint_bytes=ckpt.stat().st_size,
+          load_s=load_s, params=len(params), params_bit_equal=not differ, adam_state_bit_equal=not adam_differ,
+          max_rel_diff=max(differ.values(), default=0.0), differing=sorted(differ)[:10])
+    check(not differ and not adam_differ,
+          f"resume: {len(differ)} parameters and {len(adam_differ)} Adam tensors differ: {sorted(differ)[:5]}")
+    del ran_on, resumed
 
 
 def seq_parallel_rank(rank, world, profile_path=None):
@@ -1805,8 +2072,6 @@ def profile_seq_sample(torch, ph, path):
     milliseconds (`device_shares`) and wall milliseconds. With the ranks
     sharing one GPU, the other rank's kernels occupy the card too: the idle
     share is this rank's only."""
-    from pathlib import Path
-
     from torch.profiler import ProfilerActivity, profile
 
     emb = sample_requests(torch)[1][1]
@@ -1843,13 +2108,17 @@ def seq_train_path(torch, group):
     data = torch.utils.data.TensorDataset(torch.randint(0, 65536, (2 * TRAIN_BATCH, 9, 16, 8), generator=gen),
                                           torch.randn(2 * TRAIN_BATCH, 50, 768, generator=gen))
 
-    def trainer(ph):
-        return PhenakiTrainer(ph, dataset=data, batch_size=TRAIN_BATCH, seed=0, log_every=10**9)
+    results = tempfile.TemporaryDirectory()  # this rank's milestones (a sample and a checkpoint)
 
-    dense_loss = trainer(flagship_train_phenaki(seed=0, device="cuda")).train_step().item()
+    def trainer(ph, folder):
+        return PhenakiTrainer(ph, dataset=data, batch_size=TRAIN_BATCH, seed=0, log_every=10**9,
+                              num_samples=1, sample_texts=[SAMPLE_TEXT],
+                              results_folder=f"{results.name}/{folder}")
+
+    dense_loss = trainer(flagship_train_phenaki(seed=0, device="cuda"), "dense").train_step().item()
     torch.cuda.empty_cache()
     ph = flagship_train_phenaki(seed=0, device="cuda", seq_group=group)
-    tr = trainer(ph)
+    tr = trainer(ph, "seq")
     first_loss = tr.train_step().item()
     check(abs(first_loss - dense_loss) <= 1e-3 * abs(dense_loss),
           f"seq train: first loss {first_loss} vs dense {dense_loss}")
@@ -1876,6 +2145,7 @@ def seq_train_path(torch, group):
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=kernel_counts(),
                params_sha=digest.hexdigest())
     del tr, ph
+    results.cleanup()
     torch.cuda.empty_cache()
     return out
 
@@ -1927,8 +2197,6 @@ def profile_train_steps(torch, trainer, path):
     """torch.profiler over two flagship train steps, written to `path`:
     device time by kernel, and by the operator (autograd node included)
     that launched it."""
-    from pathlib import Path
-
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1991,6 +2259,7 @@ def main() -> int:
     paths["train"] = run_train_path(torch, "train path", TRAIN_PER_STEP, TRAIN_STEPS, profile_path)
     paths["token_critic_train"] = run_train_path(torch, "token critic train path", CRITIC_TRAIN_PER_STEP,
                                                  CRITIC_TRAIN_STEPS, critic=True)
+    paths["raw_train"] = run_raw_train_path(torch, card)
     seq_profile = args[args.index("--profile-seq") + 1] if "--profile-seq" in args else None
     paths["seq_sharded_sample_and_train"] = run_seq_parallel(torch, seq_profile)
     # each path ran with its counts set to 0 before it: a kernel's launches

@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of phenaki_tpu for NVIDIA Hopper (H100).
 
 The JAX package `phenaki_tpu` is the reference; this package keeps its
-module layout (ops/, models/, training/, presets.py) and imports no JAX.
+module layout (ops/, models/, text/, data/, utils/, parallel/, training/,
+presets.py) and imports no JAX.
 Its hand-written CUDA kernels (csrc/) replace the TPU package's Pallas
 kernels on the flagship text-to-video sampling path (plain, critic-guided
 and the logits path) and the MaskGit and critic training path:

@@ -87,6 +87,11 @@ class CViViT(nn.Module):
         return mods
 
     @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the C-ViViT computes in: its weights'."""
+        return self.patch_proj_first.weight.dtype
+
+    @property
     def patch_height_width(self) -> Tuple[int, int]:
         return self.image_hw[0] // self.patch_hw[0], self.image_hw[1] // self.patch_hw[1]
 
@@ -144,7 +149,7 @@ class CViViT(nn.Module):
         ph, pw = self.patch_hw
         pt, c = self.temporal_patch_size, self.channels
         h, w = self.patch_height_width
-        video = video.to(self.patch_proj_first.weight.dtype)
+        video = video.to(self.dtype)
         x = video[:, :1].reshape(b, 1, h, ph, w, pw, c)
         x = x.permute(0, 1, 2, 4, 6, 3, 5).reshape(b, 1, h, w, c * ph * pw)
         t = (f - 1) // pt

@@ -1,7 +1,7 @@
 """Phenaki: text-to-video sampling, prime-frame continuation, long videos
 and the MaskGit + critic training loss (counterpart of
 phenaki_tpu/models/phenaki.py: `Phenaki.sample`, `sample_images`,
-`make_video`, and `Phenaki.loss` on pre-tokenized video ids).
+`make_video`, `Phenaki.loss` and its `__call__`, `save` and `load`).
 
 A sample: the texts through the text encoder (`embed_texts`), or given
 text embeddings, padded to `max_text_len` (text mask = rows that are not
@@ -14,12 +14,14 @@ for the re-mask) -> C-ViViT decode of the prime and scene ids to video, the
 prime's frames dropped. `make_video` chains scenes, each primed with the
 last frames of the one before.
 
-The loss: a random step per sample gives the cosine mask fraction, that
-many valid tokens are replaced by the mask id, and the masked tokens'
-cross-entropy over the vocab is averaged. Where the fused CE takes the
-shape (`can_fuse_ce`, the flagship's d = 512, V = 65,536 among them) the
-MaskGit returns its final embeddings and `fused_vocab_cross_entropy` takes
-the CE with the `to_logits` projection, so the (b, n, V) logits are never
+The loss: raw videos or images, where given, are tokenized by the frozen
+C-ViViT (no gradient); a random step per sample gives the cosine mask
+fraction, that many valid tokens are replaced by the mask id, and the
+masked tokens' cross-entropy over the vocab is averaged. Where the fused
+CE takes the shape (`can_fuse_ce`, the flagship's d = 512, V = 65,536
+among them) the MaskGit returns its final embeddings and
+`fused_vocab_cross_entropy` takes the CE with the `to_logits` projection,
+so the (b, n, V) logits are never
 materialised on the card; otherwise the logits are materialised and the CE
 is plain torch in f32, as in the TPU package's non-fused branch. With a
 critic (a TokenCritic, or the SelfCritic on the MaskGit's own trunk), the
@@ -45,6 +47,7 @@ from phenaki_tpu_torch.ops.fused_ce import can_fuse_ce, fused_vocab_cross_entrop
 from phenaki_tpu_torch.ops.fused_sampling import project_sample
 from phenaki_tpu_torch.ops.sampling import get_mask_subset_with_prob, gumbel_sample, uniform
 from phenaki_tpu_torch.text.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
+from phenaki_tpu_torch.training.checkpoint import load_pytree, save_pytree
 
 
 class Phenaki:
@@ -237,7 +240,9 @@ class Phenaki:
         card, the uniforms on the CPU)."""
         return None
 
-    def loss(self, *, video_codebook_ids: torch.Tensor, text_embeds: Optional[torch.Tensor] = None,
+    def loss(self, *, videos: Optional[torch.Tensor] = None,
+             video_codebook_ids: Optional[torch.Tensor] = None,
+             text_embeds: Optional[torch.Tensor] = None,
              video_frame_mask: Optional[torch.Tensor] = None,
              cond_drop_prob: Optional[float] = None, only_train_generator: bool = False,
              only_train_critic: bool = False, train: bool = True,
@@ -247,21 +252,28 @@ class Phenaki:
         when there is a critic: (loss, metrics) with metrics `maskgit_loss`,
         `critic_loss` (with a critic) and `loss`.
 
-        video_codebook_ids (b, t, h, w) int; text_embeds (b, L, d) with
-        all-zero rows as padding; video_frame_mask (b, f) bool. Every random
-        draw comes from `generator`, in this order: the step, the mask
-        subset, the MaskGit's conditioning dropout, the generator's sample
-        for the critic, the critic's conditioning dropout. `train` turns
+        videos (b, f, H, W, c) or images (b, H, W, c), pixels in [0, 1],
+        which the C-ViViT tokenizes without a gradient, in its dtype and on
+        the MaskGit's device; or video_codebook_ids (b, t, h, w) int, not
+        both. text_embeds (b, L, d) with all-zero rows as padding;
+        video_frame_mask (b, f) bool. Every random draw comes from
+        `generator`, in this order: the step, the mask subset, the
+        MaskGit's conditioning dropout, the generator's sample for the
+        critic, the critic's conditioning dropout. `train` turns
         conditioning, attention and FF dropout on. `only_train_generator`
         leaves the critic out; `only_train_critic` detaches the generator's
         output and makes the loss the critic's alone."""
         if only_train_generator and only_train_critic:
             raise ValueError("only_train_generator and only_train_critic exclude each other")
+        if (videos is None) == (video_codebook_ids is None):
+            raise ValueError("give videos or video_codebook_ids, exactly one")
         if text_embeds is None and not self.maskgit.unconditional:
             raise ValueError("text embeds must be given unless unconditional")
+        device = self.maskgit.to_logits.weight.device
+        if videos is not None:
+            video_codebook_ids = self.cvivit.tokenize(videos.to(device=device, dtype=self.cvivit.dtype))
         if video_codebook_ids.ndim != 4:
             raise ValueError("video_codebook_ids must be (b, t, h, w)")
-        device = self.maskgit.to_logits.weight.device
         patch_shape = tuple(video_codebook_ids.shape[1:])
         ids = video_codebook_ids.reshape(video_codebook_ids.shape[0], -1).to(device).long()
         b, n = ids.shape
@@ -327,6 +339,33 @@ class Phenaki:
         loss = critic_loss if only_train_critic else gen_loss + critic_loss * self.critic_loss_weight
         metrics["loss"] = loss
         return loss, metrics
+
+    def __call__(self, videos: Optional[torch.Tensor] = None, *,
+                 texts: Union[List[str], str, None] = None,
+                 text_embeds: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None, **kwargs) -> torch.Tensor:
+        """The training loss alone: `texts` go through `embed_texts` (they
+        and `text_embeds` exclude each other); the other keyword arguments
+        are `loss`'s."""
+        text_embeds, _ = self._text_batch(texts, text_embeds, 0)
+        loss, _ = self.loss(videos=videos, text_embeds=text_embeds, generator=generator, **kwargs)
+        return loss
+
+    def save(self, path) -> None:
+        """Write the MaskGit's, the critic's (a SelfCritic's head alone) and
+        the C-ViViT's state dicts to one file."""
+        save_pytree(path, {"maskgit": self.maskgit.state_dict(), "cvivit": self.cvivit.state_dict(),
+                           "critic": self.critic.state_dict() if self.critic is not None else None})
+
+    def load(self, path) -> None:
+        """Restore what `save` wrote, into modules of the same shapes."""
+        state = load_pytree(path)
+        if (state["critic"] is None) != (self.critic is None):
+            raise ValueError("the checkpoint and this Phenaki differ in having a critic")
+        self.maskgit.load_state_dict(state["maskgit"])
+        self.cvivit.load_state_dict(state["cvivit"])
+        if self.critic is not None:
+            self.critic.load_state_dict(state["critic"])
 
 
 def make_video(phenaki: Phenaki, texts: Sequence[str], num_frames, prime_lengths, **sample_kwargs):

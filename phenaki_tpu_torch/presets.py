@@ -9,8 +9,10 @@ length 128. TokenCritic: the MaskGit trunk's shape with cross-attention and
 a scalar head. Sampling: 18 steps.
 
 `flagship_phenaki` builds the sampling model (bf16 weights);
-`flagship_train_phenaki` the training one: f32 parameters with bf16
-compute, as the TPU package's flagship trains (`dtype=jnp.bfloat16`).
+`flagship_train_phenaki` the training one: the MaskGit's and the critic's
+f32 parameters with bf16 compute, as the TPU package's flagship trains
+(`dtype=jnp.bfloat16`), and the frozen C-ViViT in bf16, the TPU package's
+flagship C-ViViT dtype, so that raw pixels are tokenized in bf16.
 `critic=True` adds a TokenCritic, `self_token_critic=True` a SelfCritic on
 the MaskGit's trunk; the C-ViViT and MaskGit weights do not change with
 either (the critic's are drawn after them). The C-ViViT's encoder
@@ -65,21 +67,22 @@ def flagship_phenaki(seed: int = 0, *, device="cuda", dtype=torch.bfloat16,
     sequence-parallel over that process group (every rank builds the same
     model and runs the same calls)."""
     return _seeded_flagship(seed, device, dtype, num_frames, steps, None, critic, self_token_critic,
-                            seq_group)
+                            seq_group, cvivit_dtype=dtype)
 
 
 def flagship_train_phenaki(seed: int = 0, *, device="cuda", num_frames: int = FLAGSHIP_NUM_FRAMES,
                            critic: bool = False, self_token_critic: bool = False,
                            seq_group=None) -> Phenaki:
     """The flagship Phenaki for training: the same seeded weights as
-    `flagship_phenaki`, kept in f32, with the MaskGit and the critic
-    computing in bf16; `seq_group` as for `flagship_phenaki`."""
+    `flagship_phenaki`, the MaskGit's and the critic's kept in f32 and
+    computing in bf16, the frozen C-ViViT's in bf16; `seq_group` as for
+    `flagship_phenaki`."""
     return _seeded_flagship(seed, device, torch.float32, num_frames, 18, torch.bfloat16, critic,
-                            self_token_critic, seq_group)
+                            self_token_critic, seq_group, cvivit_dtype=torch.bfloat16)
 
 
 def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype, critic,
-                     self_token_critic, seq_group) -> Phenaki:
+                     self_token_critic, seq_group, *, cvivit_dtype) -> Phenaki:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("flagship_phenaki(device='cuda'): torch.cuda.is_available() is False")
@@ -98,7 +101,9 @@ def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype, crit
         init_parameters(m, gen, skip=encoder if i == 0 else ())
     for m in encoder:
         init_parameters(m, gen)
-    modules = [m.to(device=device, dtype=dtype) for m in modules]
+    # every weight is drawn in f32 above; only the casts below differ by preset
+    dtypes = [cvivit_dtype] + [dtype] * (len(modules) - 1)
+    modules = [m.to(device=device, dtype=t) for m, t in zip(modules, dtypes)]
     ph = Phenaki(maskgit=modules[1], cvivit=modules[0], text_embed_dim=FLAGSHIP_TEXT_DIM,
                  steps=steps, max_text_len=128, critic=modules[2] if critic else None,
                  self_token_critic=self_token_critic)

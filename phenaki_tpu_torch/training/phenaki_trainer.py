@@ -1,14 +1,25 @@
-"""Phenaki (MaskGit) trainer on pre-tokenized data (counterpart of
-phenaki_tpu/training/phenaki_trainer.py, the part this path needs).
+"""Phenaki (MaskGit + critic) trainer (counterpart of
+phenaki_tpu/training/phenaki_trainer.py).
 
-The dataset yields tuples whose fields are inferred from their types as in
-the TPU package (`determine_field`): pre-tokenized `video_codebook_ids`
-(integers), precomputed `text_embeds` (float, (b, L, d) once batched) and an
-optional `video_frame_mask` (bool). One `train_step()` runs
-`grad_accum_every` micro-batches through `Phenaki.loss` and its backward,
-averaging their gradients as `optax.MultiSteps` does, then takes one
-optimizer step over the MaskGit and critic parameters. Every random draw of
-the loss comes from one CPU generator seeded by `seed`.
+The data: a `dataset=` of tuples, or a `folder=` of GIF/MP4 videos
+(`VideoDataset`) or, with `train_on_images`, of images (`ImageDataset`),
+loaded by the port's `DataLoader` (string-aware collate, seeded shuffle)
+in `LOADER_WORKERS` worker processes that decode, collate and cast
+batches ahead of the step, across epoch ends (the TPU package's loader
+decodes on 4 threads and prefetches in a background thread); a dataset's
+items must not touch the card.
+A tuple's fields are inferred from their types as in the TPU package
+(`determine_field`): raw `videos` (float, (b, f, H, W, c), or (b, H, W, c)
+images), caption `texts` (strings), `video_codebook_ids` (integers),
+`text_embeds` (float, (b, L, d)) and `video_frame_mask` (bool). Float pixel
+fields are cast to the C-ViViT's dtype as they are collated, in the workers. One
+`train_step()` runs `grad_accum_every` micro-batches; each embeds its texts
+(`Phenaki.embed_texts`) and goes through `Phenaki.loss`, whose frozen
+C-ViViT tokenizes raw pixels without a gradient, and its backward. The
+micro-batch gradients are averaged as `optax.MultiSteps` does, then one
+optimizer step moves the MaskGit and critic parameters. Every random draw
+of the loss and of the milestone samples comes from one CPU generator
+seeded by `seed`.
 
 As `jax.value_and_grad` does, every parameter gets a gradient each step,
 zeros where the loss did not reach it, so Adam's moments and weight decay
@@ -16,26 +27,60 @@ move every parameter every step. `only_train_critic` zeroes the MaskGit's
 gradients and `only_train_generator` a TokenCritic's, as the TPU step does;
 a SelfCritic shares the MaskGit's trunk, and nothing is zeroed for it.
 
-Not accepted yet, so that nothing diverges silently: raw `videos` (they need
-the C-ViViT encoder) and `texts` (they need T5); the mesh, FSDP and pipeline
-arguments; milestone sampling, GIFs and checkpoints; profiling.
+Milestones: after outer step s with (s - 1) % save_and_sample_every == 0
+(step 1 first), milestone m = (s - 1) // save_and_sample_every samples
+`num_samples` videos in groups of at most `batch_size` (captions drawn from
+`sample_texts`) into `results_folder/videos.{m}/{caption}.gif`, or in image
+mode one PNG grid `results_folder/{m}.png`, then saves a checkpoint
+(`results_folder/checkpoints/{m}.pt`): the parameters, Adam's state, the
+generator's state and the step count, all a resume needs to continue
+bit-identically (gradients are accumulated within a step, so no
+accumulation state outlives it; as in the TPU package, the data order is
+not saved). `profile_dir` captures steps [profile_steps) with
+`torch.profiler` into a Chrome trace there.
+
+Not accepted: the mesh, FSDP and pipeline arguments (ROADMAP A13).
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Optional, Sequence, Tuple
+import math
+from functools import partial
+from pathlib import Path
+from random import choices
+from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
-from torch.utils.data import DataLoader
 
+from phenaki_tpu_torch.data.codecs import video_tensor_to_gif
+from phenaki_tpu_torch.data.datasets import (
+    DataLoader,
+    ImageDataset,
+    VideoDataset,
+    collate_tensors_and_strings,
+)
 from phenaki_tpu_torch.models.phenaki import Phenaki
+from phenaki_tpu_torch.training.checkpoint import CheckpointManager
 from phenaki_tpu_torch.training.optimizer import get_optimizer
+from phenaki_tpu_torch.utils.image_grid import save_image_grid
+from phenaki_tpu_torch.utils.logging import start_trace, stop_trace
+from phenaki_tpu_torch.utils.results_folder import prepare_results_folder
 
 VALID_FIELDS = {"videos", "texts", "video_codebook_ids", "video_frame_mask", "text_embeds"}
-NOT_PORTED = {
-    "videos": "training from raw videos needs the C-ViViT encoder (ROADMAP A7)",
-    "texts": "training from raw texts needs the T5 encoder (ROADMAP A8)",
-}
+# the TPU package's loader decodes a batch's items on 4 threads
+LOADER_WORKERS = 4
+PARALLEL_NOT_PORTED = "the mesh, FSDP and pipeline arguments are not ported yet (ROADMAP A13)"
+
+
+def num_to_groups(num: int, divisor: int) -> List[int]:
+    groups, rem = divmod(num, divisor)
+    return [divisor] * groups + ([rem] if rem > 0 else [])
+
+
+def simple_slugify(text: str, max_length: int = 255) -> str:
+    return (text.replace("-", "_").replace(",", "").replace(" ", "_").replace("|", "--")
+            .strip("-_")[:max_length])
 
 
 def determine_field(el: Any) -> str:
@@ -59,48 +104,113 @@ def determine_types(data: Sequence[Any]) -> Tuple[str, ...]:
     return tuple(determine_field(el) for el in data)
 
 
-def cycle(dl: DataLoader) -> Iterator:
-    while True:
-        yield from dl
+def collate_and_cast(data: List[Any], dtype: torch.dtype) -> Tuple:
+    """The string-aware collate, then float pixel fields (ndim >= 4) as
+    tensors of `dtype`, the C-ViViT's (the host-to-device copy then moves
+    that dtype's bytes)."""
+    out = []
+    for el in collate_tensors_and_strings(data):
+        if isinstance(el, np.ndarray) and np.issubdtype(el.dtype, np.floating) and el.ndim >= 4:
+            el = torch.from_numpy(el)
+        if isinstance(el, torch.Tensor) and el.is_floating_point() and el.ndim >= 4:
+            el = el.to(dtype)
+        out.append(el)
+    return tuple(out)
 
 
 class PhenakiTrainer:
-    def __init__(self, phenaki: Phenaki, *, dataset, dataset_fields: Optional[Tuple[str, ...]] = None,
-                 batch_size: int = 16, grad_accum_every: int = 1, train_lr: float = 1e-4,
+    def __init__(self, phenaki: Phenaki, *, folder: Optional[str] = None, train_on_images: bool = False,
+                 batch_size: int = 16, grad_accum_every: int = 1, num_frames: int = 17,
+                 sample_num_frames: Optional[int] = None, train_lr: float = 1e-4,
                  train_num_steps: int = 100000, max_grad_norm: Optional[float] = None,
-                 adam_betas: Tuple[float, float] = (0.9, 0.99), wd: float = 0.0, seed: int = 42,
-                 log_every: int = 10):
-        if dataset_fields is not None:
-            if len(set(dataset_fields)) != len(dataset_fields) or not set(dataset_fields) <= VALID_FIELDS:
-                raise ValueError(f"dataset_fields {dataset_fields} must be distinct names in {VALID_FIELDS}")
-            self._check_ported(dataset_fields)
+                 adam_betas: Tuple[float, float] = (0.9, 0.99), wd: float = 0.0,
+                 save_and_sample_every: int = 1000, num_samples: int = 25,
+                 results_folder: str = "./results", clear_previous_results: Optional[bool] = None,
+                 sample_texts_file_path: Optional[str] = None, sample_texts: Optional[List[str]] = None,
+                 dataset=None, dataset_fields: Optional[Tuple[str, ...]] = None, mesh=None,
+                 fsdp: bool = False, pp: int = 1, pipeline_microbatches: Optional[int] = None,
+                 seed: int = 42, log_every: int = 10, profile_dir: Optional[str] = None,
+                 profile_steps: Tuple[int, int] = (2, 4)):
+        if mesh is not None or fsdp or pp != 1 or pipeline_microbatches is not None:
+            raise NotImplementedError(PARALLEL_NOT_PORTED)
+        if math.isqrt(num_samples) ** 2 != num_samples:
+            raise ValueError("number of samples must have an integer square root")
+        if dataset_fields is not None and (len(set(dataset_fields)) != len(dataset_fields)
+                                           or not set(dataset_fields) <= VALID_FIELDS):
+            raise ValueError(f"dataset_fields {dataset_fields} must be distinct names in {VALID_FIELDS}")
         self.model = phenaki
+        self.unconditional = phenaki.maskgit.unconditional
+        self.sample_texts = None
+        if sample_texts_file_path is not None:
+            self.sample_texts = [t for t in Path(sample_texts_file_path).read_text().split("\n") if t]
+        elif sample_texts is not None:
+            self.sample_texts = list(sample_texts)
+        if not self.unconditional and not self.sample_texts:
+            raise ValueError("sample_texts or sample_texts_file_path must be given for "
+                             "text-conditioned training")
+
         self.dataset_fields = dataset_fields
         self.batch_size = batch_size
         self.grad_accum_every = grad_accum_every
         self.train_num_steps = train_num_steps
+        self.train_on_images = train_on_images
+        self.sample_num_frames = sample_num_frames if sample_num_frames is not None else num_frames
+        self.num_samples = num_samples
+        self.save_and_sample_every = save_and_sample_every
         self.log_every = log_every
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self._trace = None
         self.step = 0
         self.generator = torch.Generator().manual_seed(seed)
-        self.dl = cycle(DataLoader(dataset, batch_size=batch_size, shuffle=True, drop_last=True,
-                                   generator=torch.Generator().manual_seed(seed + 1)))
+
+        image_size = phenaki.cvivit.image_hw
+        if dataset is not None:
+            self.ds = dataset
+        elif train_on_images:
+            if folder is None:
+                raise ValueError("train_on_images needs a folder of images or a dataset")
+            self.ds = ImageDataset(folder, image_size)
+        elif folder is not None:
+            self.ds = VideoDataset(folder, image_size, num_frames=num_frames)
+        else:
+            self.ds = None
+        self.dl: Optional[Iterator] = None
+        if self.ds is not None:
+            # on the card, batches come in page-locked memory, so that their
+            # copies to the device are DMA transfers issued without a wait
+            on_card = phenaki.maskgit.to_logits.weight.device.type == "cuda"
+            self.dl = iter(DataLoader(self.ds, batch_size=batch_size, seed=seed + 1, repeat=True,
+                                      num_workers=LOADER_WORKERS, pin_memory=on_card,
+                                      collate_fn=partial(collate_and_cast, dtype=phenaki.cvivit.dtype)))
+
         self.opt = get_optimizer(phenaki.parameters(), lr=train_lr, wd=wd, betas=adam_betas,
                                  max_grad_norm=max_grad_norm)
-
-    @staticmethod
-    def _check_ported(fields):
-        for name in fields:
-            if name in NOT_PORTED:
-                raise NotImplementedError(NOT_PORTED[name])
+        self.results_folder = prepare_results_folder(results_folder, clear_previous_results)
+        self.checkpoints = CheckpointManager(self.results_folder / "checkpoints")
 
     def data_tuple_to_fields(self, data: Tuple) -> Tuple[str, ...]:
         if self.dataset_fields is None:
             fields = determine_types(data)
             if len(set(fields)) != len(fields):
                 raise ValueError(f"dataset fields {fields} are not distinct")
-            self._check_ported(fields)
             self.dataset_fields = fields
         return self.dataset_fields
+
+    def _device_batch(self, data: Tuple) -> dict:
+        """A collated micro-batch -> `Phenaki.loss` keyword arguments on the
+        MaskGit's device, texts embedded."""
+        device = self.model.maskgit.to_logits.weight.device
+        batch = {}
+        for name, el in zip(self.data_tuple_to_fields(data), data):
+            if name == "texts":
+                batch["text_embeds"] = self.model.embed_texts(list(el))
+            else:
+                batch[name] = torch.as_tensor(el).to(device, non_blocking=True)
+        if self.train_on_images and "videos" in batch and batch["videos"].ndim != 4:
+            raise ValueError("you have it set to train on images, but the dataset is not returning "
+                             "image batches")
+        return batch
 
     def _complete_grads(self, only_train_generator: bool, only_train_critic: bool) -> None:
         """Zeros for every parameter the loss did not reach, and for the half
@@ -117,14 +227,29 @@ class PhenakiTrainer:
             elif id(p) in frozen_ids:
                 p.grad.zero_()
 
+    def _maybe_profile(self, step: int) -> None:
+        """Start the trace before step `profile_steps[0]`, stop it before
+        step `profile_steps[1]`."""
+        if not self.profile_dir:
+            return
+        start, stop = self.profile_steps
+        if step == start:
+            self._trace = start_trace()
+        elif step == stop and self._trace is not None:
+            stop_trace(self._trace, self.profile_dir)
+            self._trace = None
+
     def train_step(self, only_train_generator: bool = False, only_train_critic: bool = False
                    ) -> torch.Tensor:
-        """One optimizer step; returns the mean micro-batch loss as a device
-        scalar (reading it on the host syncs with the card)."""
+        """One optimizer step, then the milestone when one is due; returns the
+        mean micro-batch loss as a device scalar (reading it on the host
+        syncs with the card)."""
+        if self.dl is None:
+            raise ValueError("no dataset configured")
+        self._maybe_profile(self.step)
         total = 0.0
         for _ in range(self.grad_accum_every):
-            data = next(self.dl)
-            batch = dict(zip(self.data_tuple_to_fields(data), data))
+            batch = self._device_batch(next(self.dl))
             loss, _ = self.model.loss(**batch, only_train_generator=only_train_generator,
                                       only_train_critic=only_train_critic, generator=self.generator)
             (loss / self.grad_accum_every).backward()
@@ -135,9 +260,74 @@ class PhenakiTrainer:
         self.step += 1
         if self.step % self.log_every == 0:
             print(f"{self.step}: loss: {float(total):.4f}")
+        if (self.step - 1) % self.save_and_sample_every == 0:
+            self._sample_and_save((self.step - 1) // self.save_and_sample_every)
         return total
 
-    def train(self):
+    def _sample_and_save(self, milestone: int) -> None:
+        self._sample_artifacts(milestone)
+        self.save(milestone)
+
+    def _sample_artifacts(self, milestone: int) -> List[Optional[str]]:
+        """`num_samples` samples in groups of at most `batch_size`, written as
+        GIFs named by their captions (a caption drawn twice keeps its last
+        sample, as in the TPU package), or in image mode as one PNG grid;
+        returns the captions drawn (None for an unconditional model)."""
+        texts = (choices(self.sample_texts, k=self.num_samples) if not self.unconditional
+                 else [None] * self.num_samples)
+        sampled, start = [], 0
+        for group_size in num_to_groups(self.num_samples, self.batch_size):
+            group = texts[start: start + group_size]
+            start += group_size
+            kwargs = {"batch_size": group_size} if self.unconditional else {"texts": list(group)}
+            if self.train_on_images:
+                out = self.model.sample_images(generator=self.generator, **kwargs)
+            else:
+                out = self.model.sample(num_frames=self.sample_num_frames, generator=self.generator,
+                                        **kwargs)
+            sampled.append(out.float().cpu().numpy())
+        sampled = np.concatenate(sampled, axis=0)
+
+        if self.train_on_images:
+            save_image_grid(np.clip(sampled, 0.0, 1.0), str(self.results_folder / f"{milestone}.png"),
+                            nrow=math.isqrt(self.num_samples))
+            return texts
+        folder = self.results_folder / f"videos.{milestone}"
+        folder.mkdir(parents=True, exist_ok=True)
+        for ind, video in enumerate(sampled):
+            caption = texts[ind]
+            slug = simple_slugify(caption) if caption is not None else str(ind)
+            video_tensor_to_gif(video, str(folder / f"{slug}.gif"))
+        return texts
+
+    def _ckpt_tree(self) -> dict:
+        """Everything a bit-identical resume needs: the parameters, Adam's
+        state, the generator's state and the outer step count."""
+        params = {"maskgit": self.model.maskgit.state_dict()}
+        if self.model.critic is not None:
+            params["critic"] = self.model.critic.state_dict()
+        return {"params": params, "opt_state": self.opt.state_dict(),
+                "generator": self.generator.get_state(), "step": self.step}
+
+    def save(self, milestone: int) -> None:
+        self.checkpoints.save(milestone, self._ckpt_tree())
+
+    def load(self, milestone: Optional[int] = None) -> None:
+        """Restore a checkpoint `save` wrote (the latest when None) into this
+        trainer, whose model has the same shapes."""
+        restored = self.checkpoints.restore(milestone)
+        params = restored["params"]
+        if ("critic" in params) != (self.model.critic is not None):
+            raise ValueError("the checkpoint and this trainer's model differ in having a critic")
+        self.model.maskgit.load_state_dict(params["maskgit"])
+        if self.model.critic is not None:
+            self.model.critic.load_state_dict(params["critic"])
+        self.opt.load_state_dict(restored["opt_state"])
+        self.generator.set_state(restored["generator"])
+        self.step = int(restored["step"])
+
+    def train(self, only_train_generator: bool = False, only_train_critic: bool = False) -> None:
         while self.step < self.train_num_steps:
-            self.train_step()
+            self.train_step(only_train_generator=only_train_generator,
+                            only_train_critic=only_train_critic)
         print("training complete")

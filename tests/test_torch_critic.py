@@ -419,7 +419,7 @@ class _Ids(torch.utils.data.Dataset):
 
 
 @pytest.mark.parametrize("kind", ["token", "self"])
-def test_trainer_three_steps_with_a_critic(kind):
+def test_trainer_three_steps_with_a_critic(kind, tmp_path):
     from phenaki_tpu_torch.ops.torch_init import init_parameters
 
     gen = torch.Generator().manual_seed(3)
@@ -427,7 +427,10 @@ def test_trainer_three_steps_with_a_critic(kind):
     critic = init_parameters(TokenCritic(**CRITIC), gen) if kind == "token" else None
     ph = Phenaki(maskgit=mg, cvivit=CViViT(**CVIVIT_LOSS), text_embed_dim=TEXT_DIM, steps=STEPS,
                  critic=critic, self_token_critic=kind == "self")
-    trainer = PhenakiTrainer(ph, dataset=_Ids(), batch_size=2, train_lr=1e-3, log_every=10**9)
+    # the step-1 milestone samples one critic-guided 3-frame video (32 tokens) and saves
+    trainer = PhenakiTrainer(ph, dataset=_Ids(), batch_size=2, train_lr=1e-3, log_every=10**9,
+                             num_frames=3, num_samples=1, sample_texts=["a cat"],
+                             results_folder=str(tmp_path / "results"))
     assert {id(p) for g in trainer.opt.param_groups for p in g["params"]} == {id(p) for p in ph.parameters()}
     seen, step = [], trainer.opt.step
 

@@ -11,7 +11,8 @@ Two gloo ranks, started once for the module (`spawn_ranks`), each run:
   the JAX loss on the sequence-sharded MaskGit, with the JAX draws fed to
   the port, at the tolerances of `test_torch_train.py` (loss rtol 1e-5,
   each gradient within 1e-3 * max|g|, max|g| floored at 1e-5);
-* a 2-step `PhenakiTrainer` run: the parameters after it are bit-identical
+* a 2-step `PhenakiTrainer` run (its step-1 milestone samples on the
+  sequence-sharded model): the parameters after it are bit-identical
   across the ranks (every rank holds the full gradients, no all-reduce);
 * C-ViViT `decode_from_codebook_indices` with 8 latent frames (its causal
   ALiBi temporal attention on the plain ring, 4 frames a rank) against
@@ -22,6 +23,8 @@ Two gloo ranks, started once for the module (`spawn_ranks`), each run:
 The rank function imports no JAX: JAX is imported inside the fixtures and
 tests only.
 """
+
+import tempfile
 
 import numpy as np
 import pytest
@@ -110,10 +113,12 @@ def _rank_cases(rank, world, x, params, dec_params, draws):
     from phenaki_tpu_torch.ops.torch_init import init_parameters
 
     trained = init_parameters(MaskGit(**MASKGIT, seq_group=group), gen)
-    trainer = PhenakiTrainer(Phenaki(maskgit=trained, cvivit=CViViT(**CVIVIT), text_embed_dim=TEXT_DIM,
-                                     steps=STEPS), dataset=_Ids(), batch_size=2, train_lr=1e-3, seed=4,
-                             log_every=10**9)
-    out["train_losses"] = [trainer.train_step().item() for _ in range(2)]
+    with tempfile.TemporaryDirectory() as results:  # the step-1 milestone's sample and checkpoint
+        trainer = PhenakiTrainer(Phenaki(maskgit=trained, cvivit=CViViT(**CVIVIT), text_embed_dim=TEXT_DIM,
+                                         steps=STEPS), dataset=_Ids(), batch_size=2, train_lr=1e-3, seed=4,
+                                 log_every=10**9, num_frames=3, num_samples=1, sample_texts=["a cat"],
+                                 results_folder=results)
+        out["train_losses"] = [trainer.train_step().item() for _ in range(2)]
     out["trained"] = {n: p.detach().numpy() for n, p in trained.named_parameters()}
 
     dec = load_flax_params(CViViT(**DECODER, seq_group=group), dec_params)

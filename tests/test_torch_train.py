@@ -17,7 +17,7 @@
 * the optimizer against optax over 3 steps: atol 1e-6 (torch's global-norm
   clip divides by norm + 1e-6, optax's by the norm);
 * gradient accumulation equals the mean of the micro-batch gradients, and
-  a 3-step `PhenakiTrainer` run.
+  a 3-step `PhenakiTrainer` run (its step-1 milestone samples and saves).
 """
 
 import numpy as np
@@ -336,10 +336,19 @@ def _capture_grads(trainer):
     return seen
 
 
-def test_grad_accumulation_is_the_mean_of_micro_batches():
+def _trainer(ph, tmp_path, **kw):
+    """A trainer whose step-1 milestone samples one 3-frame video (128 tokens)."""
+    return PhenakiTrainer(ph, dataset=_Ids(), batch_size=2, num_frames=3, num_samples=1,
+                          sample_texts=["a cat"], results_folder=str(tmp_path / "results"), **kw)
+
+
+def test_grad_accumulation_is_the_mean_of_micro_batches(tmp_path):
     ph = _small_phenaki()
-    accum = PhenakiTrainer(ph, dataset=_Ids(), batch_size=2, grad_accum_every=2, seed=5)
-    single = PhenakiTrainer(ph, dataset=_Ids(), batch_size=2, grad_accum_every=1, seed=5)
+    accum = _trainer(ph, tmp_path, grad_accum_every=2, seed=5)
+    single = _trainer(ph, tmp_path, grad_accum_every=1, seed=5)
+    # the step-1 milestone samples from the generator, which would put its
+    # draws between single's two micro-batches; this test is about the steps
+    accum._sample_and_save = single._sample_and_save = lambda milestone: None
     got, micro = _capture_grads(accum), _capture_grads(single)
     loss = accum.train_step()
     losses = [single.train_step() for _ in range(2)]
@@ -348,22 +357,25 @@ def test_grad_accumulation_is_the_mean_of_micro_batches():
         torch.testing.assert_close(g, (micro[0][name] + micro[1][name]) / 2, atol=1e-7, rtol=1e-5)
 
 
-def test_trainer_three_steps():
+def test_trainer_three_steps(tmp_path):
     ph = _small_phenaki(1)
     before = {n: p.detach().clone() for n, p in ph.maskgit.named_parameters()}
-    trainer = PhenakiTrainer(ph, dataset=_Ids(), batch_size=2, train_num_steps=3, log_every=1,
-                             train_lr=1e-3)
+    trainer = _trainer(ph, tmp_path, train_num_steps=3, log_every=1, train_lr=1e-3)
     trainer.train()
+    assert trainer.checkpoints.all_steps() == [0]
     assert trainer.step == 3 and trainer.dataset_fields == ("video_codebook_ids", "text_embeds")
     assert np.isfinite(trainer.train_step().item())
     changed = [n for n, p in ph.maskgit.named_parameters() if not torch.equal(p, before[n])]
     assert "to_logits.weight" in changed and "continuous_pos_bias.net_out.weight" in changed
 
 
-def test_trainer_field_inference():
+def test_trainer_field_inference(tmp_path):
     ids = torch.zeros(2, *GRID, dtype=torch.long)
     emb, mask, video = torch.zeros(2, 5, 16), torch.ones(2, 3, dtype=torch.bool), torch.zeros(2, 3, 8, 8, 3)
     assert determine_types([ids, emb, mask]) == ("video_codebook_ids", "text_embeds", "video_frame_mask")
     assert determine_types([video, ["a", "b"]]) == ("videos", "texts")
-    with pytest.raises(NotImplementedError, match="C-ViViT encoder"):
-        PhenakiTrainer(_small_phenaki(), dataset=_Ids(), dataset_fields=("videos", "text_embeds"))
+    assert determine_types([video.bfloat16(), emb.bfloat16()]) == ("videos", "text_embeds")
+    trainer = _trainer(_small_phenaki(), tmp_path, dataset_fields=("videos", "texts"))
+    assert trainer.dataset_fields == ("videos", "texts")
+    with pytest.raises(ValueError, match="distinct"):
+        _trainer(_small_phenaki(), tmp_path, dataset_fields=("videos", "videos"))
