@@ -13,19 +13,23 @@ and without a critic, on one NVIDIA GPU.
                                                   # scenes (16 frames after 5) written to OUT.txt
     python3 chip_smoke.py --profile-tokenize OUT.txt  # and a profile of three B = 32
                                                   # tokenize calls written to OUT.txt
+    python3 chip_smoke.py --profile-gan OUT        # and profiles of a C-ViViT GAN step without
+                                                  # and with the R1 penalty, OUT.{without,with}_penalty.txt
 
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc (and
 checks that the SASS of the bf16 attention forward, its dQ, dK/dV and dBias
 kernels, the projection sampler and the fused CE's forward, dh and dW
 kernels holds wgmma), holds each
 kernel against its plain PyTorch version at the flagship shapes (the
-flash-attention forward and its three backward kernels, the projection
+flash-attention forward and its three backward kernels (these also at the
+C-ViViT's spatial shape in a GAN train step), the projection
 sampler, the fused cross-entropy forward and its two backward kernels, the
 logits-path sampler; the attention forward also at the C-ViViT encoder's
 tokenize shape and the primed MaskGit's, the projection sampler also on
 the strided scene rows of primed embeddings), checks small fp32 models sampled and trained on the
 card against the same models on the CPU (with and without a critic, and on
-the logits path), and drives the flagship model (random weights from a
+the logits path; a small discriminator's R1 penalty and its second-order
+gradients, which launch no kernel), and drives the flagship model (random weights from a
 seed) through its entry points: `flagship_phenaki(...).sample(...)` plain,
 with a TokenCritic and with a SelfCritic; the logits path of
 `maskgit_sample_loop`; and `PhenakiTrainer(...).train_step()` on seeded
@@ -43,8 +47,13 @@ written and read back by the port's codecs and `VideoDataset`, each with a
 caption (the data wait, tokenize's device time and the step's beside it),
 5 steps at b = 4 whose first milestone samples 4 GIFs and saves a
 checkpoint, and a trainer resumed from a checkpoint that must take the
-same two steps, bit for bit, as one that ran on. Then the
-sequence-parallel paths on SP = 2 spawned ranks (NCCL with a GPU a rank
+same two steps, bit for bit, as one that ran on. Then the C-ViViT GAN
+train path: `CViViTTrainer(flagship_train_cvivit(), dataset=...)` on 8
+seeded GIFs, b = 4, a discriminator of base dim 64 and the R1 penalty every
+4th step (seconds a step with and without it, GAN videos/s, the
+reconstructions and checkpoint of step 0, profiled device ms), and a
+trainer loaded from a checkpoint whose next step must be bit-equal to the
+live one's. Then the sequence-parallel paths on SP = 2 spawned ranks (NCCL with a GPU a rank
 when there are enough cards, otherwise gloo with both ranks on the one
 card): kernel 3 (the ring chunk) and the offset backward kernels against
 their plain versions, a small fp32 sequence-sharded model against dense,
@@ -151,6 +160,24 @@ RAW_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=TRAIN_PER_STEP["fwd"] + TOKENIZE_L
 MILESTONE_LAUNCHES = SAMPLE_LAUNCHES
 
 
+# the C-ViViT GAN train path: the flagship C-ViViT (f32 weights, bf16
+# compute) and a discriminator of base dim 64 (blocks of 256 and 512
+# channels; attention at 16 x 8 positions) trained by CViViTTrainer at b = 4
+# on 8 seeded GIFs, the R1 penalty on every 4th step (0, 4, 8, ...). A step
+# launches kernel 1 in the 4 encoder and 4 decoder spatial layers (9 latent
+# frames of 16 x 8 tokens a video: (36, 8, 128, 64)) of the generator
+# phase's forward, and again in the discriminator phase's reconstruction
+# (no gradient), and dQ, dK/dV and dBias (the CPB is trained) once each in
+# the 8 spatial layers of the generator phase's backward. The temporal
+# attention (9 latent frames) and the discriminator's attention take the
+# plain path; the adaptive weight's gradients stop at the pixel heads. Step
+# 0 also reconstructs a batch with the EMA and the raw parameters (8
+# forward launches each) and checkpoints
+GAN_BATCH, GAN_STEPS, GAN_PENALTY_EVERY = 4, 8, 4
+GAN_PER_STEP = {"fwd": 16, "dq": 8, "dkv": 8, "dbias": 8}
+GAN_RECON_LAUNCHES = {"fwd": 8}
+
+
 class CheckFailed(RuntimeError):
     pass
 
@@ -231,6 +258,10 @@ def qk(shape, gen, dtype):
     return t.to("cuda", dtype)
 
 
+# the backward kernels' timed shapes (the train steps'), and those also
+# given bounds and SDPA's whole backward beside them
+BWD_TIMED_SHAPES = ("maskgit_self", "critic_self", "maskgit_cross", "cvivit_spatial_b4")
+BWD_YARDSTICK_SHAPES = ("maskgit_self", "cvivit_spatial_b4")
 # kernel 1's main-path shapes: each is timed beside its bound and one SDPA
 # call on the same inputs
 FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self",
@@ -394,7 +425,9 @@ def flash_bwd_cases(torch, dtype, gen):
     cross-attention with a row that sees only the
     null-KV columns, the same with a row that sees no key at all (without a
     bias, and with an (8, 1152, 130) bias: ragged key tiles, dBias rows of
-    130), a causal ALiBi case, and d = 128 with ragged tiles."""
+    130), a causal ALiBi case, d = 128 with ragged tiles, and the C-ViViT's
+    spatial attention in the GAN train step (b = 4 videos x 9 latent frames
+    of 16 x 8 tokens, with the trained (8, 128, 128) CPB bias)."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
     from phenaki_tpu_torch.ops.positional import alibi_bias
 
@@ -420,6 +453,8 @@ def flash_bwd_cases(torch, dtype, gen):
     cases["causal_alibi"] = (qa, ka, va, alibi_bias(8, 256, 320, device="cuda").to(dtype), None, True)
     qd, kd, vd = qk((1, 4, 200, 128), gen, dtype), qk((1, 4, 200, 128), gen, dtype), rand(1, 4, 200, 128)
     cases["dim_head_128"] = (qd, kd, vd, rand(4, 200, 200), None, False)
+    qs, ks, vs = qk((36, 8, 128, 64), gen, dtype), qk((36, 8, 128, 64), gen, dtype), rand(36, 8, 128, 64)
+    cases["cvivit_spatial_b4"] = (qs, ks, vs, rand(8, 128, 128), None, False)
     return cases
 
 
@@ -477,7 +512,7 @@ def check_flash_bwd(torch):
                 check(torch.equal(got["dbias"], fa.flash_attention_bwd_dbias(*args, **kw)),
                       f"flash bwd {tag}: two dBias calls differ")
             ms = graph = plain_ms = None
-            if dtype == torch.bfloat16 and name in ("maskgit_self", "critic_self", "maskgit_cross"):
+            if dtype == torch.bfloat16 and name in BWD_TIMED_SHAPES:
                 # timed at the train shapes only: each kernel back to back
                 # (`ms`) and by CUDA-graph replay (`graph_ms`, the device time
                 # alone), against the plain version of that kernel alone
@@ -497,8 +532,8 @@ def check_flash_bwd(torch):
             phase(f"flash_attention_bwd {tag}", shape=list(q.shape), j=k.shape[2],
                   rel_err=errs, ms=ms, graph_ms=graph, plain_ms=plain_ms)
             result[tag] = dict(abs_errs=abs_errs, ms=ms, graph_ms=graph, plain_ms=plain_ms)
-            if tag == "maskgit_self_bfloat16":
-                result[tag].update(bwd_yardsticks(torch, q, k, v, bias, kmask, do, lse, delta, got))
+            if dtype == torch.bfloat16 and name in BWD_YARDSTICK_SHAPES:
+                result[tag].update(bwd_yardsticks(torch, q, k, v, bias, kmask, do, lse, delta, got, name))
 
     # autograd on the card: the Function launches the kernels and every
     # differentiable input gets a gradient equal to the plain backward's. f32
@@ -542,14 +577,14 @@ def bwd_bounds(q, k, v, bias, kmask, do, lse, delta, got):
             "dbias": bound(inputs + nbytes(got.get("dbias")), 4 * ijd)}
 
 
-def bwd_yardsticks(torch, q, k, v, bias, kmask, do, lse, delta, got):
+def bwd_yardsticks(torch, q, k, v, bias, kmask, do, lse, delta, got, name):
     """Bounds of kernels 4-6, and the yardstick: SDPA's whole backward (dq,
     dk, dv and the bias's gradient in one autograd call) on the same inputs."""
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
     out = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=8.0)
     library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=10)
     bounds = bwd_bounds(q, k, v, bias, kmask, do, lse, delta, got)
-    phase("flash_attention_bwd yardsticks", bound_ms={key: b[0] for key, b in bounds.items()},
+    phase(f"flash_attention_bwd yardsticks {name}", bound_ms={key: b[0] for key, b in bounds.items()},
           library_whole_backward_ms=library_ms)
     return dict(bounds=bounds, library_ms=library_ms)
 
@@ -1948,6 +1983,242 @@ def resume_check(torch, video, tmp):
     del ran_on, resumed
 
 
+def check_small_discriminator(torch):
+    """A small fp32 `Discriminator` (base dim 4, 64 x 64 frames, attention at
+    8 x 8 positions and 64 channels, which would pass kernel 1's gate) on
+    the card and on the CPU: the hinge loss plus the R1 penalty, and every
+    gradient of it (second order through the plain attention). The loss
+    agrees within 1e-4 relative and each gradient within 1e-3 * max|g| of
+    its tensor (floored at 1e-5), TF32 off; no kernel is launched."""
+    import copy
+
+    import phenaki_tpu_torch.models.cvivit_losses as L
+    from phenaki_tpu_torch.models.cvivit import Discriminator
+    from phenaki_tpu_torch.ops.torch_init import init_parameters
+
+    d = init_parameters(Discriminator(4, 64, attn_res_layers=(16,)), torch.Generator().manual_seed(30))
+    gen = torch.Generator().manual_seed(31)
+    real, fake = torch.rand(2, 64, 64, 3, generator=gen), torch.rand(2, 64, 64, 3, generator=gen)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        dd = copy.deepcopy(d).to(device)
+        before = kernel_counts()
+        r, f = real.to(device), fake.to(device)
+        loss = L.hinge_discr_loss(dd(f), dd(r)) + L.gradient_penalty(dd, r)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[device] = (loss.item(), {n: p.grad.cpu() for n, p in dd.named_parameters() if p.grad is not None},
+                        launched_since(before))
+    (loss_cpu, g_cpu, _), (loss_gpu, g_gpu, launched) = runs["cpu"], runs["cuda"]
+    worst = max(((g_gpu[n] - r).abs().max() / max(r.abs().max().item(), 1e-5)).item()
+                for n, r in g_cpu.items())
+    phase("small fp32 discriminator R1 card vs cpu", loss_cpu=loss_cpu, loss_gpu=loss_gpu,
+          gradients=len(g_cpu), worst_grad_rel_err=worst, kernel_launches=nonzero(launched))
+    check(sorted(g_cpu) == sorted(g_gpu), "the discriminator's gradients differ in which parameters they reach")
+    check(not nonzero(launched), f"the discriminator launched kernels: {nonzero(launched)}")
+    check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu), f"R1 loss differs: {loss_gpu} vs {loss_cpu}")
+    check(worst <= 1e-3, f"a discriminator gradient differs between card and CPU by {worst} of its max")
+
+
+class GanTrainerProbe:
+    """Wraps a `CViViTTrainer`'s data iterator, `_save_results` and `save`:
+    the host's wait for each batch, and the seconds, launches and written
+    files of each reconstruction save and checkpoint."""
+
+    def __init__(self, torch, trainer):
+        self.waits, self.saves, self.results = [], [], []
+        trainer.dl = _timed_batches(trainer.dl, self.waits)
+        save_results, save = trainer._save_results, trainer.save
+
+        def timed_results(steps):
+            before = kernel_counts()
+            self.results.append(dict(seconds=timed(torch, lambda: save_results(steps))[1],
+                                     launches=launched_since(before)))
+
+        def timed_save(milestone):
+            self.saves.append(timed(torch, lambda: save(milestone))[1])
+
+        trainer._save_results, trainer.save = timed_results, timed_save
+
+
+def gan_trainer(torch, dataset, results):
+    from phenaki_tpu_torch.presets import flagship_train_cvivit
+    from phenaki_tpu_torch.training.cvivit_trainer import CViViTTrainer
+
+    return CViViTTrainer(flagship_train_cvivit(seed=0, device="cuda"), dataset=dataset, num_train_steps=10**9,
+                         batch_size=GAN_BATCH, num_frames=17, discr_base_dim=64, discr_attn_res_layers=(16,),
+                         perceptual_mode="disc", use_ema=True, apply_grad_penalty_every=GAN_PENALTY_EVERY,
+                         valid_frac=0.0, save_results_every=10**9, save_model_every=10**9, seed=0,
+                         log_every=10**9, results_folder=results)
+
+
+def gan_step(torch, trainer, seconds, logs):
+    counts = kernel_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = trainer.train_step()
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t)
+    logs.append({k: v.item() for k, v in out.items()})
+    return launched_since(counts)
+
+
+def run_cvivit_gan_path(torch, card, profile_path=None):
+    """The flagship C-ViViT (f32 weights, bf16 compute) trained as a VQGAN by
+    `CViViTTrainer` at b = 4 on 8 seeded GIFs of 17 x 256 x 128 written and
+    read back through `VideoDataset`, with a discriminator of base dim 64
+    (attention at 16 x 8 positions), the "disc" perceptual loss, the EMA,
+    and the R1 penalty every 4th step. Counts set to 0 before step 0, the
+    warm-up, whose reconstructions (EMA and raw parameters: 4 GIFs each,
+    each decoding to 17 x 256 x 128) and checkpoint are timed apart; every
+    step launches exactly GAN_PER_STEP (step 0 also GAN_RECON_LAUNCHES for
+    each reconstruction). Steps 1-8 give the seconds a step with and without
+    the penalty, videos/s over the 8 (2 of them with the penalty: the
+    1-in-4 mix), the host's wait for data and peak memory; two more steps
+    under `torch.profiler`, one without the penalty and one with, the
+    device ms and idle share of each. The losses and the adaptive weight
+    must be finite, the weight > 0 (with `profile_path`, each profiled
+    step's tables go to `{profile_path}.{without,with}_penalty.txt`). Then
+    the resume: the trainer saves, a
+    second one loads the checkpoint, and both take one step on the same
+    batch; their losses and parameters must be bit-equal."""
+    import numpy as np
+
+    from phenaki_tpu_torch.data.codecs import gif_to_tensor, video_tensor_to_gif
+    from phenaki_tpu_torch.data.datasets import VideoDataset
+    from phenaki_tpu_torch.presets import FLAGSHIP_IMAGE_SIZE
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "videos").mkdir()
+        rng = np.random.RandomState(23)
+        for k in range(RAW_VIDEOS):
+            video_tensor_to_gif(rng.rand(17, *FLAGSHIP_IMAGE_SIZE, 3).astype(np.float32),
+                                str(tmp / "videos" / f"{k}.gif"))
+        videos = VideoDataset(str(tmp / "videos"), FLAGSHIP_IMAGE_SIZE, num_frames=17)
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer, build_s = timed(torch, lambda: gan_trainer(torch, videos, str(tmp / "results")))
+        check(trainer.vae.dtype == torch.bfloat16 and trainer.discr.dtype == torch.bfloat16,
+              "gan train: the C-ViViT or the discriminator does not compute in bf16")
+        check(trainer.vae.to_pixels_first.weight.dtype == torch.float32, "gan train: the C-ViViT is not f32")
+        check(trainer.discr.attn_blocks == {3} and not trainer.discr.attn_3.use_flash,
+              "gan train: the discriminator's attention is not the plain one at 16 x 8")
+        probe = GanTrainerProbe(torch, trainer)
+
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, logs = [], []
+        launched = gan_step(torch, trainer, seconds, logs)
+        expected = dict(GAN_PER_STEP, fwd=GAN_PER_STEP["fwd"] + 2 * GAN_RECON_LAUNCHES["fwd"])
+        check(launched == exact(expected), f"gan step 0: launches {nonzero(launched)} != {expected}")
+        for step in range(1, GAN_STEPS + 1):
+            launched = gan_step(torch, trainer, seconds, logs)
+            check(launched == exact(GAN_PER_STEP), f"gan step {step}: launches {nonzero(launched)} != {GAN_PER_STEP}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(all(math.isfinite(v) for entry in logs for v in entry.values()), f"gan train: non-finite logs {logs}")
+        check(all(entry["adaptive_weight"] > 0 for entry in logs), "gan train: adaptive weight not > 0")
+        penalty = [s % GAN_PENALTY_EVERY == 0 for s in range(GAN_STEPS + 1)]
+        check([entry["grad_penalty"] > 0 for entry in logs] == penalty,
+              f"gan train: penalties {[entry['grad_penalty'] for entry in logs]}")
+        for label in ("0", "0.ema"):
+            gifs = sorted((tmp / "results" / f"samples.{label}").glob("*.gif"))
+            check(len(gifs) == GAN_BATCH and all(gif_to_tensor(str(g)).shape == (17, *FLAGSHIP_IMAGE_SIZE, 3)
+                                                  for g in gifs), f"gan train: reconstructions {gifs}")
+        check(probe.results[0]["launches"] == exact({"fwd": 2 * GAN_RECON_LAUNCHES["fwd"]}),
+              f"gan reconstructions: launches {nonzero(probe.results[0]['launches'])}")
+        timed_s = seconds[1:]
+        with_gp = [s for s, gp in zip(timed_s, penalty[1:]) if gp]
+        without_gp = [s for s, gp in zip(timed_s, penalty[1:]) if not gp]
+        # two batches a step, the generator's and the discriminator's
+        waits = probe.waits[2: 2 + 2 * GAN_STEPS]
+        profiled = {}
+        for label in ("without_penalty", "with_penalty"):
+            while (trainer.step % GAN_PENALTY_EVERY == 0) != (label == "with_penalty"):
+                gan_step(torch, trainer, [], logs)
+            profiled[label] = profile_gan_step(
+                torch, trainer, f"{profile_path}.{label}.txt" if profile_path else None)
+        launches = kernel_counts()
+        check(launches == exact({k: v * (len(logs) + 2) + (2 * GAN_RECON_LAUNCHES.get(k, 0))
+                                 for k, v in GAN_PER_STEP.items()}),
+              f"gan train: launches {nonzero(launches)} over {len(logs) + 2} steps")
+        ckpt = trainer.checkpoints.path(0)
+        phase("cvivit gan train path", card=card, batch=GAN_BATCH, frames=17, videos=RAW_VIDEOS,
+              gif_decode_route="native" if videos.native_fast_path() else "pil", build_model_s=build_s,
+              discr_base_dim=64, vae_params=sum(p.numel() for p in trainer.vae.parameters()),
+              discr_params=sum(p.numel() for p in trainer.discr.parameters()),
+              seconds_per_step_with_penalty=statistics.median(with_gp),
+              seconds_per_step_without_penalty=statistics.median(without_gp), step_seconds=seconds,
+              gan_videos_per_s=GAN_BATCH * len(timed_s) / sum(timed_s), window_steps=len(timed_s),
+              window_penalty_steps=len(with_gp), data_wait_s=statistics.median(waits),
+              data_wait_s_per_step=2 * statistics.median(waits), peak_mem_gb=peak,
+              profiled=profiled, losses=logs[:GAN_STEPS + 1],
+              save_results={"seconds": probe.results[0]["seconds"], "gifs": 2 * GAN_BATCH,
+                            "launches": nonzero(probe.results[0]["launches"])},
+              checkpoint_bytes=ckpt.stat().st_size, save_s=probe.saves[0],
+              launches_per_step=GAN_PER_STEP, launches=nonzero(launches))
+        gan_resume_check(torch, trainer, videos, tmp)
+        del trainer, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_gan_step(torch, trainer, path=None):
+    """`torch.profiler` over one step: device ms, wall ms and the idle share,
+    and the device ms of kernel 1 and of kernels 4-6; with `path`, the
+    profiler's tables (by kernel, and by the operator that launched it) are
+    written there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    device_ms, flash_ms = device_shares(torch, events)
+    _, bwd_ms = device_shares(torch, events, kernel="flash_bwd_")
+    if path:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(
+            events.table(sort_by="self_device_time_total", row_limit=60, max_name_column_width=100)
+            + "\n" + events.table(sort_by="device_time_total", row_limit=80, max_name_column_width=100))
+    return dict(step=trainer.step - 1, device_ms=device_ms, wall_ms=wall_ms, idle=1 - device_ms / wall_ms,
+                flash_fwd_ms=flash_ms, flash_bwd_ms=bwd_ms)
+
+
+def gan_resume_check(torch, trainer, videos, tmp):
+    """The live trainer saves milestone m; a second trainer, built the same
+    way, loads it; both take one step on the same batch (the first 4 GIFs).
+    The step's losses and the C-ViViT's, the discriminator's and the EMA's
+    parameters must be bit-equal."""
+    import numpy as np
+
+    m = trainer.step
+    _, save_s = timed(torch, lambda: trainer.checkpoints.save(m, trainer._ckpt_tree()))
+    resumed = gan_trainer(torch, videos, str(tmp / "results"))
+    _, load_s = timed(torch, lambda: resumed.load(m))
+    check(resumed.step == m and resumed.ema.step == trainer.ema.step, f"gan resume: step {resumed.step} != {m}")
+    batch = (torch.from_numpy(np.stack([videos[k] for k in range(GAN_BATCH)])).to(trainer.vae.dtype),)
+    logs = []
+    for tr in (trainer, resumed):
+        tr.dl = iter([batch] * 2)
+        gan_step(torch, tr, [], logs)
+    differ = [k for k in logs[0] if logs[0][k] != logs[1][k]]
+    params = [(f"{label}.{n}", p, q) for label, a, b in
+              (("vae", trainer.vae, resumed.vae), ("discr", trainer.discr, resumed.discr))
+              for (n, p), q in zip(a.named_parameters(), b.parameters())]
+    params += [(f"ema.{n}", p, resumed.ema.params[n]) for n, p in trainer.ema.params.items()]
+    param_differ = [n for n, p, q in params if not torch.equal(p, q)]
+    phase("cvivit gan resume", milestone=m, checkpoint_bytes=trainer.checkpoints.path(m).stat().st_size,
+          save_s=save_s, load_s=load_s, losses_bit_equal=not differ, params=len(params),
+          params_bit_equal=not param_differ, differing=(differ + param_differ)[:10], losses=logs)
+    check(not differ and not param_differ, f"gan resume: {differ} and {len(param_differ)} tensors differ")
+    del resumed
+
+
 def seq_parallel_rank(rank, world, profile_path=None):
     """One rank of the sequence-parallel phases (spawned; every rank runs the
     same calls with the same seeds): the small fp32 model against dense,
@@ -2237,7 +2508,8 @@ def main() -> int:
     check_wgmma_build()
 
     flash = check_flash(torch)
-    bwd = check_flash_bwd(torch)["maskgit_self_bfloat16"]
+    bwd_all = check_flash_bwd(torch)
+    bwd = bwd_all["maskgit_self_bfloat16"]
     chunk = check_chunk(torch)["flagship_other_shard_bfloat16"]
     check_chunk_bwd(torch)
     proj = check_proj(torch)["d512_bfloat16"]
@@ -2249,6 +2521,7 @@ def main() -> int:
     check_small_critic(torch)
     check_gumbel(torch)
     check_learning(torch)
+    check_small_discriminator(torch)
     args = sys.argv[1:]
     sample_profile = args[args.index("--profile-sample") + 1] if "--profile-sample" in args else None
     paths = run_sample_paths(torch, sample_profile)
@@ -2260,6 +2533,8 @@ def main() -> int:
     paths["token_critic_train"] = run_train_path(torch, "token critic train path", CRITIC_TRAIN_PER_STEP,
                                                  CRITIC_TRAIN_STEPS, critic=True)
     paths["raw_train"] = run_raw_train_path(torch, card)
+    gan_profile = args[args.index("--profile-gan") + 1] if "--profile-gan" in args else None
+    paths["cvivit_gan_train"] = run_cvivit_gan_path(torch, card, gan_profile)
     seq_profile = args[args.index("--profile-seq") + 1] if "--profile-seq" in args else None
     paths["seq_sharded_sample_and_train"] = run_seq_parallel(torch, seq_profile)
     # each path ran with its counts set to 0 before it: a kernel's launches
@@ -2291,14 +2566,18 @@ def main() -> int:
         dict(name="gumbel_sample", route="cuda", source=GUMBEL_SRC, replaces=GUMBEL_TPU,
              launches=launches["gumbel"], ms_philox=gumbel["ms_philox"], **{k: gumbel[k] for k in keys}),
     ]
+    def bwd_numbers(case, name, errs):
+        return dict(max_abs_err=max(case["abs_errs"][e] for e in errs), ms=case["ms"][name],
+                    graph_ms=case["graph_ms"][name], plain_ms=case["plain_ms"][name],
+                    bound_ms=case["bounds"][name][0], bound_by=case["bounds"][name][1],
+                    library_ms=case["library_ms"])
+
     for name, errs in (("dq", ["dq"]), ("dkv", ["dk", "dv"]), ("dbias", ["dbias"])):
         # library_ms: SDPA's whole backward, which computes all three at once
         kernels.append(dict(name=f"flash_attention_bwd_{name}", route="cuda", source=BWD_SRC,
-                            replaces=BWD_TPU[name], launches=launches[name],
-                            max_abs_err=max(bwd["abs_errs"][e] for e in errs), ms=bwd["ms"][name],
-                            graph_ms=bwd["graph_ms"][name],
-                            plain_ms=bwd["plain_ms"][name], bound_ms=bwd["bounds"][name][0],
-                            bound_by=bwd["bounds"][name][1], library_ms=bwd["library_ms"]))
+                            replaces=BWD_TPU[name], launches=launches[name], **bwd_numbers(bwd, name, errs),
+                            shapes={shape: bwd_numbers(bwd_all[f"{shape}_bfloat16"], name, errs)
+                                    for shape in BWD_YARDSTICK_SHAPES}))
     for name, errs in (("ce_fwd", ["loss", "lse"]), ("ce_dh", ["dh"]), ("ce_dw", ["dw", "db"])):
         # matmul_ms: the bf16 torch.matmul products the kernel computes, a
         # yardstick (no one PyTorch call computes the fused function)

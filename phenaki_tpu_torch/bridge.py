@@ -11,6 +11,7 @@ flax params), so this module needs no JAX. Mapping rules:
   second, which is the port's `to_kv` row order;
 * nn.Embed `embedding` -> `weight`;
 * the PEG kernel (3, 3, 3, 1, d) -> the depthwise Conv3d weight (d, 1, 3, 3, 3);
+* a 2-D conv kernel (kh, kw, in, out) -> the Conv2d weight (out, in, kh, kw);
 * `net_hidden_{i}` -> `net_hidden.{i}`;
 * everything else (bias, gamma, beta, null_kv with the k rows first,
   q_scale, k_scale) keeps its name and layout.
@@ -20,6 +21,10 @@ head; `load_phenaki_params` takes the `{"maskgit", "critic"}` dict of the
 TPU package's `Phenaki.init`, and `load_cvivit_variables` a C-ViViT's whole
 variables, `{"params", "vq_stats"}`: a cosine VQ keeps its codebook in the
 `vq_stats` collection (`codebook` -> the `embed` buffer, `cluster_size`).
+`load_discriminator_params` and `load_vgg_params` take a `Discriminator`'s
+and a `VGG16Features`' variables (`{"params": ...}`, or the params alone):
+the port names their submodules as flax does (`block_{i}`, `attn_{i}`,
+`conv_{i}`), so the rules above are all they need.
 
 Loading is strict both ways: every parameter and buffer of the module must
 have an entry, and every entry must land in the module. No tree the TPU
@@ -44,6 +49,8 @@ def _convert_leaf(name: str, arr: np.ndarray, parent: str):
     if name == "kernel":
         if arr.ndim == 5:  # PEG (3, 3, 3, 1, d) -> (d, 1, 3, 3, 3)
             return "weight", np.transpose(arr, (4, 3, 0, 1, 2))
+        if arr.ndim == 4:  # Conv (kh, kw, in, out) -> (out, in, kh, kw)
+            return "weight", np.transpose(arr, (3, 2, 0, 1))
         if arr.ndim == 2:
             return "weight", arr.T
         raise ValueError(f"unexpected kernel rank {arr.ndim} under {parent!r}")
@@ -130,3 +137,19 @@ def load_phenaki_params(phenaki, params: Mapping):
     if tree is not None:
         load_flax_params(phenaki.critic, tree)
     return phenaki
+
+
+def _params(variables: Mapping) -> Mapping:
+    return variables["params"] if "params" in variables else variables
+
+
+def load_discriminator_params(discr, variables: Mapping):
+    """Copy the TPU package's `Discriminator` variables into a port
+    `Discriminator` of the same configuration."""
+    return load_flax_params(discr, _params(variables))
+
+
+def load_vgg_params(vgg, variables: Mapping):
+    """Copy the TPU package's `VGG16Features` variables into a port
+    `VGG16Features`."""
+    return load_flax_params(vgg, _params(variables))

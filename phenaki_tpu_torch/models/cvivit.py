@@ -1,5 +1,5 @@
-"""C-ViViT, the video tokenizer-autoencoder (counterpart of
-phenaki_tpu/models/cvivit.py without the GAN discriminator). Video is
+"""C-ViViT, the video tokenizer-autoencoder, and the frame discriminator of
+its GAN training (counterpart of phenaki_tpu/models/cvivit.py). Video is
 channels-last (b, f, H, W, c), as in the TPU package; an image is (b, H, W, c).
 
 Encode: the first frame in 1 x p x p patches, the rest in pt x p x p
@@ -14,18 +14,25 @@ transformer -> pixel heads for the first frame and for the rest.
 `seq_group` (a process group) runs both temporal transformers'
 self-attention as ring attention over the frame axis; spatial attention
 stays dense, as in the JAX package. Attention and FF dropout act in training
-mode; `tokenize` always runs in eval mode and skips the decoder. The encoder
-computes in its weights' dtype (the video is cast to it), as the decoder does.
+mode; `tokenize` always runs in eval mode and skips the decoder.
+
+`dtype` is the compute dtype (the TPU package's `dtype` field): the video
+and the activations are cast to it and the weights at use, so f32 weights
+train with bf16 compute. None computes in the weights' dtype.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from phenaki_tpu_torch.models.transformer import Transformer
+from phenaki_tpu_torch.ops.attention import Attention
+from phenaki_tpu_torch.ops.feedforward import linear
 from phenaki_tpu_torch.ops.norms import StandardLayerNorm
 from phenaki_tpu_torch.ops.positional import ContinuousPositionBias
 from phenaki_tpu_torch.ops.quantize import LFQ, VectorQuantize
@@ -42,8 +49,9 @@ class CViViT(nn.Module):
                  channels: int = 3, attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  lookup_free_quantization: bool = True, lfq_entropy_loss_weight: float = 0.1,
                  lfq_commitment_loss_weight: float = 0.25, lfq_diversity_gamma: float = 1.0,
-                 seq_group=None):
+                 seq_group=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = dtype
         self.image_hw = pair(image_size)
         self.patch_hw = pair(patch_size)
         self.temporal_patch_size = temporal_patch_size
@@ -88,8 +96,8 @@ class CViViT(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        """The dtype the C-ViViT computes in: its weights'."""
-        return self.patch_proj_first.weight.dtype
+        """The dtype the C-ViViT computes in: `compute_dtype`, else its weights'."""
+        return self.compute_dtype or self.patch_proj_first.weight.dtype
 
     @property
     def patch_height_width(self) -> Tuple[int, int]:
@@ -155,10 +163,10 @@ class CViViT(nn.Module):
         t = (f - 1) // pt
         y = video[:, 1:].reshape(b, t, pt, h, ph, w, pw, c)
         y = y.permute(0, 1, 3, 5, 7, 2, 4, 6).reshape(b, t, h, w, c * pt * ph * pw)
-        x = self.patch_norm_out_first(self.patch_proj_first(self.patch_norm_in_first(x)))
+        x = self.patch_norm_out_first(linear(self.patch_norm_in_first(x), self.patch_proj_first))
         if t == 0:  # an image: no later frames
             return x
-        y = self.patch_norm_out_rest(self.patch_proj_rest(self.patch_norm_in_rest(y)))
+        y = self.patch_norm_out_rest(linear(self.patch_norm_in_rest(y), self.patch_proj_rest))
         return torch.cat([x, y], dim=1)
 
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -239,15 +247,16 @@ class CViViT(nn.Module):
         b, t, h, w, _ = tokens.shape
         ph, pw = self.patch_hw
         pt, c = self.temporal_patch_size, self.channels
-        first = self.to_pixels_first(tokens[:, :1]).reshape(b, 1, h, w, c, ph, pw)
+        first = linear(tokens[:, :1], self.to_pixels_first).reshape(b, 1, h, w, c, ph, pw)
         first = first.permute(0, 1, 2, 5, 3, 6, 4).reshape(b, 1, h * ph, w * pw, c)
-        rest = self.to_pixels_rest(tokens[:, 1:]).reshape(b, t - 1, h, w, c, pt, ph, pw)
+        rest = linear(tokens[:, 1:], self.to_pixels_rest).reshape(b, t - 1, h, w, c, pt, ph, pw)
         rest = rest.permute(0, 1, 5, 2, 6, 3, 7, 4).reshape(b, (t - 1) * pt, h * ph, w * pw, c)
         return torch.cat([first, rest], dim=1)
 
     def decode_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """(b, t, h, w, d) or (b, t*h*w, d) -> (b, t, h, w, d)."""
         h, w = self.patch_height_width
+        tokens = tokens.to(self.dtype)
         if tokens.ndim == 3:
             b, n, d = tokens.shape
             tokens = tokens.reshape(b, n // (h * w), h, w, d)
@@ -271,5 +280,101 @@ class CViViT(nn.Module):
         if self.lookup_free_quantization:
             codes = self.vq.indices_to_codes(indices)
         else:
-            codes = self.vq.codebook_lookup(indices).to(self.to_pixels_first.weight.dtype)
+            codes = self.vq.codebook_lookup(indices)
         return self.decode(codes)
+
+
+# the frame discriminator
+
+
+def conv2d(x: torch.Tensor, layer: nn.Conv2d) -> torch.Tensor:
+    """`layer(x)` computed in x's dtype: the weights are cast at use."""
+    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
+    return F.conv2d(x, layer.weight.to(x.dtype), bias, layer.stride, layer.padding)
+
+
+class DiscriminatorBlock(nn.Module):
+    """Residual block on (b, c, H, W): a 1 x 1 residual conv (of every other
+    pixel with `downsample`: stride 2) beside two 3 x 3 convs with leaky
+    ReLU (0.1); with `downsample`, space-to-depth into 4c channels ordered
+    (c, 2, 2), as the TPU package's transpose orders them, then a 1 x 1
+    conv. The sum is scaled by 1/sqrt(2)."""
+
+    def __init__(self, in_channels: int, filters: int, downsample: bool = True):
+        super().__init__()
+        self.downsample = downsample
+        self.conv_res = nn.Conv2d(in_channels, filters, 1)
+        self.conv1 = nn.Conv2d(in_channels, filters, 3, padding=1)
+        self.conv2 = nn.Conv2d(filters, filters, 3, padding=1)
+        self.conv_down = nn.Conv2d(filters * 4, filters, 1) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the 1 x 1 stride-2 residual conv, as the same 1 x 1 conv of every
+        # other pixel: torch's CPU double backward of a strided conv on a
+        # channels-last input crashes (the R1 penalty needs it)
+        res = conv2d(x[:, :, ::2, ::2] if self.downsample else x, self.conv_res)
+        x = F.leaky_relu(conv2d(x, self.conv1), 0.1)
+        x = F.leaky_relu(conv2d(x, self.conv2), 0.1)
+        if self.conv_down is not None:
+            x = conv2d(F.pixel_unshuffle(x, 2), self.conv_down)
+        return (x + res) * (1 / math.sqrt(2))
+
+
+class Discriminator(nn.Module):
+    """Single frames (b, H, W, c) -> (b,) logits, computing in `dtype` (None:
+    the weights' dtype).
+
+    log2(min(H, W)) - 1 blocks, each but the last halving the frame, of
+    min(4 dim 2^i, max_dim) channels; after the block at a resolution in
+    `attn_res_layers` (counted from min(H, W), halved each block), a
+    residual self-attention over its H x W positions that never reaches the
+    flash kernels (`use_flash=False`: the R1 penalty differentiates it
+    twice). Then a 3 x 3 conv, leaky ReLU, and a linear head over the frame
+    flattened as (h, w, c), the TPU package's channels-last order. Blocks
+    and convs run channels-first on a channels-last view of the input.
+    With `return_features=True` the per-block activations (b, h, w, c) come
+    too, the perceptual loss's `"disc"` features."""
+
+    def __init__(self, dim: int, image_size: Union[int, Tuple[int, int]], channels: int = 3,
+                 attn_res_layers: Tuple[int, ...] = (16,), max_dim: int = 512,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.image_hw = pair(image_size)
+        min_res = min(self.image_hw)
+        num_layers = int(math.log2(min_res) - 2)
+        dims = [channels] + [min(dim * 4 * 2**i, max_dim) for i in range(num_layers + 1)]
+        self.num_blocks = len(dims) - 1
+        self.attn_blocks = set()
+        resolution = min_res
+        for ind, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
+            block = DiscriminatorBlock(cin, cout, downsample=ind != self.num_blocks - 1)
+            self.add_module(f"block_{ind}", block)
+            if resolution in attn_res_layers:
+                self.add_module(f"attn_{ind}", Attention(cout, use_flash=False))
+                self.attn_blocks.add(ind)
+            resolution //= 2
+        last = dims[-1]
+        self.to_logits_conv = nn.Conv2d(last, last, 3, padding=1)
+        h, w = self.image_hw
+        down = 2 ** (self.num_blocks - 1)
+        self.to_logits = nn.Linear(last * (h // down) * (w // down), 1)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.to_logits.weight.dtype
+
+    def forward(self, x: torch.Tensor, return_features: bool = False):
+        x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view of channels-last memory
+        features = []
+        for ind in range(self.num_blocks):
+            x = getattr(self, f"block_{ind}")(x)
+            if ind in self.attn_blocks:
+                b, c, H, W = x.shape
+                flat = x.permute(0, 2, 3, 1).reshape(b, H * W, c)
+                flat = getattr(self, f"attn_{ind}")(flat) + flat
+                x = flat.reshape(b, H, W, c).permute(0, 3, 1, 2)
+            features.append(x.permute(0, 2, 3, 1))
+        x = F.leaky_relu(conv2d(x, self.to_logits_conv), 0.1)
+        logits = linear(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1), self.to_logits)[:, 0]
+        return (logits, features) if return_features else logits

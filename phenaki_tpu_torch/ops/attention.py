@@ -36,14 +36,16 @@ def use_flash(q: torch.Tensor, attn_bias: Optional[torch.Tensor], dropout: float
 
 def qk_norm_attention(q, k, v, *, scale: float = SCALE, attn_bias=None, key_mask=None,
                       causal: bool = False, use_alibi: bool = False,
-                      dropout: float = 0.0) -> torch.Tensor:
+                      dropout: float = 0.0, allow_flash: bool = True) -> torch.Tensor:
     """Attention core: q, k already l2-normalised and scaled per dim.
     q (b, h, i, d); k, v (b, h, j, d); attn_bias (h, i, j) or (b, h, i, j);
     key_mask (b, j) bool, True = attend; `dropout` is the active attention
-    dropout rate (0 outside training)."""
+    dropout rate (0 outside training). `allow_flash=False` keeps the plain
+    path on every device: the kernels' backward is first-order only, so a
+    result differentiated twice (the R1 penalty) must not reach them."""
     b, h, i, d = q.shape
     j = k.shape[2]
-    if use_flash(q, attn_bias, dropout):
+    if allow_flash and use_flash(q, attn_bias, dropout):
         bias = attn_bias
         if causal and use_alibi:
             ab = alibi_bias(h, i, j, device=q.device)
@@ -91,13 +93,19 @@ class Attention(nn.Module):
     the group with the same inputs. Cross-attention, null key/values, active
     attention dropout, a group of one and an indivisible sequence take the
     dense path, as in the JAX package (`seq_shard_mesh`).
+
+    `use_flash=False` never reaches `flash_attention`, on any device: for a
+    module differentiated to second order (the discriminator under the R1
+    penalty).
     """
 
     def __init__(self, dim: int, *, dim_context: Optional[int] = None, dim_head: int = 64,
                  heads: int = 8, causal: bool = False, num_null_kv: int = 0, cross: bool = False,
-                 reference_self_kv: bool = False, dropout: float = 0.0, seq_group=None):
+                 reference_self_kv: bool = False, dropout: float = 0.0, seq_group=None,
+                 use_flash: bool = True):
         super().__init__()
         self.dropout = dropout
+        self.use_flash = use_flash
         self.seq_group = seq_group
         inner = dim_head * heads
         kv_dim = (dim_context or dim) if cross else dim
@@ -173,6 +181,7 @@ class Attention(nn.Module):
                                              attn_bias=ring_bias, key_mask=mask, causal=self.causal)
         else:
             out = qk_norm_attention(q, k, v, attn_bias=attn_bias, key_mask=mask,
-                                    causal=self.causal, use_alibi=self.causal, dropout=dropout)
+                                    causal=self.causal, use_alibi=self.causal, dropout=dropout,
+                                    allow_flash=self.use_flash)
         out = out.transpose(1, 2).reshape(batch, n, inner)
         return linear(out, self.to_out)

@@ -18,6 +18,9 @@ Gradients flow to q, k, v and the bias (accumulated in f32 and cast to the
 bias's dtype); the kmask gets none, as in the TPU package. The backward
 recomputes `p = exp(s - lse)` from the forward's saved lse; a row whose keys
 are all masked (lse = -inf, out = 0) has p = 0 and so zero gradients.
+Both autograd Functions are first-order only, as the TPU kernel's
+`custom_vjp` is: a double backward through them raises (on the card their
+backward's outputs come from C kernels and carry no graph).
 
 `flash_attend_chunk` is the ring-attention chunk (TPU kernel 3,
 `flash_attend_chunk`): the unnormalised `acc = sum p v` and `l = sum p` of
@@ -36,6 +39,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from phenaki_tpu_torch import _build
 
@@ -337,6 +341,7 @@ class _FlashAttention(torch.autograd.Function):
         return out, lse
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do, _dlse):
         q, k, v, bias, kmask, out, lse = ctx.saved_tensors
         dq, dk, dv, dbias = flash_attention_backward(
@@ -435,6 +440,7 @@ class _FlashAttendChunk(torch.autograd.Function):
         return acc, l
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, dacc, dl):
         q, k, v, bias, kmask, c2 = ctx.saved_tensors
         if dacc is None:

@@ -1,7 +1,7 @@
 """Seeded parameter initialisation with PyTorch's default distributions
 (counterpart of phenaki_tpu/ops/torch_init.py).
 
-Linear and Conv3d weights and biases: U(+-1/sqrt(fan_in)); Embedding,
+Linear, Conv2d and the PEG's Conv3d weights and biases: U(+-1/sqrt(fan_in)); Embedding,
 null_kv and a VQ codebook: N(0, 1); q_scale, k_scale and LayerNorm gamma:
 ones; beta and a VQ's cluster sizes: zeros. Every draw comes from the given
 generator, in module order; `skip` leaves modules (and what they hold) out.
@@ -24,7 +24,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator, skip=()) -> nn
     for mod in model.modules():
         if id(mod) in skipped:
             continue
-        if isinstance(mod, (nn.Linear, PEG)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, PEG)):
             bound = mod.weight[0].numel() ** -0.5
             mod.weight.uniform_(-bound, bound, generator=generator)
             if mod.bias is not None:

@@ -13,6 +13,9 @@ a scalar head. Sampling: 18 steps.
 f32 parameters with bf16 compute, as the TPU package's flagship trains
 (`dtype=jnp.bfloat16`), and the frozen C-ViViT in bf16, the TPU package's
 flagship C-ViViT dtype, so that raw pixels are tokenized in bf16.
+`flagship_cvivit(dtype=torch.bfloat16)` with f32 weights is the flagship's
+training C-ViViT (the TPU package trains it with `dtype=jnp.bfloat16`);
+`flagship_train_cvivit` builds it with seeded weights on a device.
 `critic=True` adds a TokenCritic, `self_token_critic=True` a SelfCritic on
 the MaskGit's trunk; the C-ViViT and MaskGit weights do not change with
 either (the critic's are drawn after them). The C-ViViT's encoder
@@ -40,6 +43,19 @@ def flagship_cvivit(**overrides) -> CViViT:
                temporal_patch_size=2, spatial_depth=4, temporal_depth=4, dim_head=64, heads=8)
     cfg.update(overrides)
     return CViViT(**cfg)
+
+
+def flagship_train_cvivit(seed: int = 0, *, device="cuda") -> CViViT:
+    """The flagship C-ViViT for GAN training (`CViViTTrainer`): f32 weights,
+    drawn on the CPU from `torch.Generator().manual_seed(seed)` in module
+    order, on `device`, computing in bf16."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("flagship_train_cvivit(device='cuda'): torch.cuda.is_available() is False")
+    with torch.device("meta"):
+        cvivit = flagship_cvivit(dtype=torch.bfloat16)
+    cvivit = init_parameters(cvivit.to_empty(device="cpu"), torch.Generator().manual_seed(seed))
+    return cvivit.to(device)
 
 
 def flagship_maskgit(max_seq_len: int = 1152, **overrides) -> MaskGit:
