@@ -19,6 +19,12 @@ mode; `tokenize` always runs in eval mode and skips the decoder.
 `dtype` is the compute dtype (the TPU package's `dtype` field): the video
 and the activations are cast to it and the weights at use, so f32 weights
 train with bf16 compute. None computes in the weights' dtype.
+
+Two flags reproduce the quirks that weights trained with the reference
+phenaki-pytorch expect (`convert.py`), without changing the parameters:
+`peg_reference_layout` reads the temporal PEG's flat (b*h*w, t) sequence as
+a (t, h, w) grid ('thw'), and `reference_attention_kv` takes every
+self-attention's K/V from its pre-norm input.
 """
 
 from __future__ import annotations
@@ -49,9 +55,12 @@ class CViViT(nn.Module):
                  channels: int = 3, attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  lookup_free_quantization: bool = True, lfq_entropy_loss_weight: float = 0.1,
                  lfq_commitment_loss_weight: float = 0.25, lfq_diversity_gamma: float = 1.0,
-                 seq_group=None, dtype: Optional[torch.dtype] = None):
+                 seq_group=None, dtype: Optional[torch.dtype] = None,
+                 peg_reference_layout: bool = False, reference_attention_kv: bool = False):
         super().__init__()
         self.compute_dtype = dtype
+        self.peg_reference_layout = peg_reference_layout
+        self.reference_attention_kv = reference_attention_kv
         self.image_hw = pair(image_size)
         self.patch_hw = pair(patch_size)
         self.temporal_patch_size = temporal_patch_size
@@ -59,9 +68,12 @@ class CViViT(nn.Module):
         self.lookup_free_quantization = lookup_free_quantization
         ph, pw = self.patch_hw
         c, pt = channels, temporal_patch_size
-        spatial = dict(dim_head=dim_head, heads=heads, attn_dropout=attn_dropout, ff_dropout=ff_dropout)
-        temporal = dict(spatial, causal=True, peg=True, peg_causal=True, peg_layout="bhw_t",
-                        seq_group=seq_group)
+        spatial = dict(dim_head=dim_head, heads=heads, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                       attn_reference_self_kv=reference_attention_kv)
+        # 'thw' on the flat (b*h*w, t) temporal sequence is the reference's
+        # scrambled-grid stencil, which its trained weights expect
+        temporal = dict(spatial, causal=True, peg=True, peg_causal=True,
+                        peg_layout="thw" if peg_reference_layout else "bhw_t", seq_group=seq_group)
         self.spatial_rel_pos_bias = ContinuousPositionBias(dim, heads, num_dims=2)
         self.dec_temporal_transformer = Transformer(dim, temporal_depth, **temporal)
         self.dec_spatial_transformer = Transformer(dim, spatial_depth, **spatial)

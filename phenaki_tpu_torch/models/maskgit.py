@@ -26,6 +26,9 @@ SelfCritic shares that trunk, and the TokenCritic has no such option, as in
 the JAX package. Training adds a video (key) mask,
 conditioning dropout drawn from an explicit generator, and attention and
 FF dropout in training mode; `unconditional` builds no cross-attention.
+`reference_attention_kv` (MaskGit and TokenCritic) takes the self-attention's
+K/V from the pre-norm input, as weights trained with the reference
+phenaki-pytorch expect (`convert.py`); the parameters do not change.
 """
 
 from __future__ import annotations
@@ -83,11 +86,13 @@ class MaskGit(nn.Module):
     def __init__(self, dim: int, num_tokens: int, max_seq_len: int, *, heads: int = 8,
                  dim_head: int = 64, depth: int = 6, dim_context: Optional[int] = None,
                  unconditional: bool = False, attn_dropout: float = 0.0,
-                 ff_dropout: float = 0.0, dtype: Optional[torch.dtype] = None, seq_group=None):
+                 ff_dropout: float = 0.0, dtype: Optional[torch.dtype] = None, seq_group=None,
+                 reference_attention_kv: bool = False):
         super().__init__()
         self.num_tokens = num_tokens
         self.max_seq_len = max_seq_len
         self.unconditional = unconditional
+        self.reference_attention_kv = reference_attention_kv
         self.dtype = dtype
         self.token_emb = nn.Embedding(num_tokens + 1, dim)
         self.pos_emb = nn.Embedding(max_seq_len, dim)
@@ -95,6 +100,7 @@ class MaskGit(nn.Module):
         self.transformer = Transformer(dim, depth, dim_context=dim_context, dim_head=dim_head,
                                        heads=heads, peg=True, has_cross_attn=not unconditional,
                                        attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                                       attn_reference_self_kv=reference_attention_kv,
                                        seq_group=seq_group)
         self.to_logits = nn.Linear(dim, num_tokens)
 
@@ -172,17 +178,20 @@ class TokenCritic(nn.Module):
     def __init__(self, dim: int, num_tokens: int, max_seq_len: int, *, has_cross_attn: bool = False,
                  heads: int = 8, dim_head: int = 64, depth: int = 6,
                  dim_context: Optional[int] = None, attn_dropout: float = 0.0,
-                 ff_dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+                 ff_dropout: float = 0.0, dtype: Optional[torch.dtype] = None,
+                 reference_attention_kv: bool = False):
         super().__init__()
         self.num_tokens = num_tokens
         self.max_seq_len = max_seq_len
         self.has_cross_attn = has_cross_attn
+        self.reference_attention_kv = reference_attention_kv
         self.dtype = dtype
         self.token_emb = nn.Embedding(num_tokens + 1, dim)
         self.pos_emb = nn.Embedding(max_seq_len, dim)
         self.transformer = Transformer(dim, depth, dim_context=dim_context, dim_head=dim_head,
                                        heads=heads, peg=True, has_cross_attn=has_cross_attn,
-                                       attn_dropout=attn_dropout, ff_dropout=ff_dropout)
+                                       attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                                       attn_reference_self_kv=reference_attention_kv)
         self.to_logits = nn.Linear(dim, 1)
 
     @property

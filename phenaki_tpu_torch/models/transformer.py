@@ -3,6 +3,9 @@
 Per layer: PEG? -> self-attn -> cross-attn? -> GEGLU FF, all residual; then
 a gamma-only LayerNorm. The layers are a plain ModuleList (the TPU package's
 `scan_layers` stacked trees are unstacked by phenaki_tpu_torch.bridge).
+`attn_reference_self_kv` takes the self-attention's K/V from the pre-norm
+input, the quirk of reference-trained weights (`ops.attention.Attention`,
+`reference_self_kv`).
 Attention and FF dropout act in training mode (`module.train()`), where the
 TPU package passes `deterministic=False`. `seq_group` (a process group)
 makes the self-attention sequence-parallel (`ops.attention.Attention`).
@@ -27,10 +30,12 @@ class TransformerLayer(nn.Module):
     def __init__(self, dim: int, *, dim_context: Optional[int] = None, causal: bool = False,
                  dim_head: int = 64, heads: int = 8, peg: bool = False, peg_causal: bool = False,
                  peg_layout: str = "thw", has_cross_attn: bool = False,
-                 attn_dropout: float = 0.0, ff_dropout: float = 0.0, seq_group=None):
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 attn_reference_self_kv: bool = False, seq_group=None):
         super().__init__()
         self.peg = PEG(dim, causal=peg_causal, layout=peg_layout) if peg else None
         self.self_attn = Attention(dim, dim_head=dim_head, heads=heads, causal=causal,
+                                   reference_self_kv=attn_reference_self_kv,
                                    dropout=attn_dropout, seq_group=seq_group)
         self.cross_attn = (
             Attention(dim, dim_context=dim_context, dim_head=dim_head, heads=heads,
