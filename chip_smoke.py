@@ -17,6 +17,8 @@ and without a critic, on one NVIDIA GPU.
                                                   # and with the R1 penalty, OUT.{without,with}_penalty.txt
     python3 chip_smoke.py --profile-serving OUT.txt  # and a profile of three bare b = 8 flagship
                                                   # samples (a served launch) written to OUT.txt
+    python3 chip_smoke.py --profile-tp OUT.txt     # and a profile of one tp = 2 flagship sample
+                                                  # (rank 0, with the all-reduces' host share)
 
 Builds the CUDA kernels of phenaki_tpu_torch from csrc/ with nvcc (and
 checks that the SASS of the bf16 attention forward, its dQ, dK/dV and dBias
@@ -70,7 +72,16 @@ card): kernel 3 (the ring chunk) and the offset backward kernels against
 their plain versions, a small fp32 sequence-sharded model against dense,
 and `flagship_phenaki(seq_group=...).sample(...)` and
 `PhenakiTrainer.train_step()` on `flagship_train_phenaki(seq_group=...)`,
-with ids and parameters bit-identical across the ranks. Each main path is
+with ids and parameters bit-identical across the ranks. Then the mesh paths
+on MESH = 2 spawned ranks (gloo, both on the one card when it is alone):
+`sample(mesh=)` at tp = 2 (ids identical across ranks, beside the dense
+sample) and at dp = 2 (each rank's row bit-equal alone), a small fp32 tp =
+2 model against the CPU, `PhenakiTrainer` at dp = 2, with FSDP and at tp = 2
+(first loss against one process on the global batch of 8, FSDP's
+consolidated parameters against DDP's), a consolidated checkpoint written at
+dp = 2 and loaded at tp = 2 and a bit-equal resume, `CViViTTrainer` at dp =
+2, and `PhenakiServer(mesh=)` at tp = 2; kernels 1 and 4-6 are also held at
+a tp rank's 4-head shapes. Each main path is
 checked to have launched exactly its kernels. Every check raises on
 failure; the last line is the JSON verdict, printed only when all passed.
 Needs no JAX.
@@ -155,6 +166,18 @@ SEQ_TRAIN_PER_STEP = {"chunk": 6 * SP, "fwd": 6, "dq": 6 + 6 * SP, "dkv": 6 + 6 
                       "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
 SEQ_TRAIN_STEPS = 3
 RANK_TIMEOUT_S = 600  # the spawned ranks' join timeout
+# the mesh paths (data, fully sharded and tensor parallelism) on MESH
+# spawned ranks, gloo with both on the one card when it is alone: a rank of a
+# tp = 2 mesh runs kernel 1 on 4 of the 8 heads, so a sample or a train step
+# launches what the dense one does; a dp rank what the dense one does on its
+# rows. The train paths take MESH_TRAIN_STEPS counted steps after the first
+# (the milestone) at a global batch of MESH_TRAIN_BATCH (4 a dp rank); the
+# C-ViViT GAN at dp = 2 a global batch of MESH_GAN_BATCH, the R1 penalty on
+# step 0; the server at tp = 2 MESH_SERVE_REQUESTS requests in bucket 1
+MESH = 2
+MESH_TRAIN_BATCH, MESH_TRAIN_STEPS = 8, 2
+MESH_GAN_BATCH, MESH_GAN_STEPS = 4, 3
+MESH_SERVE_REQUESTS = 2
 LEARN_MARGIN = 3.0  # nats the learning check's loss must fall by
 # every trainer samples and checkpoints at its step-1 milestone; the paths
 # that measure steps sample one video there, with this caption
@@ -286,13 +309,15 @@ def qk(shape, gen, dtype):
 
 # the backward kernels' timed shapes (the train steps'), and those also
 # given bounds and SDPA's whole backward beside them
-BWD_TIMED_SHAPES = ("maskgit_self", "critic_self", "maskgit_cross", "cvivit_spatial_b4")
-BWD_YARDSTICK_SHAPES = ("maskgit_self", "cvivit_spatial_b4")
+BWD_TIMED_SHAPES = ("maskgit_self", "critic_self", "maskgit_cross", "cvivit_spatial_b4", "maskgit_self_tp2",
+                    "maskgit_cross_tp2")
+BWD_YARDSTICK_SHAPES = ("maskgit_self", "cvivit_spatial_b4", "maskgit_self_tp2")
 # kernel 1's main-path shapes: each is timed beside its bound and one SDPA
 # call on the same inputs
 FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self",
                      "cvivit_encode_spatial_b4", "cvivit_encode_spatial_b32", "maskgit_self_primed",
-                     "maskgit_self_b8", "maskgit_cross_b8", "maskgit_self_primed_b2")
+                     "maskgit_self_b8", "maskgit_cross_b8", "maskgit_self_primed_b2",
+                     "maskgit_self_tp2", "maskgit_cross_tp2")
 
 
 def flash_cases(torch, dtype, gen):
@@ -371,6 +396,14 @@ def flash_cases(torch, dtype, gen):
     vp2 = torch.randn(4, 8, 1408, 64, generator=gen).to("cuda", dtype)
     cases["maskgit_self_primed_b2"] = (qp2, kp2, vp2,
                                        torch.randn(8, 1408, 1408, generator=gen).to("cuda", dtype), None, False)
+    # a tp = 2 rank's share (heads 4-7 of 8): self-attention with its head
+    # slice of the (8, 1152, 1152) bias read in place, and cross-attention
+    q4h, k4h = qk((2, 4, 1152, 64), gen, dtype), qk((2, 4, 1152, 64), gen, dtype)
+    v4h = torch.randn(2, 4, 1152, 64, generator=gen).to("cuda", dtype)
+    bias8 = torch.randn(8, 1152, 1152, generator=gen).to("cuda", dtype)
+    cases["maskgit_self_tp2"] = (q4h, k4h, v4h, bias8[4:], None, False)
+    kc4, vc4 = qk((2, 4, 130, 64), gen, dtype), torch.randn(2, 4, 130, 64, generator=gen).to("cuda", dtype)
+    cases["maskgit_cross_tp2"] = (q4h, kc4, vc4, None, kmask, False)
     return cases
 
 
@@ -510,6 +543,12 @@ def flash_bwd_cases(torch, dtype, gen):
     cases["dim_head_128"] = (qd, kd, vd, rand(4, 200, 200), None, False)
     qs, ks, vs = qk((36, 8, 128, 64), gen, dtype), qk((36, 8, 128, 64), gen, dtype), rand(36, 8, 128, 64)
     cases["cvivit_spatial_b4"] = (qs, ks, vs, rand(8, 128, 128), None, False)
+    # a tp = 2 rank's share at the train shape: 4 of the 8 heads, the bias
+    # read in place as heads 4-7 of the (8, 1152, 1152) one; cross-attention
+    q4, k4, v4 = qk((4, 4, 1152, 64), gen, dtype), qk((4, 4, 1152, 64), gen, dtype), rand(4, 4, 1152, 64)
+    cases["maskgit_self_tp2"] = (q4, k4, v4, rand(8, 1152, 1152)[4:], torch.zeros(4, 1152, device="cuda"), False)
+    kc4, vc4 = qk((4, 4, 130, 64), gen, dtype), rand(4, 4, 130, 64)
+    cases["maskgit_cross_tp2"] = (q4, kc4, vc4, None, torch.where(keep, 0.0, NEG_INF).float().cuda(), False)
     return cases
 
 
@@ -2873,6 +2912,485 @@ def run_seq_parallel(torch, profile_path=None):
             for key in all_kernels()}
 
 
+def mesh_rank(rank, world, profile_path=None):
+    """One rank of the mesh paths (spawned; every rank runs the same calls
+    with the same seeds, each phase with its counts set to 0 before it).
+    Returns plain numbers and arrays; raises on a failed check."""
+    import torch
+    import torch.distributed as dist
+
+    from phenaki_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)  # two ranks share the host's cores (the small model's CPU run)
+    if dist.get_backend() != "nccl":
+        torch.cuda.set_device(0)  # every gloo rank computes on the one card
+    tp, dp = make_mesh(tp=MESH), make_mesh(dp=MESH)
+    out = {"backend": dist.get_backend(), "device": torch.cuda.current_device(), "phase_s": {}}
+    phases = (("tp_sample", lambda: mesh_tp_sample(torch, tp, profile_path)),
+              ("small_tp", lambda: mesh_small_tp(torch, tp)), ("dp_sample", lambda: mesh_dp_sample(torch, dp)),
+              ("train", lambda: mesh_train_paths(torch, dp, tp)), ("resume", lambda: mesh_resume(torch, dp, tp)),
+              ("gan", lambda: mesh_gan_dp(torch, dp)), ("serving", lambda: mesh_serving(torch, tp)))
+    for name, run in phases:
+        t = time.perf_counter()
+        out[name] = run()
+        out["phase_s"][name] = time.perf_counter() - t
+    return out
+
+
+def _video_sha(torch, video):
+    import hashlib
+
+    return hashlib.sha256(video.contiguous().float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _params_sha(params):
+    import hashlib
+
+    digest = hashlib.sha256()
+    for _, p in params:
+        p = p.to_local() if hasattr(p, "to_local") else p
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def mesh_tp_sample(torch, tp, profile_path=None):
+    """`flagship_phenaki(...).sample(mesh=)` at tp = 2, b = 1: a warm-up and
+    three requests, each launching exactly SAMPLE_LAUNCHES on this rank
+    (kernel 1 on the rank's 4 heads); their ids (for the check across
+    ranks), seconds, and the share of ids equal to the dense sample's with
+    the same seed (the tp sum of two bf16 partials rounds otherwise than
+    the dense product, so the decode may go its own way), the dense sample
+    timed beside it. With `profile_path`, one more tp sample under
+    `torch.profiler` on every rank, rank 0's table written there."""
+    from phenaki_tpu_torch.presets import flagship_phenaki
+
+    ph = flagship_phenaki(seed=0, device="cuda")
+    view = ph._sampling_view(tp)  # the rank's tp clone, built outside the timed calls
+    seen = {"tp": [], "dense": []}
+    for model, key in ((view, "tp"), (ph, "dense")):
+        sample_ids = model.sample_ids
+        model.sample_ids = lambda _f=sample_ids, _k=key, **kw: seen[_k].append(_f(**kw)) or seen[_k][-1]
+    requests = sample_requests(torch)[:4]
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    out = {"ids": {}, "seconds": {}, "dense_seconds": {}, "equal_share": {}}
+    for name, emb, seed in requests:
+        before = kernel_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        video = ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0, mesh=tp,
+                          generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t
+        counts = launched_since(before)
+        check(tuple(video.shape) == (1, 17, 256, 128, 3), f"tp sample {name}: video shape {tuple(video.shape)}")
+        check(torch.isfinite(video).all().item(), f"tp sample {name}: non-finite video")
+        check(counts == exact(SAMPLE_LAUNCHES), f"tp sample {name}: launches {nonzero(counts)} != {SAMPLE_LAUNCHES}")
+        out["ids"][name] = seen["tp"][-1].cpu().numpy()
+    out["launches"] = kernel_counts()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for name, emb, seed in requests:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0, generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        out["dense_seconds"][name] = time.perf_counter() - t
+        out["equal_share"][name] = float((seen["dense"][-1].cpu().numpy() == out["ids"][name]).mean())
+    if profile_path is not None:
+        out["profile"] = profile_tp_sample(torch, ph, tp, profile_path)
+    del ph, view
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_tp_sample(torch, ph, tp, path):
+    """One more tp = 2 flagship sample under `torch.profiler` on every rank;
+    rank 0 writes its tables (device time by kernel; host time by operator,
+    the all-reduces' range "collectives.all_reduce" among them) to `path`.
+    Returns this rank's device and wall milliseconds and the host share of
+    the all-reduces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    emb = sample_requests(torch)[1][1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0, mesh=tp,
+                  generator=torch.Generator().manual_seed(11))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    device_ms = device_shares(torch, events)[0]
+    # the range's host rows (the profiler also lists it as a device annotation)
+    reduce = [e for e in events if e.key == "collectives.all_reduce" and e.cpu_time_total > 0]
+    reduce_ms = sum(e.cpu_time_total for e in reduce) / 1e3
+    calls = sum(e.count for e in reduce)
+    if torch.distributed.get_rank() == 0:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(
+            events.table(sort_by="self_device_time_total", row_limit=50, max_name_column_width=100)
+            + "\n" + events.table(sort_by="cpu_time_total", row_limit=40, max_name_column_width=100))
+    return dict(device_ms=device_ms, wall_ms=wall_ms, idle=1 - device_ms / wall_ms, all_reduce_ms=reduce_ms,
+                all_reduce_calls=calls, all_reduce_host_share=reduce_ms / wall_ms)
+
+
+def mesh_small_tp(torch, tp):
+    """The small fp32 model (`small_train_models`) at tp = 2 on the card
+    against the same at tp = 2 on the CPU: greedy `sample_ids` equal, and two
+    `PhenakiTrainer` steps whose losses agree within rtol 2e-4, atol 2e-5 and
+    consolidated parameters within rtol 1e-3, atol 3e-4 (the tolerances of
+    tests/test_parallel.py:380-393)."""
+    from phenaki_tpu_torch.models.phenaki import Phenaki
+    from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
+
+    gen = torch.Generator().manual_seed(8)
+    emb = torch.randn(2, 8, 64, generator=gen)
+    emb[:, 6:] = 0.0
+    data = torch.utils.data.TensorDataset(torch.randint(0, 512, (8, 2, 8, 8), generator=gen),
+                                          torch.randn(8, 8, 64, generator=gen))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cpu", "cuda"):
+            mg, cv = small_train_models(torch, 5)
+            ph = Phenaki(maskgit=mg.to(device), cvivit=cv.to(device), text_embed_dim=64, steps=6,
+                         max_text_len=16)
+            before = kernel_counts()
+            ids = ph.tp_shard(tp).sample_ids(num_frames=3, text_embeds=emb, cond_scale=5.0,
+                                             starting_temperature=0.0, generator=torch.Generator().manual_seed(0))
+            trainer = PhenakiTrainer(ph, dataset=data, batch_size=4, seed=0, log_every=10**9, num_samples=1,
+                                     num_frames=3, sample_texts=[SAMPLE_TEXT], results_folder=f"{tmp}/{device}",
+                                     mesh=tp, train_lr=1e-4)
+            losses = [trainer.train_step().item() for _ in range(2)]
+            params = trainer._ckpt_tree(with_optimizer=False)["params"]["maskgit"]
+            runs[device] = dict(ids=ids.cpu(), losses=losses, params=params, launches=nonzero(launched_since(before)))
+    cpu, card = runs["cpu"], runs["cuda"]
+    worst = max(((card["params"][k] - v).abs() - (3e-4 + 1e-3 * v.abs())).max().item()
+                for k, v in cpu["params"].items())
+    loss_ok = all(abs(a - b) <= 2e-5 + 2e-4 * abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    check(card["launches"].get("fwd", 0) > 0 and "fwd" not in cpu["launches"],
+          f"small tp: kernel 1 ran {card['launches']} on the card, {cpu['launches']} on the CPU")
+    check(torch.equal(card["ids"], cpu["ids"]), "small tp: greedy ids differ between card and CPU")
+    check(loss_ok, f"small tp: losses {card['losses']} vs CPU {cpu['losses']}")
+    check(worst <= 0, f"small tp: a parameter is {worst} beyond rtol 1e-3, atol 3e-4 of the CPU's")
+    return dict(ids_equal=True, losses_card=card["losses"], losses_cpu=cpu["losses"],
+                worst_param_excess=worst, card_launches=card["launches"])
+
+
+def mesh_dp_sample(torch, dp):
+    """`sample(mesh=)` at dp = 2, b = 2 (one row a rank): exactly
+    SAMPLE_LAUNCHES a rank; this rank's row bit-equal to the same row
+    sampled alone with its generator (`dp_generator`); returns a digest of
+    the global video (the check that both ranks hold the same)."""
+    from phenaki_tpu_torch.models.phenaki import dp_generator
+    from phenaki_tpu_torch.presets import flagship_phenaki
+
+    ph = flagship_phenaki(seed=0, device="cuda")
+    _, emb, seed = sample_requests(torch)[4]  # b = 2
+    ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0, mesh=dp, generator=torch.Generator().manual_seed(1))
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    video = ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0, mesh=dp,
+                      generator=torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = kernel_counts()
+    check(tuple(video.shape) == (2, 17, 256, 128, 3), f"dp sample: video shape {tuple(video.shape)}")
+    check(launches == exact(SAMPLE_LAUNCHES), f"dp sample: launches {nonzero(launches)} != {SAMPLE_LAUNCHES}")
+    r = dp.dp_index
+    alone = ph.sample(num_frames=17, text_embeds=emb[r:r + 1], cond_scale=5.0,
+                      generator=dp_generator(torch.Generator().manual_seed(seed), r))
+    check(torch.equal(video[r:r + 1], alone), f"dp sample: rank {r}'s row differs from its shard sampled alone")
+    out = dict(seconds_b2=seconds, row_equal_alone=True, video_sha=_video_sha(torch, video), launches=launches)
+    del ph
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_data(torch, same=False):
+    """Seeded token ids and (50, 768) text embeddings of 16 samples; with
+    `same` every sample is the first (a resume then sees the same batch)."""
+    gen = torch.Generator().manual_seed(21)
+    ids = torch.randint(0, 65536, (16, 9, 16, 8), generator=gen)
+    text = torch.randn(16, 50, 768, generator=gen)
+    if same:
+        ids, text = ids[:1].expand(16, -1, -1, -1).clone(), text[:1].expand(16, -1, -1).clone()
+    return torch.utils.data.TensorDataset(ids, text)
+
+
+def _mesh_trainer(ph, folder, data, **kw):
+    from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
+
+    return PhenakiTrainer(ph, dataset=data, batch_size=MESH_TRAIN_BATCH, seed=0, log_every=10**9, num_samples=1,
+                          sample_texts=[SAMPLE_TEXT], results_folder=folder, **kw)
+
+
+def mesh_train_paths(torch, dp, tp):
+    """`PhenakiTrainer` on the flagship (f32 parameters, bf16 compute) at a
+    global batch of 8: "dp" (dp = 2, 4 rows a rank, one all-reduce of the
+    gradients a step), "fsdp" (dp = 2 with `fsdp=True`) and "tp" (tp = 2,
+    the 8 rows on 4 heads a rank). Rank 0 first takes one step of a
+    one-process trainer on the global batch; each path's first step (its
+    milestone) must give its loss within 1e-3 relative. Then
+    MESH_TRAIN_STEPS counted steps, each with exactly TRAIN_PER_STEP
+    launches on this rank. Returns the losses, seconds, peak memory, a
+    digest of this rank's parameters (dp) or of the consolidated ones, and,
+    for dp and fsdp, the consolidated MaskGit to compare on rank 0."""
+    import copy
+
+    from phenaki_tpu_torch.presets import flagship_train_phenaki
+
+    data = _mesh_data(torch)
+    base = flagship_train_phenaki(seed=0, device="cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if dp.rank == 0:
+            ref = _mesh_trainer(copy.deepcopy(base), f"{tmp}/ref", data)
+            out["one_process_loss"] = ref.train_step().item()
+            del ref
+            torch.cuda.empty_cache()
+        for label, mesh, fsdp in (("dp", dp, False), ("fsdp", dp, True), ("tp", tp, False)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = _mesh_trainer(copy.deepcopy(base), f"{tmp}/{label}", data, mesh=mesh, fsdp=fsdp)
+            first = trainer.train_step().item()
+            reset_kernel_counts()
+            seconds, losses = [], []
+            for step in range(MESH_TRAIN_STEPS):
+                before = kernel_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses.append(trainer.train_step().item())
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t)
+                launched = launched_since(before)
+                check(launched == exact(TRAIN_PER_STEP),
+                      f"{label} train step {step}: launches {nonzero(launched)} != {TRAIN_PER_STEP}")
+            check(all(map(math.isfinite, losses)), f"{label} train: non-finite loss {losses}")
+            entry = dict(first_loss=first, losses=losses, step_seconds=seconds, launches=kernel_counts(),
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if label == "dp":
+                entry["params_sha"] = _params_sha(trainer.model.maskgit.named_parameters())
+            consolidated = trainer._ckpt_tree(with_optimizer=False)["params"]["maskgit"]
+            entry["consolidated_sha"] = _params_sha(sorted(consolidated.items()))
+            if label in ("dp", "fsdp") and dp.rank == 0:
+                entry["consolidated"] = {k: v.cpu() for k, v in consolidated.items()}
+            out[label] = entry
+            del trainer
+            torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_resume(torch, dp, tp):
+    """"sharded resume": trainer A at dp = 2 on a fixed batch takes its first
+    step, whose milestone writes the consolidated checkpoint 0; trainer B at
+    tp = 2 loads it, and its consolidated parameters and Adam state must equal
+    the file's; A takes one more step, and trainer C at dp = 2 loads the
+    checkpoint and takes one step: its parameters must equal A's, bit for
+    bit."""
+    import copy
+
+    from phenaki_tpu_torch.parallel.collectives import broadcast_object
+    from phenaki_tpu_torch.presets import flagship_train_phenaki
+
+    data = _mesh_data(torch, same=True)
+    base = flagship_train_phenaki(seed=0, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = broadcast_object(tmp, dp.world_group)  # one folder for both ranks: rank 0's
+        a = _mesh_trainer(copy.deepcopy(base), f"{folder}/a", data, mesh=dp)
+        a.train_step()
+        written = a.checkpoints.restore(0)
+        b = _mesh_trainer(copy.deepcopy(base), f"{folder}/b", data, mesh=tp)
+        b.checkpoints = a.checkpoints
+        t = time.perf_counter()
+        b.load(0)
+        load_s = time.perf_counter() - t
+        loaded = b._ckpt_tree()
+        params_equal = all(torch.equal(loaded["params"]["maskgit"][k], v.to(loaded["params"]["maskgit"][k].device))
+                           for k, v in written["params"]["maskgit"].items())
+        adam_equal = all(torch.equal(loaded["opt_state"]["state"][i][k].cpu(), v.cpu())
+                         for i, per in written["opt_state"]["state"].items() for k, v in per.items())
+        check(params_equal, "sharded resume: the tp = 2 trainer's parameters differ from the dp = 2 checkpoint's")
+        check(adam_equal, "sharded resume: the tp = 2 trainer's Adam state differs from the checkpoint's")
+        del b, loaded, written
+        a.train_step()
+        c = _mesh_trainer(copy.deepcopy(base), f"{folder}/c", data, mesh=dp)
+        c.checkpoints = a.checkpoints
+        c.load(0)
+        c.train_step()
+        same = _params_sha(a.model.maskgit.named_parameters()) == _params_sha(c.model.maskgit.named_parameters())
+        check(same, "sharded resume: the resumed dp = 2 trainer's step differs from the live one's")
+        torch.distributed.barrier()  # rank 0's folder outlives every rank's use of it
+    del a, c, base
+    torch.cuda.empty_cache()
+    return dict(tp_load_params_equal=params_equal, tp_load_adam_equal=adam_equal, load_s=load_s,
+                resume_bit_equal=same)
+
+
+def mesh_gan_dp(torch, dp):
+    """`CViViTTrainer` on the flagship C-ViViT at dp = 2, a global batch of
+    MESH_GAN_BATCH (2 a rank) from 8 seeded videos, the R1 penalty on step
+    0 (whose reconstructions and checkpoint follow it); steps 1 and 2 each
+    launch exactly GAN_PER_STEP on this rank. Returns the losses, seconds and
+    a digest of both models' parameters (the check across ranks)."""
+    from phenaki_tpu_torch.presets import flagship_train_cvivit
+    from phenaki_tpu_torch.training.cvivit_trainer import CViViTTrainer
+
+    gen = torch.Generator().manual_seed(30)
+    videos = [torch.rand(17, 256, 128, 3, generator=gen).numpy() for _ in range(8)]
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = CViViTTrainer(flagship_train_cvivit(seed=0, device="cuda"), dataset=videos, num_train_steps=10**9,
+                                batch_size=MESH_GAN_BATCH, num_frames=17, discr_base_dim=64,
+                                discr_attn_res_layers=(16,), perceptual_mode="disc", use_ema=True,
+                                apply_grad_penalty_every=GAN_PENALTY_EVERY, valid_frac=0.0, save_results_every=10**9,
+                                save_model_every=10**9, seed=0, log_every=10**9, results_folder=tmp, mesh=dp)
+        seconds, logs, launches = [], [], []
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(MESH_GAN_STEPS):
+            launches.append(gan_step(torch, trainer, seconds, logs))
+        for step, launched in enumerate(launches[1:], start=1):
+            check(launched == exact(GAN_PER_STEP), f"gan dp step {step}: launches {nonzero(launched)} != {GAN_PER_STEP}")
+        check(all(math.isfinite(v) for log in logs for v in log.values()), f"gan dp: non-finite loss {logs}")
+        check(logs[0]["grad_penalty"] > 0 and logs[1]["grad_penalty"] == 0.0,
+              f"gan dp: the R1 penalty on step 0 only: {[log['grad_penalty'] for log in logs]}")
+        out = dict(logs=logs, step_seconds=seconds, launches=kernel_counts(),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   params_sha=_params_sha(list(trainer.vae.named_parameters())
+                                          + list(trainer.discr.named_parameters())))
+        del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serving(torch, tp):
+    """`PhenakiServer(mesh=)` at tp = 2 on the flagship: rank 0 takes
+    MESH_SERVE_REQUESTS requests (bucket 1, float32 output) and the other
+    rank follows; each launch makes exactly SAMPLE_LAUNCHES on each rank,
+    `close()` returns on both, and every served video equals
+    `sample(mesh=)`'s for its launch's seed."""
+    from phenaki_tpu_torch.presets import flagship_phenaki
+    from phenaki_tpu_torch.serving import PhenakiServer
+
+    ph = flagship_phenaki(seed=0, device="cuda")
+    emb = [torch.randn(50, 768, generator=torch.Generator().manual_seed(40 + i)) for i in range(MESH_SERVE_REQUESTS)]
+    server = PhenakiServer(ph, mesh=tp, num_frames=17, cond_scale=5.0, batch_buckets=(1,), seed=3,
+                           output_dtype="float32", max_delay_ms=1.0)
+    reset_kernel_counts()
+    t = time.perf_counter()
+    served = None
+    if tp.rank == 0:
+        futures = [server.submit(text_embeds=e) for e in emb]
+        served = [f.result(timeout=SERVE_TIMEOUT_S) for f in futures]
+    server.close(timeout=SERVE_TIMEOUT_S)
+    seconds = time.perf_counter() - t
+    launches = kernel_counts()
+    check(not server._thread.is_alive(), "serving mesh: close() did not end this rank's serving thread")
+    check(launches == exact(scaled(SAMPLE_LAUNCHES, MESH_SERVE_REQUESTS)),
+          f"serving mesh: launches {nonzero(launches)} != {MESH_SERVE_REQUESTS} x {SAMPLE_LAUNCHES}")
+    seeds = torch.Generator().manual_seed(3)
+    equal = []
+    for i, e in enumerate(emb):
+        launch = torch.Generator().manual_seed(int(torch.randint(0, 2**62, (), generator=seeds)))
+        want = ph.sample(num_frames=17, text_embeds=e[None], cond_scale=5.0, mesh=tp, generator=launch)[0]
+        if served is not None:
+            equal.append(bool(torch.equal(torch.from_numpy(served[i]), want.float().cpu())))
+    check(all(equal), f"serving mesh: served videos equal sample(mesh=)'s: {equal}")
+    del ph, server
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, requests=MESH_SERVE_REQUESTS, launches=launches, served_equal_sample=equal)
+
+
+def run_mesh_paths(torch, card, profile_path=None):
+    """Spawn MESH ranks (NCCL with a GPU a rank when there are enough cards;
+    gloo with every rank on cuda:0 otherwise) for the mesh paths. Checks
+    across ranks: the same tp ids, the same dp video, dp parameters
+    bit-identical, the same GAN parameters; on rank 0 the dp and fsdp
+    first losses against the one-process step, and FSDP's consolidated
+    parameters against DDP's. Returns each path's launches summed over the
+    ranks."""
+    import numpy as np
+
+    from phenaki_tpu_torch.parallel.distributed import default_backend, spawn_ranks
+
+    backend = default_backend(MESH)
+    t0 = time.perf_counter()
+    results = spawn_ranks(mesh_rank, MESH, profile_path, backend=backend, timeout=RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    phase("mesh ranks", backend=backend, ranks=MESH, devices=[r["device"] for r in results],
+          one_shared_gpu=backend != "nccl", gpus=torch.cuda.device_count(), wall_s=wall,
+          phase_s=[r["phase_s"] for r in results], card=card)
+    check(all(r["backend"] == backend for r in results), "a rank ran another backend")
+
+    tps = [r["tp_sample"] for r in results]
+    for name in tps[0]["ids"]:
+        check(all(np.array_equal(t["ids"][name], tps[0]["ids"][name]) for t in tps),
+              f"tp sample {name}: ids differ across ranks")
+    for rank, t in enumerate(tps):
+        timed = ("req1", "req2", "req3")
+        phase(f"tp sample, rank {rank}", seconds_per_sample_b1=statistics.median(t["seconds"][n] for n in timed),
+              dense_seconds_per_sample_b1=statistics.median(t["dense_seconds"][n] for n in timed),
+              seconds=t["seconds"], dense_seconds=t["dense_seconds"], ids_equal_dense_share=t["equal_share"],
+              ids_identical_across_ranks=True, launches_per_sample=SAMPLE_LAUNCHES, launches=nonzero(t["launches"]),
+              peak_mem_gb=t["peak_mem_gb"], profile=t.get("profile"), card=card)
+    for rank, r in enumerate(results):
+        phase(f"small fp32 tp = 2 model card vs cpu, rank {rank}", **r["small_tp"])
+
+    dps = [r["dp_sample"] for r in results]
+    check(len({d["video_sha"] for d in dps}) == 1, "dp sample: the ranks hold different global videos")
+    phase("dp sample", seconds_b2=[d["seconds_b2"] for d in dps], rows_equal_alone=True,
+          same_global_video=True, launches_per_rank=SAMPLE_LAUNCHES, card=card)
+
+    trains = [r["train"] for r in results]
+    ref = trains[0]["one_process_loss"]
+    for label in ("dp", "fsdp", "tp"):
+        entries = [t[label] for t in trains]
+        firsts = [e["first_loss"] for e in entries]
+        check(all(abs(f - ref) <= 1e-3 * abs(ref) for f in firsts),
+              f"{label} train: first losses {firsts} vs one process {ref}")
+        check(len({e["consolidated_sha"] for e in entries}) == 1, f"{label} train: consolidated parameters differ")
+        check(all(e["losses"] == entries[0]["losses"] for e in entries), f"{label} train: losses differ across ranks")
+        extra = {}
+        if label == "dp":
+            check(len({e["params_sha"] for e in entries}) == 1, "dp train: parameters differ across ranks")
+            extra["params_identical_across_ranks"] = True
+        if label == "fsdp":
+            dense = trains[0]["dp"]["consolidated"]
+            worst = max((v.float().cpu() - dense[k].float().cpu()).abs().max().item()
+                        for k, v in trains[0]["fsdp"]["consolidated"].items())
+            check(worst <= 1e-3, f"fsdp train: consolidated parameters {worst} from DDP's")
+            extra["max_abs_diff_from_ddp"] = worst
+            extra["peak_mem_gb_ddp"] = [t["dp"]["peak_mem_gb"] for t in trains]
+        per_step = statistics.median(s for e in entries for s in e["step_seconds"])
+        phase(f"{label} train", one_process_first_loss=ref, first_losses=firsts, losses=entries[0]["losses"],
+              seconds_per_step=per_step, step_seconds=[e["step_seconds"] for e in entries],
+              samples_per_s=MESH_TRAIN_BATCH / per_step, peak_mem_gb=[e["peak_mem_gb"] for e in entries],
+              launches_per_step_per_rank=TRAIN_PER_STEP, card=card, **extra)
+    for rank, r in enumerate(results):
+        phase(f"sharded resume, rank {rank}", **r["resume"])
+    gans = [r["gan"] for r in results]
+    check(len({g["params_sha"] for g in gans}) == 1, "gan dp: parameters differ across ranks")
+    phase("cvivit gan dp", logs=gans[0]["logs"], step_seconds=[g["step_seconds"] for g in gans],
+          peak_mem_gb=[g["peak_mem_gb"] for g in gans], params_identical_across_ranks=True,
+          launches_per_step_per_rank=GAN_PER_STEP, card=card)
+    serves = [r["serving"] for r in results]
+    phase("serving mesh", seconds=[s["seconds"] for s in serves], requests=MESH_SERVE_REQUESTS,
+          served_equal_sample=serves[0]["served_equal_sample"], close_returned_on_every_rank=True,
+          launches_per_rank=[nonzero(s["launches"]) for s in serves], card=card)
+
+    def summed(path, sub=None):
+        return {key: sum((r[path][sub] if sub else r[path])["launches"][key] for r in results)
+                for key in all_kernels()}
+
+    return {"tp_sample": summed("tp_sample"), "dp_sample": summed("dp_sample"),
+            "dp_train": summed("train", "dp"), "fsdp_train": summed("train", "fsdp"),
+            "tp_train": summed("train", "tp"), "cvivit_gan_dp": summed("gan"), "serving_mesh": summed("serving")}
+
+
 def profile_train_steps(torch, trainer, path):
     """torch.profiler over two flagship train steps, written to `path`:
     device time by kernel, and by the operator (autograd node included)
@@ -2950,6 +3468,8 @@ def main() -> int:
     paths["cvivit_gan_train"] = run_cvivit_gan_path(torch, card, gan_profile)
     seq_profile = args[args.index("--profile-seq") + 1] if "--profile-seq" in args else None
     paths["seq_sharded_sample_and_train"] = run_seq_parallel(torch, seq_profile)
+    tp_profile = args[args.index("--profile-tp") + 1] if "--profile-tp" in args else None
+    paths.update(run_mesh_paths(torch, card, tp_profile))
     # each path ran with its counts set to 0 before it: a kernel's launches
     # are its sum over the paths
     launches = {key: sum(p[key] for p in paths.values()) for key in all_kernels()}

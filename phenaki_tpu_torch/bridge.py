@@ -29,6 +29,12 @@ the port names their submodules as flax does (`block_{i}`, `attn_{i}`,
 Loading is strict both ways: every parameter and buffer of the module must
 have an entry, and every entry must land in the module. No tree the TPU
 package builds for a ported module carries an entry the port drops.
+
+`load_tp_flax_params` loads a tree into rank r's tensor-parallel clone
+(`parallel.tp_inference.tp_local_module`), by either route: the tree as it
+is, packed here (`pack_tp_params` on the bridged state_dict), or a tree that
+JAX's `pack_tp_params` packed already (`packed=True`); both give the same
+tensors, bit for bit.
 """
 
 from __future__ import annotations
@@ -98,7 +104,28 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a flax param tree into `module`. A parameter or buffer of the
     module with no entry, an entry that lands nowhere in the module, or a
     shape mismatch raises."""
+    return _load_state(module, flax_to_state_dict(tree))
+
+
+def tp_flax_state_dict(tree: Mapping, tp: int, rank: int, packed: bool = False
+                       ) -> Dict[str, torch.Tensor]:
+    """Rank `rank`'s share of a flax tree as a tp-local state_dict; `packed`
+    when JAX's `pack_tp_params` was applied to the tree."""
+    from phenaki_tpu_torch.parallel.tp_inference import pack_tp_params, shard_packed
+
     sd = flax_to_state_dict(tree)
+    return shard_packed(sd if packed else pack_tp_params(sd, tp), tp, rank)
+
+
+def load_tp_flax_params(module: nn.Module, tree: Mapping, tp: int, rank: int,
+                        packed: bool = False) -> nn.Module:
+    """Copy rank `rank`'s share of a flax tree into its tp-local clone
+    `module`, as strictly as `load_flax_params`."""
+    return _load_state(module, tp_flax_state_dict(tree, tp, rank, packed))
+
+
+@torch.no_grad()
+def _load_state(module: nn.Module, sd: Dict[str, torch.Tensor]) -> nn.Module:
     own = module.state_dict()
     missing = sorted(set(own) - set(sd))
     if missing:

@@ -166,32 +166,62 @@ def collate_tensors_and_strings(data: List[Any]) -> Tuple:
     return tuple(_stack(field) for field in zip(*data))
 
 
-class _RepeatedEpochs(torch.utils.data.Sampler):
-    """Batches of indices, epoch after epoch without end: each epoch a
-    permutation drawn from `generator` (or 0..n-1 unshuffled), its last
-    partial batch dropped under `drop_last`."""
+class _ShardedEpochs(torch.utils.data.Sampler):
+    """Batches of indices of one shard, epoch after epoch: each epoch a
+    permutation of 0..n-1 shuffled by one `random.Random(seed)` (or
+    unshuffled), its ragged tail of n % num_shards dropped, every
+    num_shards-th index from `shard_id` on; the last partial batch dropped
+    under `drop_last`. The same indices as the TPU package's loader
+    (`phenaki_tpu/data/datasets.py`, `_epoch_indices`). With `repeat` one
+    iteration never ends; else it is one epoch."""
 
-    def __init__(self, n: int, batch_size: int, shuffle: bool, drop_last: bool,
-                 generator: torch.Generator):
-        if drop_last and n < batch_size:
-            raise ValueError(f"{n} items make no batch of {batch_size}")
+    def __init__(self, n: int, batch_size: int, shuffle: bool, drop_last: bool, seed: int,
+                 num_shards: int = 1, shard_id: int = 0, repeat: bool = False):
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} is not in [0, {num_shards})")
+        per_shard = n // num_shards
+        if repeat and drop_last and per_shard < batch_size:
+            raise ValueError(f"{per_shard} items a shard make no batch of {batch_size}")
         self.n, self.batch_size, self.shuffle, self.drop_last = n, batch_size, shuffle, drop_last
-        self.generator = generator
+        self.num_shards, self.shard_id, self.repeat = num_shards, shard_id, repeat
+        self.per_shard = per_shard
+        self._rng = random.Random(seed)
+
+    def __len__(self) -> int:
+        if self.repeat:
+            raise TypeError("a repeating loader has no length")
+        full, part = divmod(self.per_shard, self.batch_size)
+        return full + (1 if part and not self.drop_last else 0)
+
+    def _epoch(self) -> List[int]:
+        idx = list(range(self.n))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        if self.num_shards > 1:
+            idx = idx[self.shard_id: self.per_shard * self.num_shards: self.num_shards]
+        return idx
 
     def __iter__(self):
         while True:
-            order = (torch.randperm(self.n, generator=self.generator).tolist() if self.shuffle
-                     else list(range(self.n)))
-            for i in range(0, self.n, self.batch_size):
+            order = self._epoch()
+            for i in range(0, len(order), self.batch_size):
                 batch = order[i: i + self.batch_size]
                 if len(batch) == self.batch_size or not self.drop_last:
                     yield batch
+            if not self.repeat:
+                return
 
 
 class DataLoader(torch.utils.data.DataLoader):
-    """torch's DataLoader with the string-aware collate, shuffled by a
-    generator seeded with `seed`, and the last partial batch dropped, as the
-    TPU package's loader does by default. `repeat` makes one iteration run
+    """torch's DataLoader with the string-aware collate, the TPU package's
+    seeded order and the last partial batch dropped, as the TPU package's
+    loader does by default: each epoch `random.Random(seed)` shuffles the
+    indices. `num_shards` and `shard_id` give one process its shard, the
+    TPU package's (`datasets.py:208-245`): every shard shuffles the same
+    permutation, drops its ragged tail and takes every num_shards-th index
+    from shard_id on, so the shards cover the data with no overlap and
+    batch k of shard r holds rows r, r + num_shards, ... of the global batch
+    k of num_shards * batch_size rows. `repeat` makes one iteration run
     epoch after epoch without end, so that worker processes
     (`num_workers`) prefetch across an epoch's end, as the TPU package's
     prefetch thread does. Other keyword arguments (`num_workers`,
@@ -199,16 +229,12 @@ class DataLoader(torch.utils.data.DataLoader):
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, drop_last: bool = True,
                  seed: int = 0, collate_fn: Callable = collate_tensors_and_strings,
-                 repeat: bool = False, **kwargs):
+                 repeat: bool = False, num_shards: int = 1, shard_id: int = 0, **kwargs):
         if len(dataset) == 0:
             raise ValueError("dataset is empty")
-        generator = torch.Generator().manual_seed(seed)
-        if repeat:
-            kwargs["batch_sampler"] = _RepeatedEpochs(len(dataset), batch_size, shuffle, drop_last,
-                                                      generator)
-        else:
-            kwargs.update(batch_size=batch_size, shuffle=shuffle, drop_last=drop_last)
-        super().__init__(dataset, collate_fn=collate_fn, generator=generator, **kwargs)
+        kwargs["batch_sampler"] = _ShardedEpochs(len(dataset), batch_size, shuffle, drop_last, seed,
+                                                 num_shards, shard_id, repeat)
+        super().__init__(dataset, collate_fn=collate_fn, **kwargs)
 
 
 def cycle(dl):

@@ -18,6 +18,13 @@ so their gradient in the loss's own graph is the TPU package's gradient
 with that output held constant: the adaptive weight differentiates the
 loss terms over the heads alone (`torch.autograd.grad` with the graph
 kept), not the whole C-ViViT.
+
+`dp_group` makes a loss one data-parallel rank's share of the global
+batch's, whose rows the ranks' loaders interleave (rank r of n holds rows r,
+r + n, ...): the judged frames are drawn for the global batch and the rank
+keeps its rows, and the adaptive weight's gradients are averaged over the
+group before their norms, as the global batch's loss gives them. The
+C-ViViT's quantizer statistics follow its `batch_group`.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch.nn.functional as F
 
 from phenaki_tpu_torch.models.cvivit import CViViT, Discriminator
 from phenaki_tpu_torch.models.vgg import VGG16Features
+from phenaki_tpu_torch.parallel import collectives
 
 ADAPTIVE_WEIGHT_MAX = 1e4
 GRAD_PENALTY_WEIGHT = 10.0
@@ -59,11 +67,15 @@ def safe_div(numer, denom, eps: float = 1e-8):
 
 
 def pick_random_frame_indices(generator: Optional[torch.Generator], batch: int, frames: int,
-                              mask: Optional[torch.Tensor] = None, device=None) -> torch.Tensor:
+                              mask: Optional[torch.Tensor] = None, device=None,
+                              dp_group=None) -> torch.Tensor:
     """One random frame a video, among its unmasked frames: the argmax of
     standard normal draws (from `generator`, on the CPU) -> (batch,) int64
-    on `device`."""
-    logits = torch.randn(batch, frames, generator=generator).to(device)
+    on `device`; over `dp_group` drawn for the global batch, this rank's
+    rows kept."""
+    shards = collectives.group_size(dp_group)
+    logits = collectives.batch_rows(torch.randn(batch * shards, frames, generator=generator),
+                                    collectives.group_rank(dp_group), shards).to(device)
     if mask is not None:
         logits = logits.masked_fill(~mask.to(logits.device), -torch.inf)
     return logits.argmax(dim=-1)
@@ -110,9 +122,13 @@ def _pixel_head_params(cvivit: CViViT) -> List[torch.nn.Parameter]:
             cvivit.to_pixels_rest.weight, cvivit.to_pixels_rest.bias]
 
 
-def _grad_norm(loss: torch.Tensor, params) -> torch.Tensor:
-    grads = torch.autograd.grad(loss, params, retain_graph=True, allow_unused=True)
-    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads if g is not None))
+def _grad_norm(loss: torch.Tensor, params, dp_group=None) -> torch.Tensor:
+    grads = [g for g in torch.autograd.grad(loss, params, retain_graph=True, allow_unused=True)
+             if g is not None]
+    if collectives.group_size(dp_group) > 1:
+        collectives.all_reduce_(grads, dp_group)
+        torch._foreach_div_(grads, float(collectives.group_size(dp_group)))
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
 
 
 def cvivit_generator_loss(cvivit: CViViT, video: torch.Tensor, *,
@@ -122,7 +138,7 @@ def cvivit_generator_loss(cvivit: CViViT, video: torch.Tensor, *,
                           vgg: Optional[VGG16Features] = None,
                           use_vgg_and_gan: bool = True, use_hinge_loss: bool = True,
                           update_codebook: bool = False, perceptual_mode: str = "vgg",
-                          frame_indices: Optional[torch.Tensor] = None):
+                          frame_indices: Optional[torch.Tensor] = None, dp_group=None):
     """The generator phase's loss: (loss, aux) with aux's `recon_loss`,
     `vq_aux_loss`, `recon_video` and, with the GAN suite, `perceptual_loss`,
     `gen_loss` and `adaptive_weight`. `video` (b, f, H, W, c) or an image
@@ -151,7 +167,8 @@ def cvivit_generator_loss(cvivit: CViViT, video: torch.Tensor, *,
 
     b, f = video5.shape[:2]
     if frame_indices is None:
-        frame_indices = pick_random_frame_indices(generator, b, f, mask, device=video.device)
+        frame_indices = pick_random_frame_indices(generator, b, f, mask, device=video.device,
+                                                  dp_group=dp_group)
     input_frame = pick_video_frame(video5, frame_indices)
     recon_frame = pick_video_frame(recon5, frame_indices)
 
@@ -172,7 +189,7 @@ def cvivit_generator_loss(cvivit: CViViT, video: torch.Tensor, *,
     # adaptive weight over the pixel heads (detached)
     heads = _pixel_head_params(cvivit)
     numer = recon_loss if perceptual_mode == "none" else perceptual_loss
-    adaptive_weight = safe_div(_grad_norm(numer, heads), _grad_norm(gen_loss, heads))
+    adaptive_weight = safe_div(_grad_norm(numer, heads, dp_group), _grad_norm(gen_loss, heads, dp_group))
     adaptive_weight = adaptive_weight.clamp(max=ADAPTIVE_WEIGHT_MAX).detach()
 
     loss = recon_loss + perceptual_loss + vq_aux_loss + adaptive_weight * gen_loss
@@ -195,7 +212,7 @@ def cvivit_discriminator_loss(cvivit: CViViT, discr: Discriminator, video: torch
                               generator: Optional[torch.Generator] = None,
                               mask: Optional[torch.Tensor] = None, apply_grad_penalty: bool = True,
                               use_hinge_loss: bool = True,
-                              frame_indices: Optional[torch.Tensor] = None):
+                              frame_indices: Optional[torch.Tensor] = None, dp_group=None):
     """The discriminator phase's loss: the reconstruction without a gradient,
     one random frame a video judged real against fake, and on penalty steps
     the gradient penalty on the real frames. (loss, aux) with aux's
@@ -208,7 +225,8 @@ def cvivit_discriminator_loss(cvivit: CViViT, discr: Discriminator, video: torch
 
     b, f = video5.shape[:2]
     if frame_indices is None:
-        frame_indices = pick_random_frame_indices(generator, b, f, mask, device=video.device)
+        frame_indices = pick_random_frame_indices(generator, b, f, mask, device=video.device,
+                                                  dp_group=dp_group)
     real_frame = pick_video_frame(video5, frame_indices)
     fake_frame = pick_video_frame(recon5, frame_indices)
 

@@ -29,13 +29,32 @@ generator's sample of every token (the projection sampler on the detached
 embeddings under the fused CE, `gumbel_sample` on the f32 logits otherwise)
 replaces the masked tokens, and the critic learns by sigmoid BCE which
 tokens differ from the video's.
+
+On a mesh (`parallel.mesh.Mesh`, JAX `phenaki.py:442-708`): `sample(mesh=)`
+gives each data-parallel rank a contiguous shard of the global batch, drawn
+from its own generator (`dp_generator`: seeded from the caller's generator
+and the shard, as JAX folds the shard into the rng); the tensor-parallel
+ranks of a shard share that generator and run the MaskGit and a TokenCritic
+as their tp-local clones (`tp_shard`; a SelfCritic runs the local trunk with
+its head replicated), so they draw the same ids; every rank returns the
+global batch, gathered. Every rank of the mesh calls `sample` with the same
+arguments. `loss(dp_group=)` is one data-parallel rank's share of the loss
+of the global batch, whose rows the ranks' loaders interleave (rank r of n
+holds rows r, r + n, ...): every random draw is made for the global batch
+and the rank keeps its rows, and the masked-token mean divides by the global
+count, so the ranks' losses (and gradients) average to the one-process
+loss of the global batch. On the card the critic branch's sampler draws its
+noise from a seed for the local rows, so only the CPU, which draws the
+uniforms, holds that exactly with a critic.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -45,9 +64,32 @@ from phenaki_tpu_torch.models.maskgit import MaskGit, SelfCritic, TokenCritic
 from phenaki_tpu_torch.models.sampling_loop import maskgit_sample_loop
 from phenaki_tpu_torch.ops.fused_ce import can_fuse_ce, fused_vocab_cross_entropy
 from phenaki_tpu_torch.ops.fused_sampling import project_sample
-from phenaki_tpu_torch.ops.sampling import get_mask_subset_with_prob, gumbel_sample, uniform
+from phenaki_tpu_torch.ops.sampling import (
+    get_mask_subset_with_prob,
+    gumbel_sample,
+    prob_mask_like,
+    uniform,
+)
+from phenaki_tpu_torch.parallel import collectives
+from phenaki_tpu_torch.parallel.tp_inference import tp_local_module
 from phenaki_tpu_torch.text.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 from phenaki_tpu_torch.training.checkpoint import load_pytree, save_pytree
+
+
+def _base_seed(generator: Optional[torch.Generator], group) -> int:
+    """A seed drawn from `generator` (every rank holds the same), or without
+    one rank 0's random seed, broadcast over `group`."""
+    if generator is not None:
+        return int(torch.randint(0, 2**62, (), generator=generator))
+    return collectives.broadcast_object(int(np.random.randint(0, 2**62, dtype=np.int64)), group)
+
+
+def dp_generator(generator: Optional[torch.Generator], shard: int, group=None) -> torch.Generator:
+    """The generator data-parallel shard `shard` samples with: a CPU
+    generator seeded from a number drawn from `generator` and the shard
+    (without a generator, rank 0's random number, broadcast over `group`)."""
+    seed = np.random.SeedSequence([_base_seed(generator, group), shard]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed) % 2**63)
 
 
 class Phenaki:
@@ -83,6 +125,41 @@ class Phenaki:
         self.text_embed_dim = text_embed_dim if text_embed_dim is not None else get_encoded_dim(t5_name)
         self.max_text_len = max_text_len
         self.cond_drop_prob = cond_drop_prob
+        self.tp_mesh = None  # the mesh whose tp group the trunks are sharded over
+        self._mesh_views: Dict[int, tuple] = {}
+
+    def tp_shard(self, mesh) -> "Phenaki":
+        """This rank's tensor-parallel Phenaki over `mesh`'s tp group: the
+        MaskGit and a TokenCritic as their tp-local clones
+        (`parallel.tp_inference.tp_local_module`, copies), a SelfCritic on the
+        local trunk with a copy of its head; the C-ViViT shared. With tp = 1,
+        or already sharded over `mesh`, itself."""
+        if mesh.tp == 1 or self.tp_mesh is mesh:
+            return self
+        if self.tp_mesh is not None:
+            raise ValueError("this Phenaki is tensor-parallel over another mesh already")
+        local = copy.copy(self)
+        local.maskgit = tp_local_module(self.maskgit, mesh.tp, mesh.tp_group)
+        if self.self_token_critic:
+            head = copy.deepcopy(self.critic.to_pred)
+            local.critic = SelfCritic(local.maskgit)
+            local.critic.to_pred = head
+        elif self.critic is not None:
+            local.critic = tp_local_module(self.critic, mesh.tp, mesh.tp_group)
+        local.tp_mesh = mesh
+        local._mesh_views = {}
+        return local
+
+    def _sampling_view(self, mesh) -> "Phenaki":
+        """`tp_shard(mesh)`, kept while no parameter changed in place."""
+        if mesh.tp == 1 or self.tp_mesh is mesh:
+            return self
+        version = tuple(p._version for p in self.parameters())
+        held = self._mesh_views.get(id(mesh))
+        if held is None or held[0] is not mesh or held[1] != version:
+            held = (mesh, version, self.tp_shard(mesh))
+            self._mesh_views = {id(mesh): held}
+        return held[2]
 
     def parameters(self) -> Iterator[nn.Parameter]:
         """The trainable parameters: the MaskGit's, then the critic's (a
@@ -134,15 +211,23 @@ class Phenaki:
                text_embeds: Optional[torch.Tensor] = None,
                prime_frames: Optional[torch.Tensor] = None, batch_size: int = 1,
                cond_scale: float = 3.0, starting_temperature: float = 0.9, noise_K: float = 1.0,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
         """Text-to-video sampling: (b, num_frames, H, W, c) in the C-ViViT pixel
         space. `texts` go through `embed_texts`; `text_embeds` are given
         embeddings (b, L, d) instead. `prime_frames` (b, f, H, W, c) are
         continued: the scene's `num_frames` (a multiple of the temporal patch
         size) follow them, and the MaskGit's `max_seq_len` must cover the
         prime's tokens and the scene's. `generator` (a CPU torch.Generator)
-        seeds the sampling noise; `noise_K` scales the critic's score noise."""
+        seeds the sampling noise; `noise_K` scales the critic's score noise.
+        `mesh` (every rank of it calls with the same arguments) shards the
+        batch, which must divide by its data axes, and runs the trunks
+        tensor-parallel over its tp axis (see the module docstring)."""
         text_embeds, batch_size = self._text_batch(texts, text_embeds, batch_size)
+        if mesh is not None and mesh.size > 1:
+            return self._sample_on_mesh(mesh, num_frames=num_frames, text_embeds=text_embeds,
+                                        prime_frames=prime_frames, batch_size=batch_size,
+                                        cond_scale=cond_scale, starting_temperature=starting_temperature,
+                                        noise_K=noise_K, generator=generator)
         prime_ids = self.tokenize_prime(prime_frames) if prime_frames is not None else None
         ids = self.sample_ids(num_frames=num_frames, text_embeds=text_embeds, prime_ids=prime_ids,
                               batch_size=batch_size, cond_scale=cond_scale,
@@ -152,6 +237,22 @@ class Phenaki:
             return self.cvivit.decode_from_codebook_indices(ids)
         video = self.cvivit.decode_from_codebook_indices(torch.cat([prime_ids, ids], dim=-1))
         return video[:, prime_frames.shape[1]:]
+
+    def _sample_on_mesh(self, mesh, *, text_embeds, prime_frames, batch_size: int,
+                        generator: Optional[torch.Generator], **kwargs) -> torch.Tensor:
+        n, shard = mesh.data_size, mesh.data_index
+        if batch_size % n:
+            raise ValueError(f"the sampling batch ({batch_size}) must divide by the mesh's data axes ({n})")
+        if n > 1:
+            generator = dp_generator(generator, shard, mesh.world_group)
+        elif generator is None:
+            generator = torch.Generator().manual_seed(_base_seed(None, mesh.world_group))
+        rows = slice(shard * batch_size // n, (shard + 1) * batch_size // n)
+        video = self._sampling_view(mesh).sample(
+            text_embeds=text_embeds[rows] if text_embeds is not None else None,
+            prime_frames=prime_frames[rows] if prime_frames is not None else None,
+            batch_size=batch_size // n, generator=generator, **kwargs)
+        return collectives.all_gather(video, mesh.data_group, 0)
 
     @torch.inference_mode()
     def sample_images(self, *, texts: Union[List[str], str, None] = None, batch_size: int = 1,
@@ -233,6 +334,16 @@ class Phenaki:
         rand_step = torch.randint(0, self.steps, (b,), generator=generator, device=gen_device)
         return rand_step.to(device), uniform((b, n), generator, device)
 
+    @staticmethod
+    def _text_dropout(text_mask, drop_prob: float, generator, shard: int, shards: int):
+        """Whole-sample conditioning dropout (the MaskGit's `_cond_dropout`),
+        drawn for the global batch of `shards` ranks; this rank keeps its rows."""
+        if text_mask is None or drop_prob <= 0:
+            return text_mask
+        keep = prob_mask_like((text_mask.shape[0] * shards,), 1.0 - drop_prob, generator,
+                              device=text_mask.device)
+        return text_mask & collectives.batch_rows(keep, shard, shards)[:, None]
+
     def _critic_sample_noise(self, b: int, n: int, v: int, generator: Optional[torch.Generator],
                              device) -> Optional[torch.Tensor]:
         """The uniforms (b, n, V) of the critic branch's generator sample, or
@@ -246,7 +357,7 @@ class Phenaki:
              video_frame_mask: Optional[torch.Tensor] = None,
              cond_drop_prob: Optional[float] = None, only_train_generator: bool = False,
              only_train_critic: bool = False, train: bool = True,
-             generator: Optional[torch.Generator] = None
+             generator: Optional[torch.Generator] = None, dp_group=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Masked-token cross-entropy of the generator, plus the critic's BCE
         when there is a critic: (loss, metrics) with metrics `maskgit_loss`,
@@ -262,7 +373,9 @@ class Phenaki:
         critic, the critic's conditioning dropout. `train` turns
         conditioning, attention and FF dropout on. `only_train_generator`
         leaves the critic out; `only_train_critic` detaches the generator's
-        output and makes the loss the critic's alone."""
+        output and makes the loss the critic's alone. `dp_group` makes it a
+        data-parallel rank's share of the global batch's loss (module
+        docstring)."""
         if only_train_generator and only_train_critic:
             raise ValueError("only_train_generator and only_train_critic exclude each other")
         if (videos is None) == (video_codebook_ids is None):
@@ -290,18 +403,25 @@ class Phenaki:
         else:
             video_mask = torch.ones((b, n), dtype=torch.bool, device=device)
 
-        rand_step, noise = self._loss_draws(b, n, generator, device)
+        shard, shards = collectives.group_rank(dp_group), collectives.group_size(dp_group)
+
+        def rows(t):
+            return collectives.batch_rows(t, shard, shards)
+
+        rand_step, noise = map(rows, self._loss_draws(b * shards, n, generator, device))
         mask_prob = torch.cos(rand_step.float() * math.pi * 0.5 / self.steps)
         mask_token_mask = get_mask_subset_with_prob(video_mask, mask_prob, noise=noise)
         masked_input = torch.where(mask_token_mask, self.maskgit.mask_id, ids)
 
         self.maskgit.train(train)
         proj = self.maskgit.to_logits
-        weight, bias = proj.weight, proj.bias
         fuse_ce = can_fuse_ce(proj.in_features, proj.out_features)
         out = self.maskgit(masked_input.reshape(b, *patch_shape), video_mask=video_mask,
-                           cond_drop_prob=drop_prob, text_mask=text_mask,
-                           context=text_embeds, return_embeds=fuse_ce, generator=generator)
+                           text_mask=self._text_dropout(text_mask, drop_prob, generator, shard, shards),
+                           context=text_embeds, return_embeds=fuse_ce)
+        # read after the forward: under FSDP the head's whole weight is registered
+        # from the MaskGit's forward on (its shard before)
+        weight, bias = proj.weight, proj.bias
         if only_train_critic:
             out = out.detach()
             weight, bias = weight.detach(), bias.detach() if bias is not None else None
@@ -311,7 +431,9 @@ class Phenaki:
             out = out.float()
             ce = F.cross_entropy(out.reshape(b * n, -1), ids.reshape(-1), reduction="none")
         w = mask_token_mask.reshape(-1).float()
-        gen_loss = (ce * w).sum() / w.sum().clamp_min(1.0)
+        # the global count over the ranks' mean: the ranks' losses average to the global one
+        count = collectives.all_reduce(w.sum(), dp_group) / shards
+        gen_loss = (ce * w).sum() / count.clamp_min(1.0 / shards)
         metrics = {"maskgit_loss": gen_loss}
         if self.critic is None or only_train_generator:
             metrics["loss"] = gen_loss
@@ -320,6 +442,8 @@ class Phenaki:
         # the critic: which tokens did the generator's sample change?
         temperature = self.critic_train_sample_temperature
         sample_noise = self._critic_sample_noise(b, n, proj.out_features, generator, device)
+        if sample_noise is None and shards > 1 and device.type == "cpu":
+            sample_noise = rows(uniform((b * shards, n, proj.out_features), generator, device))
         if fuse_ce:
             embeds = out.detach()
             pred_ids, _ = project_sample(
@@ -330,10 +454,10 @@ class Phenaki:
         critic_input = torch.where(mask_token_mask, pred_ids, ids).reshape(b, *patch_shape)
         has_text = self.self_token_critic or self.critic.has_cross_attn
         self.critic.train(train)
+        critic_text_mask = self._text_dropout(text_mask, drop_prob, generator, shard, shards) if has_text else None
         critic_logits = self.critic(
-            critic_input, video_mask=video_mask, cond_drop_prob=drop_prob,
-            text_mask=text_mask if has_text else None, context=text_embeds if has_text else None,
-            generator=generator).float()
+            critic_input, video_mask=video_mask, text_mask=critic_text_mask,
+            context=text_embeds if has_text else None).float()
         critic_loss = F.binary_cross_entropy_with_logits(critic_logits, (ids != pred_ids).float())
         metrics["critic_loss"] = critic_loss
         loss = critic_loss if only_train_critic else gen_loss + critic_loss * self.critic_loss_weight

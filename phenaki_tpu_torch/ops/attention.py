@@ -14,6 +14,7 @@ from phenaki_tpu_torch.ops.feedforward import linear
 from phenaki_tpu_torch.ops.flash_attention import MAX_DIM_HEAD, MIN_FLASH_SEQ, flash_attention
 from phenaki_tpu_torch.ops.norms import LayerNorm, l2norm_scaled
 from phenaki_tpu_torch.ops.positional import alibi_bias
+from phenaki_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
 from phenaki_tpu_torch.parallel.ring_attention import sequence_sharded_attention
 
 NEG_INF = -1e30
@@ -34,21 +35,32 @@ def use_flash(q: torch.Tensor, attn_bias: Optional[torch.Tensor], dropout: float
     return q.is_cuda and dropout == 0.0 and flash_applies(q.shape, attn_bias)
 
 
+def _alibi(heads, i: int, j: int, device) -> torch.Tensor:
+    """ALiBi for `heads` = h, or (total, first, h): heads [first, first + h)
+    of `total`, as a tensor-parallel rank holds them."""
+    total, first, h = heads if isinstance(heads, tuple) else (heads, 0, heads)
+    return alibi_bias(total, i, j, device=device)[first:first + h]
+
+
 def qk_norm_attention(q, k, v, *, scale: float = SCALE, attn_bias=None, key_mask=None,
                       causal: bool = False, use_alibi: bool = False,
-                      dropout: float = 0.0, allow_flash: bool = True) -> torch.Tensor:
+                      dropout: float = 0.0, allow_flash: bool = True,
+                      alibi_heads=None) -> torch.Tensor:
     """Attention core: q, k already l2-normalised and scaled per dim.
     q (b, h, i, d); k, v (b, h, j, d); attn_bias (h, i, j) or (b, h, i, j);
     key_mask (b, j) bool, True = attend; `dropout` is the active attention
     dropout rate (0 outside training). `allow_flash=False` keeps the plain
     path on every device: the kernels' backward is first-order only, so a
-    result differentiated twice (the R1 penalty) must not reach them."""
+    result differentiated twice (the R1 penalty) must not reach them.
+    `alibi_heads` (total, first, h) takes the ALiBi slopes of heads
+    [first, first + h) of `total` (a tensor-parallel rank's)."""
     b, h, i, d = q.shape
     j = k.shape[2]
+    alibi_heads = alibi_heads or h
     if allow_flash and use_flash(q, attn_bias, dropout):
         bias = attn_bias
         if causal and use_alibi:
-            ab = alibi_bias(h, i, j, device=q.device)
+            ab = _alibi(alibi_heads, i, j, q.device)
             bias = ab if bias is None else bias + ab
         kmask = None
         if key_mask is not None:
@@ -64,7 +76,7 @@ def qk_norm_attention(q, k, v, *, scale: float = SCALE, attn_bias=None, key_mask
         sim = sim.masked_fill(~key_mask[:, None, None, :], NEG_INF)
     if causal:
         if use_alibi:
-            sim = sim + alibi_bias(h, i, j, device=q.device)[None]
+            sim = sim + _alibi(alibi_heads, i, j, q.device)[None]
         q_pos = torch.arange(i, device=q.device)[:, None] + (j - i)
         k_pos = torch.arange(j, device=q.device)[None, :]
         sim = sim.masked_fill(k_pos > q_pos, NEG_INF)
@@ -97,16 +109,27 @@ class Attention(nn.Module):
     `use_flash=False` never reaches `flash_attention`, on any device: for a
     module differentiated to second order (the discriminator under the R1
     penalty).
+
+    `tp_group` (set by `parallel.tp_inference.tp_local_module`, which gives
+    the block `heads` of `total_heads` heads from `head_offset` on) makes it
+    tensor-parallel, Megatron's way: the normed input enters the
+    column-parallel q/kv products through `copy_to_group` (identity forward,
+    all-reduce backward), as do the q/k scales, which every head shares;
+    `to_out`'s partial product is completed by one all-reduce
+    (`reduce_from_group`), JAX's `psum`. ALiBi takes the rank's heads'
+    slopes.
     """
 
     def __init__(self, dim: int, *, dim_context: Optional[int] = None, dim_head: int = 64,
                  heads: int = 8, causal: bool = False, num_null_kv: int = 0, cross: bool = False,
                  reference_self_kv: bool = False, dropout: float = 0.0, seq_group=None,
-                 use_flash: bool = True):
+                 use_flash: bool = True, tp_group=None):
         super().__init__()
         self.dropout = dropout
         self.use_flash = use_flash
         self.seq_group = seq_group
+        self.tp_group = tp_group
+        self.total_heads, self.head_offset = heads, 0
         inner = dim_head * heads
         kv_dim = (dim_context or dim) if cross else dim
         self.heads, self.dim_head, self.causal = heads, dim_head, causal
@@ -137,14 +160,15 @@ class Attention(nn.Module):
         attn_bias (h, i, j) additive."""
         batch, n, _ = x.shape
         inner = self.heads * self.dim_head
+        tp = self.tp_group
         if context is not None:
-            kv_input = self.context_norm(context)
+            kv_input = copy_to_group(self.context_norm(context), tp)
         elif self.reference_self_kv:
-            kv_input = x
+            kv_input = copy_to_group(x, tp)
         else:
             kv_input = None
 
-        x = self.norm(x)
+        x = copy_to_group(self.norm(x), tp)
         if kv_input is None:
             qkv = F.linear(x, torch.cat([self.to_q.weight, self.to_kv.weight]).to(x.dtype))
             q, kv = qkv[..., :inner], qkv[..., inner:]
@@ -162,8 +186,8 @@ class Attention(nn.Module):
             k = torch.cat([nk.expand(batch, -1, -1, -1), k], dim=-2)
             v = torch.cat([nv.expand(batch, -1, -1, -1), v], dim=-2)
 
-        q = l2norm_scaled(q, self.q_scale)
-        k = l2norm_scaled(k, self.k_scale)
+        q = l2norm_scaled(q, copy_to_group(self.q_scale, tp))
+        k = l2norm_scaled(k, copy_to_group(self.k_scale, tp))
 
         if self.null_kv is not None:
             if attn_bias is not None:
@@ -175,13 +199,14 @@ class Attention(nn.Module):
         if self._sequence_sharded(context, attn_bias, dropout, n):
             ring_bias = attn_bias
             if self.causal:
-                ab = alibi_bias(self.heads, n, n, device=q.device)
+                ab = _alibi(self.heads, n, n, q.device)
                 ring_bias = ab if ring_bias is None else ring_bias + ab
             out = sequence_sharded_attention(q, k, v, self.seq_group, scale=SCALE,
                                              attn_bias=ring_bias, key_mask=mask, causal=self.causal)
         else:
             out = qk_norm_attention(q, k, v, attn_bias=attn_bias, key_mask=mask,
                                     causal=self.causal, use_alibi=self.causal, dropout=dropout,
-                                    allow_flash=self.use_flash)
+                                    allow_flash=self.use_flash,
+                                    alibi_heads=(self.total_heads, self.head_offset, self.heads))
         out = out.transpose(1, 2).reshape(batch, n, inner)
-        return linear(out, self.to_out)
+        return reduce_from_group(linear(out, self.to_out), tp)

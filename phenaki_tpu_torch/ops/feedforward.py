@@ -6,11 +6,14 @@ gradients to the JAX VJP)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from phenaki_tpu_torch.ops.norms import StandardLayerNorm
+from phenaki_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
 
 
 def ff_inner_dim(dim: int, mult: int = 4) -> int:
@@ -33,18 +36,26 @@ def geglu(x: torch.Tensor) -> torch.Tensor:
 
 class FeedForward(nn.Module):
     """LN (with beta) -> Linear(2*inner, no bias) -> GEGLU -> dropout ->
-    Linear(dim, no bias)."""
+    Linear(dim, no bias).
 
-    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
+    `inner_dim` overrides the width (a tensor-parallel rank's columns);
+    `tp_group` makes the block tensor-parallel as `ops.attention.Attention`
+    is: the normed input enters `proj_in` through `copy_to_group` and
+    `proj_out`'s partial product is completed by one all-reduce."""
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 inner_dim: Optional[int] = None, tp_group=None):
         super().__init__()
-        inner = ff_inner_dim(dim, mult)
+        inner = inner_dim if inner_dim is not None else ff_inner_dim(dim, mult)
+        self.inner_dim = inner
+        self.tp_group = tp_group
         self.norm = StandardLayerNorm(dim)
         self.proj_in = nn.Linear(dim, inner * 2, bias=False)
         self.proj_out = nn.Linear(inner, dim, bias=False)
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = geglu(linear(self.norm(x), self.proj_in))
+        h = geglu(linear(copy_to_group(self.norm(x), self.tp_group), self.proj_in))
         if self.dropout > 0:
             h = F.dropout(h, self.dropout, self.training)
-        return linear(h, self.proj_out)
+        return reduce_from_group(linear(h, self.proj_out), self.tp_group)

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from phenaki_tpu_torch.parallel.collectives import copy_to_group
+
 
 def alibi_slopes(heads: int) -> np.ndarray:
     """Per-head ALiBi slopes."""
@@ -43,12 +45,17 @@ class ContinuousPositionBias(nn.Module):
     prod(2*D_k - 1) rows, on signed-log coordinates; the (heads, N, N) bias
     is then expanded from that table by an index gather:
     bias[h, p, q] = table[p - q (per grid axis), h].
+
+    With `tp_group` (a tensor-parallel rank's clone, whose `net_out` gives
+    its heads alone) the hidden activations enter `net_out` through
+    `copy_to_group`, so the replicated MLP below it gets the whole gradient.
     """
 
-    def __init__(self, dim: int, heads: int, num_dims: int = 2):
+    def __init__(self, dim: int, heads: int, num_dims: int = 2, tp_group=None):
         super().__init__()
         self.num_dims = num_dims
         self.heads = heads
+        self.tp_group = tp_group
         self.net_in = nn.Linear(num_dims, dim)
         self.net_hidden = nn.ModuleList([nn.Linear(dim, dim)])  # two layers in all
         self.net_out = nn.Linear(dim, heads)
@@ -64,7 +71,7 @@ class ContinuousPositionBias(nn.Module):
         x = F.leaky_relu(self.net_in(disp.to(w.dtype)), 0.1)
         for layer in self.net_hidden:
             x = F.leaky_relu(layer(x), 0.1)
-        table = self.net_out(x)  # (prod(2D-1), heads)
+        table = self.net_out(copy_to_group(x, self.tp_group))  # (prod(2D-1), heads)
 
         # flat table index of the displacement between every pair of points
         coords = torch.stack(

@@ -16,6 +16,13 @@ over (b, n, dim) and map indices back to code vectors for the decoder.
   mutable `vq_stats` collection, `codebook` and `cluster_size`).
 
 A mask (b, n) bool weighs every loss term and statistic by position.
+
+`batch_group` (a data-parallel process group, set by a trainer) makes the
+batch statistics those of the global batch: the position count, the LFQ's
+codebook usage (`collectives.sum_over_group`, whose backward suits averaged
+gradients) and the VQ's EMA counts and sums, as JAX computes them over the
+whole sharded batch and keeps `vq_stats` replicated. Each rank's losses
+then average to the global batch's.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from torch import nn
 
 from phenaki_tpu_torch.ops.feedforward import linear
+from phenaki_tpu_torch.parallel import collectives
 
 FULL_ENTROPY_MAX_BITS = 13
 LFQ_INV_TEMPERATURE = 100.0
@@ -51,10 +59,13 @@ def _entropy(probs: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return -(probs * torch.log(probs.clamp_min(eps))).sum(-1)
 
 
-def _weights(z: torch.Tensor, mask: Optional[torch.Tensor]):
-    """Per-position weights (b, n) f32 and their sum, at least 1."""
+def _weights(z: torch.Tensor, mask: Optional[torch.Tensor], group=None):
+    """Per-position weights (b, n) f32 and their sum, at least 1; over a
+    group of n ranks the global sum / n (the ranks' losses then average to
+    the global loss)."""
     w = torch.ones(z.shape[:-1], device=z.device) if mask is None else mask.float()
-    return w, w.sum().clamp_min(1.0)
+    n = collectives.group_size(group)
+    return w, (collectives.all_reduce(w.sum(), group) / n).clamp_min(1.0 / n)
 
 
 def _lfq_codebook(bits: int, device) -> torch.Tensor:
@@ -77,6 +88,7 @@ class LFQ(nn.Module):
         has_projections = dim != bits
         self.project_in = nn.Linear(dim, bits, bias=False) if has_projections else None
         self.project_out = nn.Linear(bits, dim, bias=False) if has_projections else None
+        self.batch_group = None
 
     def _powers(self, device) -> torch.Tensor:
         return 2 ** torch.arange(self.codebook_dim, device=device)
@@ -96,18 +108,23 @@ class LFQ(nn.Module):
         codes = torch.where(z > 0, 1.0, -1.0)
         indices = self.codes_to_indices(z)
         quantized = z + (codes - z).detach()  # straight through
-        weights, denom = _weights(z, mask)
+        group = self.batch_group
+        weights, denom = _weights(z, mask, group)
+        # the global batch's mean usage: the ranks' sums over their count
+        usage_denom = denom * collectives.group_size(group)
 
         if self.codebook_dim <= FULL_ENTROPY_MAX_BITS:
             logits = torch.einsum("bnd,kd->bnk", z, _lfq_codebook(self.codebook_dim, z.device))
             probs = torch.softmax(logits * LFQ_INV_TEMPERATURE, dim=-1)
             per_sample_entropy = (_entropy(probs) * weights).sum() / denom
-            avg_probs = (probs * weights[..., None]).sum(dim=(0, 1)) / denom
+            avg_probs = collectives.sum_over_group((probs * weights[..., None]).sum(dim=(0, 1)),
+                                                   group) / usage_denom
             codebook_entropy = _entropy(avg_probs)
         else:  # the softmax over sign codes factorizes per bit
             p_bit = torch.sigmoid(2.0 * z * LFQ_INV_TEMPERATURE)
             per_sample_entropy = (_binary_entropy(p_bit).sum(-1) * weights).sum() / denom
-            avg_p_bit = (p_bit * weights[..., None]).sum(dim=(0, 1)) / denom
+            avg_p_bit = collectives.sum_over_group((p_bit * weights[..., None]).sum(dim=(0, 1)),
+                                                   group) / usage_denom
             codebook_entropy = _binary_entropy(avg_p_bit).sum()
         entropy_aux = per_sample_entropy - self.diversity_gamma * codebook_entropy
         commit = (((z - codes) ** 2).mean(-1) * weights).sum() / denom
@@ -140,6 +157,7 @@ class VectorQuantize(nn.Module):
         self.codebook_size = codebook_size
         self.register_buffer("embed", torch.randn(codebook_size, dim))
         self.register_buffer("cluster_size", torch.zeros(codebook_size))
+        self.batch_group = None
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 update_codebook: bool = True) -> QuantizerOutput:
@@ -149,7 +167,7 @@ class VectorQuantize(nn.Module):
         cb_n = _l2norm(self.embed.float())
         indices = torch.einsum("bnd,kd->bnk", z_n, cb_n).argmax(dim=-1)
         quantized = cb_n[indices]
-        weights, denom = _weights(z_n, mask)
+        weights, denom = _weights(z_n, mask, self.batch_group)
         commit = (((z_n - quantized.detach()) ** 2).mean(-1) * weights).sum() / denom
         aux_loss = commit * VQ_COMMITMENT_WEIGHT
         if update_codebook:
@@ -160,8 +178,8 @@ class VectorQuantize(nn.Module):
     @torch.no_grad()
     def _ema_update(self, z_n, indices, weights) -> None:
         one_hot = torch.nn.functional.one_hot(indices, self.codebook_size).float() * weights[..., None]
-        counts = one_hot.sum(dim=(0, 1))
-        sums = torch.einsum("bnk,bnd->kd", one_hot, z_n)
+        counts = collectives.all_reduce(one_hot.sum(dim=(0, 1)), self.batch_group)
+        sums = collectives.all_reduce(torch.einsum("bnk,bnd->kd", one_hot, z_n), self.batch_group)
         new_cluster = self.cluster_size * VQ_DECAY + counts * (1 - VQ_DECAY)
         n = new_cluster.sum()
         smoothed = (new_cluster + VQ_EPS) / (n + self.codebook_size * VQ_EPS) * n

@@ -74,16 +74,20 @@ def flagship_token_critic(max_seq_len: int = 1152, **overrides) -> TokenCritic:
 
 def flagship_phenaki(seed: int = 0, *, device="cuda", dtype=torch.bfloat16,
                      num_frames: int = FLAGSHIP_NUM_FRAMES, steps: int = 18, critic: bool = False,
-                     self_token_critic: bool = False, seq_group=None) -> Phenaki:
+                     self_token_critic: bool = False, seq_group=None, mesh=None) -> Phenaki:
     """The flagship Phenaki with seeded random weights on `device`.
 
     Weights are drawn in f32 on the CPU from `torch.Generator().manual_seed(seed)`
     (so a seed gives the same weights on every machine), then moved to
     `device` and `dtype`. `seq_group` makes the MaskGit's self-attention
     sequence-parallel over that process group (every rank builds the same
-    model and runs the same calls)."""
-    return _seeded_flagship(seed, device, dtype, num_frames, steps, None, critic, self_token_critic,
-                            seq_group, cvivit_dtype=dtype)
+    model and runs the same calls). `mesh` (a `parallel.mesh.Mesh` with
+    tp > 1) returns this rank's tensor-parallel Phenaki (`Phenaki.tp_shard`),
+    for `sample(mesh=)` and `PhenakiServer(mesh=)`; the trainers take the
+    whole model and shard it themselves."""
+    ph = _seeded_flagship(seed, device, dtype, num_frames, steps, None, critic, self_token_critic,
+                          seq_group, cvivit_dtype=dtype)
+    return ph.tp_shard(mesh) if mesh is not None else ph
 
 
 def flagship_train_phenaki(seed: int = 0, *, device="cuda", num_frames: int = FLAGSHIP_NUM_FRAMES,

@@ -43,6 +43,18 @@ keeps no pinned memory. The uint8 output is quantised on the device first
 
 `serve_http` wraps a server in a minimal JSON/HTTP front end (stdlib only):
 POST /generate {"text": ...} -> {"video_gif_b64": ...}.
+
+On a mesh (`mesh=`, JAX `serving.py:143,156,300,447,495`): JAX's server is
+one process driving every device; here every rank of the mesh builds the
+server alike. Rank 0 runs the dispatcher and the resolver and takes the
+requests; every other rank runs a follower thread. Each launch (a sample,
+or one scene of a video batch) is broadcast from rank 0 over a control
+group of its own (no collective timeout: a server may idle for hours):
+its text embeddings, prime frames and seed on the CPU; then every rank
+joins the same `Phenaki.sample(mesh=)`, and the followers drop the result.
+`close()` on rank 0 broadcasts a stop; on a follower it returns when that
+stop has arrived. `serve_http` binds on rank 0 only; on a follower it
+returns once the server is closed.
 """
 
 from __future__ import annotations
@@ -56,12 +68,17 @@ import tempfile
 import threading
 import time
 from concurrent.futures import Future
+from datetime import timedelta
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-MESH_NOT_PORTED = "PhenakiServer(mesh=) is not ported yet (ROADMAP A13)"
+from phenaki_tpu_torch.parallel import collectives
+from phenaki_tpu_torch.parallel.mesh import Mesh
+
+_NO_TIMEOUT = timedelta(days=365)
 
 
 class ServerOverloaded(RuntimeError):
@@ -138,8 +155,8 @@ class PhenakiServer:
                  starting_temperature: float = 0.9, batch_buckets: Sequence[int] = (1, 2, 4, 8),
                  max_delay_ms: float = 20.0, seed: int = 0, mesh=None,
                  output_dtype: str = "uint8", max_queue: int = 256, resolve_depth: int = 4):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), not {type(mesh).__name__}")
         if output_dtype not in ("uint8", "float32"):
             raise ValueError(f"output_dtype must be 'uint8' or 'float32', not {output_dtype!r}")
         self.model = phenaki
@@ -158,10 +175,55 @@ class PhenakiServer:
         self._closed = False
         self._close_lock = threading.Lock()
         self._resolve_q: "queue.Queue" = queue.Queue(maxsize=resolve_depth)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._control = None
+        self._launch_lock = threading.Lock()  # rank 0: one launch at a time
+        if self.mesh is not None:
+            self._control = dist.new_group(list(range(self.mesh.size)), backend="gloo",
+                                           timeout=_NO_TIMEOUT)
+        if self.mesh is not None and self.mesh.rank != 0:
+            self._thread = threading.Thread(target=self._follow_loop, daemon=True)
+            self._thread.start()
+            self._resolver = None
+            return
         self._thread = threading.Thread(target=self._dispatch_loop, daemon=True)
         self._thread.start()
         self._resolver = threading.Thread(target=self._resolve_loop, daemon=True)
         self._resolver.start()
+
+    @property
+    def is_follower(self) -> bool:
+        return self.mesh is not None and self.mesh.rank != 0
+
+    def _sample(self, **kwargs) -> torch.Tensor:
+        """One launch: `Phenaki.sample`; on a mesh, broadcast to the
+        followers first (CPU copies) and run on every rank."""
+        if self.mesh is None:
+            return self.model.sample(**kwargs)
+        with self._launch_lock:
+            kwargs["seed"] = kwargs.pop("generator").initial_seed()  # a fresh launch generator
+            collectives.broadcast_object(("sample", _to_host(kwargs)), self._control)
+            return self._mesh_sample(kwargs)
+
+    def _mesh_sample(self, kwargs: dict) -> torch.Tensor:
+        kwargs = dict(kwargs)
+        generator = torch.Generator().manual_seed(kwargs.pop("seed"))
+        for k in ("text_embeds", "prime_frames"):
+            if kwargs.get(k) is not None:
+                kwargs[k] = kwargs[k].to(self.device)
+        return self.model.sample(generator=generator, mesh=self.mesh, **kwargs)
+
+    def _follow_loop(self):
+        """A follower: join every launch rank 0 broadcasts, until the stop."""
+        with self._device_context(), torch.inference_mode():
+            while True:
+                kind, kwargs = collectives.broadcast_object(None, self._control)
+                if kind == "stop":
+                    return
+                try:
+                    self._mesh_sample(kwargs)
+                except Exception:  # rank 0 fails the launch's futures; keep following
+                    pass
 
     # client API
 
@@ -247,10 +309,12 @@ class PhenakiServer:
 
                 _build.load_library()
             self.model.embed_texts([""])
+            if self.is_follower:
+                return  # the follower thread joins rank 0's launches
             dummy = torch.zeros(1, self.model.max_text_len, self.model.text_embed_dim,
                                 device=self.device)
             for b in self.batch_buckets:
-                videos = self.model.sample(
+                videos = self._sample(
                     num_frames=self.num_frames, text_embeds=dummy.expand(b, -1, -1),
                     cond_scale=self.cond_scale, starting_temperature=self.starting_temperature,
                     generator=torch.Generator().manual_seed(0))
@@ -258,13 +322,22 @@ class PhenakiServer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-    def close(self):
+    def close(self, timeout: Optional[float] = 60.0):
+        """Stop serving. On a mesh rank 0 broadcasts a stop after its last
+        launch; a follower returns when that stop has arrived (at most
+        `timeout` seconds later; None waits without end)."""
         with self._close_lock:
             if self._closed:
                 return
             self._closed = True
+        if self.is_follower:
+            self._thread.join(timeout=timeout)
+            return
         self._queue.put(None)
         self._thread.join(timeout=60)
+        if self.mesh is not None:
+            with self._launch_lock:
+                collectives.broadcast_object(("stop", None), self._control)
         self._resolve_q.put(None)
         self._resolver.join(timeout=60)
         # fail anything that raced the sentinel
@@ -389,7 +462,7 @@ class PhenakiServer:
             for slot, i in enumerate(text_idx):
                 rows[i] = encoded[slot]
         embeds = _pad_rows(torch.stack(rows), bucket)
-        videos = self.model.sample(
+        videos = self._sample(
             num_frames=self.num_frames, text_embeds=embeds, cond_scale=self.cond_scale,
             starting_temperature=self.starting_temperature, generator=self._launch_generator())
         self._launches.append((n, bucket))
@@ -409,7 +482,7 @@ class PhenakiServer:
         scenes = []
         for s, (frames, next_prime) in enumerate(zip(batch[0].scene_num_frames, prime_lengths)):
             embeds = _pad_rows(self.model.embed_texts([r.scene_texts[s] for r in batch]), bucket)
-            video = self.model.sample(
+            video = self._sample(
                 num_frames=frames, text_embeds=embeds, prime_frames=video_prime,
                 cond_scale=self.cond_scale, starting_temperature=self.starting_temperature,
                 generator=self._launch_generator())
@@ -456,6 +529,11 @@ class PhenakiServer:
                         req.future.set_exception(e)
 
 
+def _to_host(kwargs: dict) -> dict:
+    """A launch's arguments with its tensors on the CPU, for the broadcast."""
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()}
+
+
 # minimal HTTP front end (stdlib only)
 
 
@@ -490,8 +568,13 @@ def serve_http(server: PhenakiServer, port: int = 8089, max_requests=None,
     whose last "prime_frames" frames scene 0 continues} -> {"video_gif_b64":
     ...}; GET /healthz -> ok, GET /stats -> the server's stats. Each request
     carries a `request_timeout`-second deadline end to end; overload and
-    expiry return 503. `max_requests` bounds the serve loop."""
+    expiry return 503. `max_requests` bounds the serve loop. On a mesh only
+    rank 0 binds; a follower waits for the server's close and returns None."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    if server.is_follower:
+        server.close(timeout=None)
+        return None
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet

@@ -6,13 +6,21 @@ previous file whole. Loads use `torch.load(weights_only=True)`, which
 unpickles tensors and plain containers only. The writes are synchronous:
 `CheckpointManager.wait` and `close` exist so that a trainer reads as the
 TPU package's.
+
+A checkpoint always holds the global (consolidated) state, as one process
+would: `consolidate` turns a rank's tensor-parallel and FSDP-sharded
+tensors (parameters, and an optimizer's or an EMA's state of the same
+layout) into the global ones, collectively over the mesh, and
+`parallel.mesh.place_like` cuts global tensors back to a rank's layout,
+so a checkpoint written on one mesh loads on any other
+(`parallel.tp_inference`, `global_value` and `local_value`).
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -34,6 +42,56 @@ def save_pytree(path: str | os.PathLike, tree: Any) -> None:
 def load_pytree(path: str | os.PathLike, map_location="cpu") -> Any:
     """The tree saved at `path`, its tensors on `map_location`."""
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def consolidate(tensors: Dict[str, torch.Tensor], mesh, shapes: Dict[str, Sequence[int]]
+                ) -> Dict[str, torch.Tensor]:
+    """Each rank-local tensor by its parameter name, as the global tensor of
+    global shape `shapes[name]`, on the CPU; collective over `mesh` (every
+    rank calls it with the same names, in the same order)."""
+    from phenaki_tpu_torch.parallel.tp_inference import global_value
+
+    return {name: global_value(name, t, mesh, shapes[name]).cpu() for name, t in tensors.items()}
+
+
+def consolidate_optimizer(opt: torch.optim.Optimizer, names: List[str], mesh,
+                          shapes: Dict[str, Sequence[int]]) -> dict:
+    """An optimizer's state_dict with every per-parameter tensor of the
+    parameter's shape (Adam's moments) consolidated; `names` are the
+    optimizer's parameters' names in its order."""
+    sd = opt.state_dict()
+    state = {}
+    for i, per in sd["state"].items():
+        name = names[i]
+        state[i] = {k: consolidate({name: v}, mesh, shapes)[name]
+                    if isinstance(v, torch.Tensor) and v.ndim else v for k, v in per.items()}
+    return {"state": state, "param_groups": sd["param_groups"]}
+
+
+@torch.no_grad()
+def load_sharded(module_params: Dict[str, torch.Tensor], values: Dict[str, torch.Tensor], mesh) -> None:
+    """Copy global `values` into this rank's tensors `module_params` (a
+    module's `state_dict()` or named parameters) in place."""
+    from phenaki_tpu_torch.parallel.mesh import place_like
+
+    for name, local in place_like(module_params, values, mesh).items():
+        target = module_params[name]
+        if hasattr(target, "to_local"):
+            target.to_local().copy_(local.to_local())
+        else:
+            target.copy_(local)
+
+
+def shard_optimizer_state(sd: dict, params: List[torch.Tensor], names: List[str], mesh) -> dict:
+    """A consolidated optimizer state_dict cut to this rank's parameters."""
+    from phenaki_tpu_torch.parallel.mesh import place_like
+
+    state = {}
+    for i, per in sd["state"].items():
+        name, p = names[i], params[i]
+        state[i] = {k: place_like({name: p}, {name: v}, mesh)[name]
+                    if isinstance(v, torch.Tensor) and v.ndim else v for k, v in per.items()}
+    return {"state": state, "param_groups": sd["param_groups"]}
 
 
 def _to_meta(tree: Any) -> Any:

@@ -39,17 +39,34 @@ and the step, so that a resume continues bit-identically (as in the TPU
 package, the data order is not saved). `profile_dir` captures steps
 [profile_steps) with `torch.profiler`.
 
-Not accepted: the mesh and FSDP arguments (ROADMAP A13).
+On a mesh (`mesh=`, JAX `cvivit_trainer.py:116-117, 207-238, 495-515`)
+every rank builds the trainer alike and calls the same steps; `batch_size`
+is the global batch, of which each data-parallel rank loads its
+interleaved shard (`DataLoader(num_shards=, shard_id=)`) and takes its
+share of the losses (`dp_group=` of the loss functions; the quantizer's
+batch statistics over the group, a VQ's EMA statistics all-reduced and so
+replicated, as JAX replicates `vq_stats`). Gradients are averaged over the
+data group: the discriminator and the VGG are data-parallel. tp > 1 trains
+the rank's tensor-parallel clone of the C-ViViT's transformers
+(`parallel.tp_inference.tp_local_module`); `fsdp=True` shards its
+transformer layers and the C-ViViT itself over the data group, the pixel
+heads (the adaptive weight's) kept replicated. Both Adams and the EMA hold
+tensors of the parameters' placement. The validation reconstructions run on
+every rank (the same batch) and rank 0 writes them; checkpoints hold the
+consolidated state, written by rank 0, and load on any mesh. A sharded
+trainer trains a copy of the C-ViViT.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from functools import partial
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from phenaki_tpu_torch.data.codecs import video_tensor_to_gif
@@ -57,11 +74,23 @@ from phenaki_tpu_torch.data.datasets import DataLoader, ImageDataset, VideoDatas
 from phenaki_tpu_torch.models.cvivit import CViViT, Discriminator
 from phenaki_tpu_torch.models.cvivit_losses import cvivit_discriminator_loss, cvivit_generator_loss
 from phenaki_tpu_torch.models.vgg import init_vgg, load_vgg16_from_file
+from phenaki_tpu_torch.models.transformer import TransformerLayer
 from phenaki_tpu_torch.ops.torch_init import init_parameters
-from phenaki_tpu_torch.training.checkpoint import CheckpointManager
+from phenaki_tpu_torch.parallel import collectives
+from phenaki_tpu_torch.parallel.fsdp import apply_fsdp
+from phenaki_tpu_torch.parallel.mesh import make_mesh, place_like
+from phenaki_tpu_torch.parallel.tp_inference import clone_module, tp_local_module
+from phenaki_tpu_torch.models.cvivit_losses import _pixel_head_params
+from phenaki_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    consolidate,
+    consolidate_optimizer,
+    load_sharded,
+    shard_optimizer_state,
+)
 from phenaki_tpu_torch.training.ema import EMAState, ema_init, ema_update
-from phenaki_tpu_torch.training.optimizer import get_optimizer
-from phenaki_tpu_torch.training.phenaki_trainer import LOADER_WORKERS, PARALLEL_NOT_PORTED, collate_and_cast
+from phenaki_tpu_torch.training.optimizer import get_optimizer, global_grad_norm
+from phenaki_tpu_torch.training.phenaki_trainer import LOADER_WORKERS, check_mesh, collate_and_cast
 from phenaki_tpu_torch.utils.image_grid import save_image_grid
 from phenaki_tpu_torch.utils.logging import MetricLogger, accum_log, start_trace, stop_trace
 from phenaki_tpu_torch.utils.results_folder import prepare_results_folder
@@ -91,8 +120,24 @@ class CViViTTrainer:
                  discr_attn_res_layers: tuple = (16,), vgg_params: Optional[Dict] = None, mesh=None,
                  fsdp: bool = False, seed: int = 42, log_every: int = 10,
                  profile_dir: Optional[str] = None, profile_steps: Tuple[int, int] = (2, 4)):
-        if mesh is not None or fsdp:
-            raise NotImplementedError(PARALLEL_NOT_PORTED)
+        check_mesh(mesh)
+        if fsdp and mesh is None:
+            mesh = make_mesh()
+        dp = mesh.data_size if mesh is not None else 1
+        if batch_size % dp:
+            raise ValueError(f"the global batch ({batch_size}) must divide by the mesh's data axes ({dp})")
+        self.mesh = mesh
+        self.dp_group = mesh.data_group if mesh is not None else None
+        self.is_main = mesh is None or mesh.rank == 0
+        self.sharded = mesh is not None and (fsdp or mesh.tp > 1)
+        self.dense_vae = vae
+        if self.sharded:
+            vae = (tp_local_module(vae, mesh.tp, mesh.tp_group) if mesh.tp > 1 else clone_module(vae))
+        vae.vq.batch_group = self.dp_group
+        self.fsdp = bool(fsdp and dp > 1)
+        self.fsdp_ignored = (apply_fsdp(vae, mesh, (TransformerLayer,), keep_replicated=_pixel_head_params(vae),
+                                        forward_methods=("forward_intermediates",))
+                             if self.fsdp else [])
         if perceptual_mode not in ("vgg", "disc", "none"):
             raise ValueError(f"perceptual_mode {perceptual_mode!r} is not one of vgg, disc, none")
         if vgg_params is None and perceptual_mode == "vgg":
@@ -138,7 +183,10 @@ class CViViTTrainer:
                 if vgg_params is not None:
                     self.vgg.load_state_dict(vgg_params)
 
-        self.gen_opt = get_optimizer(vae.parameters(), lr=lr, wd=wd, max_grad_norm=max_grad_norm)
+        named = list(vae.named_parameters())
+        grad_norm = (lambda: global_grad_norm(named, mesh)) if mesh is not None else None
+        self.gen_opt = get_optimizer(vae.parameters(), lr=lr, wd=wd, max_grad_norm=max_grad_norm,
+                                     grad_norm=grad_norm)
         self.discr_opt = (get_optimizer(self.discr.parameters(), lr=lr, wd=wd,
                                         max_grad_norm=discr_max_grad_norm) if self.discr else None)
         self.ema: Optional[EMAState] = ema_init(dict(vae.named_parameters())) if use_ema else None
@@ -161,8 +209,9 @@ class CViViTTrainer:
             collate = partial(collate_and_cast, dtype=vae.dtype)
             # on the card, batches come in page-locked memory, so that their
             # copies to the device are DMA transfers issued without a wait
-            self.dl = iter(DataLoader(self.ds, batch_size=batch_size, seed=seed + 1, repeat=True,
+            self.dl = iter(DataLoader(self.ds, batch_size=batch_size // dp, seed=seed + 1, repeat=True,
                                       num_workers=LOADER_WORKERS, pin_memory=device.type == "cuda",
+                                      num_shards=dp, shard_id=mesh.data_index if mesh is not None else 0,
                                       collate_fn=collate))
             self.valid_dl = iter(DataLoader(self.valid_ds, batch_size=batch_size, seed=seed + 2,
                                             repeat=True, collate_fn=collate))
@@ -210,10 +259,12 @@ class CViViTTrainer:
                 self.vae, self._next_batch(self.dl), generator=self.generator, discr=self.discr,
                 vgg=self.vgg, use_vgg_and_gan=self.use_vgg_and_gan, use_hinge_loss=self.use_hinge_loss,
                 update_codebook=not self.vae.lookup_free_quantization,
-                perceptual_mode=self.perceptual_mode)
+                perceptual_mode=self.perceptual_mode, dp_group=self.dp_group)
             (loss / k).backward()
             accum_log(logs, {name: aux[name].detach() / k for name in names})
         _complete_grads(self.vae)
+        collectives.all_reduce_grads(self.fsdp_ignored if self.fsdp else self.vae.parameters(),
+                                     self.dp_group)
         self.gen_opt.step()
         self.gen_opt.zero_grad(set_to_none=True)
         if self.ema is not None:
@@ -228,16 +279,20 @@ class CViViTTrainer:
             for _ in range(k):
                 loss, aux = cvivit_discriminator_loss(
                     self.vae, self.discr, self._next_batch(self.dl), generator=self.generator,
-                    apply_grad_penalty=apply_gp, use_hinge_loss=self.use_hinge_loss)
+                    apply_grad_penalty=apply_gp, use_hinge_loss=self.use_hinge_loss,
+                    dp_group=self.dp_group)
                 (loss / k).backward()
                 accum_log(logs, {name: aux[name].detach() / k for name in ("discr_loss", "grad_penalty")})
             _complete_grads(self.discr)
+            collectives.all_reduce_grads(self.discr.parameters(), self.dp_group)
             self.discr_opt.step()
             self.discr_opt.zero_grad(set_to_none=True)
-            if steps % self.log_every == 0:
+        logs = self._global_logs(logs)
+        if self.discr is not None:
+            if steps % self.log_every == 0 and self.is_main:
                 print(f"{steps}: vae loss: {float(logs['loss']):.4f} - "
                       f"discr loss: {float(logs['discr_loss']):.4f}")
-        elif steps % self.log_every == 0:
+        elif steps % self.log_every == 0 and self.is_main:
             print(f"{steps}: vae loss: {float(logs['loss']):.4f}")
 
         if steps % self.save_results_every == 0:
@@ -248,10 +303,44 @@ class CViViTTrainer:
         self.logger.log(steps, logs)
         return logs
 
+    def _global_logs(self, logs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The losses averaged over the data group (one all-reduce)."""
+        if self.dp_group is None:
+            return logs
+        names = list(logs)
+        mean = collectives.all_reduce(torch.stack([logs[n].float() for n in names]), self.dp_group)
+        mean = mean / collectives.group_size(self.dp_group)
+        return {n: mean[i] for i, n in enumerate(names)}
+
+    @contextlib.contextmanager
+    def _with_params(self, params: Dict[str, torch.Tensor]):
+        """The C-ViViT with `params` in place of its own for the block; FSDP
+        keeps its own parameter objects, so the values are swapped."""
+        own = dict(self.vae.named_parameters())
+        saved = {n: own[n].detach().clone() for n in params}
+        with torch.no_grad():
+            for n, v in params.items():
+                own[n].copy_(v)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for n, v in saved.items():
+                    own[n].copy_(v)
+
+    def _reconstruct(self, batch: torch.Tensor, use_ema: bool) -> torch.Tensor:
+        if not use_ema:
+            return self.vae(batch)[0]
+        if not self.fsdp:
+            return functional_call(self.vae, self.ema.params, (batch,))[0]
+        with self._with_params(self.ema.params):
+            return self.vae(batch)[0]
+
     @torch.no_grad()
     def _save_results(self, steps: int) -> None:
         """Reconstructions of a validation batch with the EMA parameters and
-        with the raw ones."""
+        with the raw ones (on a mesh every rank reconstructs the same batch,
+        rank 0 writes)."""
         if self.valid_dl is None:
             return
         valid_batch = self._next_batch(self.valid_dl)
@@ -259,8 +348,9 @@ class CViViTTrainer:
         if self.use_ema:
             to_eval.insert(0, (True, f"{steps}.ema"))
         for use_ema, filename in to_eval:
-            params = self.ema.params if use_ema else {}  # the EMA's, or the module's own
-            recons = functional_call(self.vae, params, (valid_batch,))[0].float().cpu().numpy()
+            recons = self._reconstruct(valid_batch, use_ema).float().cpu().numpy()
+            if not self.is_main:
+                continue
             if valid_batch.ndim == 5:
                 folder = self.results_folder / f"samples.{filename}"
                 folder.mkdir(parents=True, exist_ok=True)
@@ -271,22 +361,38 @@ class CViViTTrainer:
                 interleaved = np.stack([originals, recons], axis=1).reshape(-1, *recons.shape[1:])
                 save_image_grid(np.clip(interleaved, 0.0, 1.0), str(self.results_folder / f"{filename}.png"),
                                 nrow=2)
-        print(f"{steps}: saving to {self.results_folder}")
+        if self.is_main:
+            print(f"{steps}: saving to {self.results_folder}")
 
     def _ckpt_tree(self) -> dict:
         """Everything a bit-identical resume needs: both models (the VQ
         codebook with the C-ViViT), both optimizers' state, the EMA, the
-        generator's state and the step."""
-        return {"vae": self.vae.state_dict(),
+        generator's state and the step; a sharded C-ViViT's, its optimizer's
+        and its EMA's consolidated, collectively."""
+        vae, gen_opt = self.vae.state_dict(), self.gen_opt.state_dict()
+        ema = self.ema.params if self.ema is not None else None
+        if self.sharded:
+            shapes = {k: v.shape for k, v in self.dense_vae.state_dict().items()}
+            vae = consolidate(vae, self.mesh, shapes)
+            gen_opt = consolidate_optimizer(self.gen_opt, [n for n, p in self.vae.named_parameters()
+                                                           if p.requires_grad], self.mesh, shapes)
+            ema = consolidate(ema, self.mesh, shapes) if ema is not None else None
+        return {"vae": vae,
                 "discr": self.discr.state_dict() if self.discr is not None else None,
-                "gen_opt_state": self.gen_opt.state_dict(),
+                "gen_opt_state": gen_opt,
                 "discr_opt_state": self.discr_opt.state_dict() if self.discr_opt is not None else None,
-                "ema": dict(params=self.ema.params, step=self.ema.step) if self.ema is not None else None,
+                "ema": dict(params=ema, step=self.ema.step) if self.ema is not None else None,
                 "generator": self.generator.get_state(), "step": self.step}
 
     def save(self, milestone: int) -> None:
-        self.checkpoints.save(milestone, self._ckpt_tree())
-        print(f"{self.step}: saving model to {self.results_folder}")
+        """Write checkpoint `milestone` (on a mesh every rank calls it and rank
+        0 writes)."""
+        tree = self._ckpt_tree()
+        if self.is_main:
+            self.checkpoints.save(milestone, tree)
+            print(f"{self.step}: saving model to {self.results_folder}")
+        if self.mesh is not None and self.mesh.size > 1:
+            dist.barrier()  # the file is whole before any rank goes on (and may load it)
 
     @torch.no_grad()
     def load(self, milestone: Optional[int] = None) -> None:
@@ -296,8 +402,14 @@ class CViViTTrainer:
         if (restored["discr"] is None) != (self.discr is None) or \
                 (restored["ema"] is None) != (self.ema is None):
             raise ValueError("the checkpoint and this trainer differ in having a discriminator or an EMA")
-        self.vae.load_state_dict(restored["vae"])
-        self.gen_opt.load_state_dict(restored["gen_opt_state"])
+        named = [(n, p) for n, p in self.vae.named_parameters() if p.requires_grad]
+        if self.sharded:
+            load_sharded(self.vae.state_dict(), restored["vae"], self.mesh)
+            self.gen_opt.load_state_dict(shard_optimizer_state(
+                restored["gen_opt_state"], [p for _, p in named], [n for n, _ in named], self.mesh))
+        else:
+            self.vae.load_state_dict(restored["vae"])
+            self.gen_opt.load_state_dict(restored["gen_opt_state"])
         if self.discr is not None:
             self.discr.load_state_dict(restored["discr"])
             self.discr_opt.load_state_dict(restored["discr_opt_state"])
@@ -305,8 +417,13 @@ class CViViTTrainer:
             ema = restored["ema"]
             if sorted(ema["params"]) != sorted(self.ema.params):
                 raise ValueError("the checkpoint's EMA holds other parameters")
+            values = place_like(self.ema.params, ema["params"], self.mesh) if self.sharded else ema["params"]
             for name, t in self.ema.params.items():
-                t.copy_(ema["params"][name])
+                v = values[name]
+                if hasattr(t, "to_local"):
+                    t.to_local().copy_(v.to_local())
+                else:
+                    t.copy_(v)
             self.ema = EMAState(params=self.ema.params, step=int(ema["step"]))
         self.generator.set_state(restored["generator"])
         self.step = int(restored["step"])
@@ -316,4 +433,5 @@ class CViViTTrainer:
             logs = self.train_step()
             if log_fn is not None:
                 log_fn(logs)
-        print("training complete")
+        if self.is_main:
+            print("training complete")

@@ -38,13 +38,17 @@ def ema_update(state: EMAState, new_params: Dict[str, torch.Tensor], decay: floa
     if apply is not None and not apply:
         return state
     step = state.step + 1
-    names = list(state.params)
-    ema = [state.params[k] for k in names]
-    new = [new_params[k].detach() for k in names]
-    if step <= update_after_step:  # warm-up: copy the parameters
-        torch._foreach_copy_(ema, new)
-    elif step % update_every == 0:
-        # e * decay + p * (1 - decay), each product rounded as the TPU package's
-        torch._foreach_mul_(ema, decay)
-        torch._foreach_add_(ema, torch._foreach_mul(new, 1.0 - decay))
+    # the multi-tensor ops take FSDP DTensors or plain tensors, not both
+    kinds: Dict[bool, tuple] = {}
+    for k, e in state.params.items():
+        ema, new = kinds.setdefault(hasattr(e, "placements"), ([], []))
+        ema.append(e)
+        new.append(new_params[k].detach())
+    for ema, new in kinds.values():
+        if step <= update_after_step:  # warm-up: copy the parameters
+            torch._foreach_copy_(ema, new)
+        elif step % update_every == 0:
+            # e * decay + p * (1 - decay), each product rounded as the TPU package's
+            torch._foreach_mul_(ema, decay)
+            torch._foreach_add_(ema, torch._foreach_mul(new, 1.0 - decay))
     return EMAState(params=state.params, step=step)

@@ -28,7 +28,8 @@ gradients and `only_train_generator` a TokenCritic's, as the TPU step does;
 a SelfCritic shares the MaskGit's trunk, and nothing is zeroed for it.
 
 Milestones: after outer step s with (s - 1) % save_and_sample_every == 0
-(step 1 first), milestone m = (s - 1) // save_and_sample_every samples
+(step 1 first), milestone m = (s - 1) // save_and_sample_every samples,
+with a generator seeded by a number drawn from the trainer's,
 `num_samples` videos in groups of at most `batch_size` (captions drawn from
 `sample_texts`) into `results_folder/videos.{m}/{caption}.gif`, or in image
 mode one PNG grid `results_folder/{m}.png`, then saves a checkpoint
@@ -39,11 +40,30 @@ accumulation state outlives it; as in the TPU package, the data order is
 not saved). `profile_dir` captures steps [profile_steps) with
 `torch.profiler` into a Chrome trace there.
 
-Not accepted: the mesh, FSDP and pipeline arguments (ROADMAP A13).
+On a mesh (`mesh=`, a `parallel.mesh.Mesh`; JAX `phenaki_trainer.py:128-131,
+172-264`) every rank of it builds the trainer with the same arguments and
+calls the same steps. `batch_size` is the global batch: each data-parallel
+rank loads its shard of batch_size / dp rows (`DataLoader(num_shards=,
+shard_id=)`) and takes its share of the global batch's loss
+(`Phenaki.loss(dp_group=)`), so the ranks' gradients average to the one
+process's; the average is one all-reduce a step (`collectives.
+all_reduce_grads`). tp > 1 trains this rank's tensor-parallel clone of the
+MaskGit and critic (`Phenaki.tp_shard`), whose attention and FF blocks
+all-reduce their outputs. `fsdp=True` shards the trunks over the data group
+(`parallel.fsdp.apply_fsdp`, on each `TransformerLayer` and on the MaskGit
+and a TokenCritic), JAX's ZeRO-3 placement; FSDP then averages the sharded
+gradients. A sharded trainer trains copies and leaves the given Phenaki as
+it was. Every rank draws the same numbers from `seed`. A milestone's
+samples come from rank 0 alone, from the given Phenaki loaded with the
+consolidated parameters, with a generator seeded from the trainer's; its
+checkpoint holds the consolidated (global) state, written by rank 0, and
+loads on any mesh (`training.checkpoint.consolidate`). Not accepted: `pp`
+and `pipeline_microbatches` (the pipeline is the next slice of the port).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from functools import partial
 from pathlib import Path
@@ -52,6 +72,7 @@ from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from phenaki_tpu_torch.data.codecs import video_tensor_to_gif
 from phenaki_tpu_torch.data.datasets import (
@@ -60,9 +81,21 @@ from phenaki_tpu_torch.data.datasets import (
     VideoDataset,
     collate_tensors_and_strings,
 )
+from phenaki_tpu_torch.models.maskgit import SelfCritic
 from phenaki_tpu_torch.models.phenaki import Phenaki
-from phenaki_tpu_torch.training.checkpoint import CheckpointManager
-from phenaki_tpu_torch.training.optimizer import get_optimizer
+from phenaki_tpu_torch.models.transformer import TransformerLayer
+from phenaki_tpu_torch.parallel import collectives
+from phenaki_tpu_torch.parallel.fsdp import apply_fsdp
+from phenaki_tpu_torch.parallel.mesh import PIPELINE_NOT_PORTED, Mesh, make_mesh
+from phenaki_tpu_torch.parallel.tp_inference import clone_module
+from phenaki_tpu_torch.training.checkpoint import (
+    CheckpointManager,
+    consolidate,
+    consolidate_optimizer,
+    load_sharded,
+    shard_optimizer_state,
+)
+from phenaki_tpu_torch.training.optimizer import get_optimizer, global_grad_norm
 from phenaki_tpu_torch.utils.image_grid import save_image_grid
 from phenaki_tpu_torch.utils.logging import start_trace, stop_trace
 from phenaki_tpu_torch.utils.results_folder import prepare_results_folder
@@ -70,7 +103,28 @@ from phenaki_tpu_torch.utils.results_folder import prepare_results_folder
 VALID_FIELDS = {"videos", "texts", "video_codebook_ids", "video_frame_mask", "text_embeds"}
 # the TPU package's loader decodes a batch's items on 4 threads
 LOADER_WORKERS = 4
-PARALLEL_NOT_PORTED = "the mesh, FSDP and pipeline arguments are not ported yet (ROADMAP A13)"
+
+
+def check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), not {type(mesh).__name__}")
+
+
+def trainable_copy(phenaki: Phenaki, mesh) -> Phenaki:
+    """The Phenaki a sharded trainer trains: this rank's tensor-parallel
+    clone (tp > 1), else copies of the MaskGit and critic; the C-ViViT
+    shared."""
+    if mesh.tp > 1:
+        return phenaki.tp_shard(mesh)
+    local = copy.copy(phenaki)
+    local.maskgit = clone_module(phenaki.maskgit)
+    if phenaki.self_token_critic:
+        local.critic = SelfCritic(local.maskgit)
+        local.critic.to_pred = clone_module(phenaki.critic.to_pred)
+    elif phenaki.critic is not None:
+        local.critic = clone_module(phenaki.critic)
+    local._mesh_views = {}
+    return local
 
 
 def num_to_groups(num: int, divisor: int) -> List[int]:
@@ -131,14 +185,37 @@ class PhenakiTrainer:
                  fsdp: bool = False, pp: int = 1, pipeline_microbatches: Optional[int] = None,
                  seed: int = 42, log_every: int = 10, profile_dir: Optional[str] = None,
                  profile_steps: Tuple[int, int] = (2, 4)):
-        if mesh is not None or fsdp or pp != 1 or pipeline_microbatches is not None:
-            raise NotImplementedError(PARALLEL_NOT_PORTED)
+        if pp != 1 or pipeline_microbatches is not None:
+            raise NotImplementedError(PIPELINE_NOT_PORTED)
+        check_mesh(mesh)
+        if phenaki.tp_mesh is not None:
+            raise ValueError("give the trainer the whole Phenaki: it shards it over `mesh` itself")
+        if fsdp and mesh is None:
+            mesh = make_mesh()
         if math.isqrt(num_samples) ** 2 != num_samples:
             raise ValueError("number of samples must have an integer square root")
         if dataset_fields is not None and (len(set(dataset_fields)) != len(dataset_fields)
                                            or not set(dataset_fields) <= VALID_FIELDS):
             raise ValueError(f"dataset_fields {dataset_fields} must be distinct names in {VALID_FIELDS}")
-        self.model = phenaki
+        self.mesh = mesh
+        dp = mesh.data_size if mesh is not None else 1
+        if batch_size % dp:
+            raise ValueError(f"the global batch ({batch_size}) must divide by the mesh's data axes ({dp})")
+        self.dp_group = mesh.data_group if mesh is not None else None
+        self.is_main = mesh is None or mesh.rank == 0
+        # a sharded trainer trains copies; the given Phenaki samples the milestones
+        self.sharded = mesh is not None and (fsdp or mesh.tp > 1)
+        self.dense_model = phenaki
+        self.model = trainable_copy(phenaki, mesh) if self.sharded else phenaki
+        # the parameters FSDP leaves replicated, whose gradients are averaged here
+        self.fsdp = bool(fsdp and mesh.data_size > 1)
+        self.fsdp_ignored: List[torch.nn.Parameter] = []
+        if self.fsdp:
+            self.fsdp_ignored = apply_fsdp(self.model.maskgit, mesh, (TransformerLayer,))
+            if phenaki.self_token_critic:  # its trunk is the MaskGit; its head replicated
+                self.fsdp_ignored += list(self.model.critic.parameters())
+            elif self.model.critic is not None:
+                self.fsdp_ignored += apply_fsdp(self.model.critic, mesh, (TransformerLayer,))
         self.unconditional = phenaki.maskgit.unconditional
         self.sample_texts = None
         if sample_texts_file_path is not None:
@@ -180,14 +257,25 @@ class PhenakiTrainer:
             # on the card, batches come in page-locked memory, so that their
             # copies to the device are DMA transfers issued without a wait
             on_card = phenaki.maskgit.to_logits.weight.device.type == "cuda"
-            self.dl = iter(DataLoader(self.ds, batch_size=batch_size, seed=seed + 1, repeat=True,
+            self.dl = iter(DataLoader(self.ds, batch_size=batch_size // dp, seed=seed + 1, repeat=True,
                                       num_workers=LOADER_WORKERS, pin_memory=on_card,
+                                      num_shards=dp, shard_id=mesh.data_index if mesh is not None else 0,
                                       collate_fn=partial(collate_and_cast, dtype=phenaki.cvivit.dtype)))
 
-        self.opt = get_optimizer(phenaki.parameters(), lr=train_lr, wd=wd, betas=adam_betas,
-                                 max_grad_norm=max_grad_norm)
+        named = self._named_params()
+        grad_norm = (lambda: global_grad_norm(named, mesh)) if mesh is not None else None
+        self.opt = get_optimizer(self.model.parameters(), lr=train_lr, wd=wd, betas=adam_betas,
+                                 max_grad_norm=max_grad_norm, grad_norm=grad_norm)
         self.results_folder = prepare_results_folder(results_folder, clear_previous_results)
         self.checkpoints = CheckpointManager(self.results_folder / "checkpoints")
+
+    def _named_params(self) -> List[Tuple[str, torch.nn.Parameter]]:
+        """The trained parameters by qualified name ("maskgit.*", "critic.*"),
+        in the order of `Phenaki.parameters`, the optimizer's."""
+        out = [(f"maskgit.{n}", p) for n, p in self.model.maskgit.named_parameters()]
+        if self.model.critic is not None:
+            out += [(f"critic.{n}", p) for n, p in self.model.critic.named_parameters()]
+        return out
 
     def data_tuple_to_fields(self, data: Tuple) -> Tuple[str, ...]:
         if self.dataset_fields is None:
@@ -251,14 +339,20 @@ class PhenakiTrainer:
         for _ in range(self.grad_accum_every):
             batch = self._device_batch(next(self.dl))
             loss, _ = self.model.loss(**batch, only_train_generator=only_train_generator,
-                                      only_train_critic=only_train_critic, generator=self.generator)
+                                      only_train_critic=only_train_critic, generator=self.generator,
+                                      dp_group=self.dp_group)
             (loss / self.grad_accum_every).backward()
             total = total + loss.detach() / self.grad_accum_every
         self._complete_grads(only_train_generator, only_train_critic)
+        if self.dp_group is not None:
+            # FSDP averaged its shards' gradients; the rest are averaged here
+            collectives.all_reduce_grads(self.fsdp_ignored if self.fsdp else self.model.parameters(),
+                                         self.dp_group)
+            total = collectives.all_reduce(total, self.dp_group) / collectives.group_size(self.dp_group)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.step += 1
-        if self.step % self.log_every == 0:
+        if self.step % self.log_every == 0 and self.is_main:
             print(f"{self.step}: loss: {float(total):.4f}")
         if (self.step - 1) % self.save_and_sample_every == 0:
             self._sample_and_save((self.step - 1) // self.save_and_sample_every)
@@ -268,11 +362,30 @@ class PhenakiTrainer:
         self._sample_artifacts(milestone)
         self.save(milestone)
 
-    def _sample_artifacts(self, milestone: int) -> List[Optional[str]]:
+    @staticmethod
+    def _load_params(model: Phenaki, params: dict) -> None:
+        model.maskgit.load_state_dict(params["maskgit"])
+        if model.critic is not None:
+            model.critic.load_state_dict(params["critic"])
+
+    def _sample_artifacts(self, milestone: int) -> Optional[List[Optional[str]]]:
         """`num_samples` samples in groups of at most `batch_size`, written as
         GIFs named by their captions (a caption drawn twice keeps its last
         sample, as in the TPU package), or in image mode as one PNG grid;
-        returns the captions drawn (None for an unconditional model)."""
+        returns the captions drawn (None for an unconditional model). The
+        samples draw from a generator seeded by a number drawn from the
+        trainer's, which every rank draws alike. On a mesh every rank calls
+        it and rank 0 alone samples, from the given Phenaki, into which a
+        sharded trainer first loads the consolidated parameters (the other
+        ranks return None)."""
+        generator = torch.Generator().manual_seed(int(torch.randint(0, 2**62, (), generator=self.generator)))
+        if self.sharded:
+            params = self._ckpt_tree(with_optimizer=False)["params"]
+            if self.is_main:
+                self._load_params(self.dense_model, params)
+        if not self.is_main:
+            return None
+        model = self.dense_model
         texts = (choices(self.sample_texts, k=self.num_samples) if not self.unconditional
                  else [None] * self.num_samples)
         sampled, start = [], 0
@@ -281,10 +394,9 @@ class PhenakiTrainer:
             start += group_size
             kwargs = {"batch_size": group_size} if self.unconditional else {"texts": list(group)}
             if self.train_on_images:
-                out = self.model.sample_images(generator=self.generator, **kwargs)
+                out = model.sample_images(generator=generator, **kwargs)
             else:
-                out = self.model.sample(num_frames=self.sample_num_frames, generator=self.generator,
-                                        **kwargs)
+                out = model.sample(num_frames=self.sample_num_frames, generator=generator, **kwargs)
             sampled.append(out.float().cpu().numpy())
         sampled = np.concatenate(sampled, axis=0)
 
@@ -300,29 +412,64 @@ class PhenakiTrainer:
             video_tensor_to_gif(video, str(folder / f"{slug}.gif"))
         return texts
 
-    def _ckpt_tree(self) -> dict:
+    def _ckpt_tree(self, with_optimizer: bool = True) -> dict:
         """Everything a bit-identical resume needs: the parameters, Adam's
-        state, the generator's state and the outer step count."""
-        params = {"maskgit": self.model.maskgit.state_dict()}
-        if self.model.critic is not None:
-            params["critic"] = self.model.critic.state_dict()
-        return {"params": params, "opt_state": self.opt.state_dict(),
+        state, the generator's state and the outer step count; on a mesh the
+        global (consolidated) state, collectively."""
+        if not self.sharded:
+            params = {"maskgit": self.model.maskgit.state_dict()}
+            if self.model.critic is not None:
+                params["critic"] = self.model.critic.state_dict()
+            opt_state = self.opt.state_dict()
+        else:
+            shapes = self._global_shapes()
+            params = {"maskgit": self._strip("maskgit.", consolidate(
+                {f"maskgit.{k}": v for k, v in self.model.maskgit.state_dict().items()}, self.mesh, shapes))}
+            if self.model.critic is not None:
+                params["critic"] = self._strip("critic.", consolidate(
+                    {f"critic.{k}": v for k, v in self.model.critic.state_dict().items()}, self.mesh, shapes))
+            opt_state = consolidate_optimizer(self.opt, [n for n, p in self._named_params() if p.requires_grad],
+                                              self.mesh, shapes) if with_optimizer else None
+        return {"params": params, "opt_state": opt_state,
                 "generator": self.generator.get_state(), "step": self.step}
 
+    @staticmethod
+    def _strip(prefix: str, tree: dict) -> dict:
+        return {k[len(prefix):]: v for k, v in tree.items()}
+
+    def _global_shapes(self) -> dict:
+        shapes = {f"maskgit.{k}": v.shape for k, v in self.dense_model.maskgit.state_dict().items()}
+        if self.dense_model.critic is not None:
+            shapes.update({f"critic.{k}": v.shape for k, v in self.dense_model.critic.state_dict().items()})
+        return shapes
+
     def save(self, milestone: int) -> None:
-        self.checkpoints.save(milestone, self._ckpt_tree())
+        """Write checkpoint `milestone` (on a mesh: every rank calls it, rank 0
+        writes the consolidated state)."""
+        tree = self._ckpt_tree()
+        if self.is_main:
+            self.checkpoints.save(milestone, tree)
+        if self.mesh is not None and self.mesh.size > 1:
+            dist.barrier()  # the file is whole before any rank goes on (and may load it)
 
     def load(self, milestone: Optional[int] = None) -> None:
         """Restore a checkpoint `save` wrote (the latest when None) into this
-        trainer, whose model has the same shapes."""
+        trainer, whose model has the same global shapes; on a mesh every rank
+        reads it and keeps its shard."""
         restored = self.checkpoints.restore(milestone)
         params = restored["params"]
         if ("critic" in params) != (self.model.critic is not None):
             raise ValueError("the checkpoint and this trainer's model differ in having a critic")
-        self.model.maskgit.load_state_dict(params["maskgit"])
-        if self.model.critic is not None:
-            self.model.critic.load_state_dict(params["critic"])
-        self.opt.load_state_dict(restored["opt_state"])
+        if not self.sharded:
+            self._load_params(self.model, params)
+            self.opt.load_state_dict(restored["opt_state"])
+        else:
+            load_sharded(self.model.maskgit.state_dict(), params["maskgit"], self.mesh)
+            if self.model.critic is not None:
+                load_sharded(self.model.critic.state_dict(), params["critic"], self.mesh)
+            named = [(n, p) for n, p in self._named_params() if p.requires_grad]
+            self.opt.load_state_dict(shard_optimizer_state(
+                restored["opt_state"], [p for _, p in named], [n for n, _ in named], self.mesh))
         self.generator.set_state(restored["generator"])
         self.step = int(restored["step"])
 
@@ -330,4 +477,5 @@ class PhenakiTrainer:
         while self.step < self.train_num_steps:
             self.train_step(only_train_generator=only_train_generator,
                             only_train_critic=only_train_critic)
-        print("training complete")
+        if self.is_main:
+            print("training complete")

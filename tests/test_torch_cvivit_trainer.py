@@ -22,7 +22,7 @@ on the CPU:
   `train_on_images` (PNG grids of originals and reconstructions);
   a bit-identical resume (both models, both Adam states, the EMA, the
   generator); the VGG's weights from `vgg_params` and from
-  PHENAKI_VGG16_PATH; `profile_dir`; `mesh=` and `fsdp=` raise;
+  PHENAKI_VGG16_PATH; `profile_dir`; a `mesh=` that is no Mesh raises;
 * on the stubbed card (`tests/_torch_card_stub.py`), one train step
   launches kernel 1 in the C-ViViT's spatial attention only (the
   generator's forward and the discriminator phase's reconstruction), its
@@ -292,9 +292,8 @@ def test_profile_dir_writes_a_trace(tmp_path):
 
 
 def test_arguments_checked(tmp_path):
-    for parallel in (dict(mesh=object()), dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match="A13"):
-            _trainer(_tiny(), tmp_path / "r", **parallel)
+    with pytest.raises(TypeError, match="Mesh"):  # a mesh must be a Mesh
+        _trainer(_tiny(), tmp_path / "r", mesh=object())
     with pytest.raises(ValueError, match="perceptual_mode"):
         _trainer(_tiny(), tmp_path / "r", perceptual_mode="lpips")
     with pytest.raises(ValueError, match="no dataset"):

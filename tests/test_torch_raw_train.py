@@ -344,9 +344,12 @@ def test_trainer_arguments_checked(tmp_path):
         _trainer(_tiny(), tmp_path / "r", dataset=None, train_on_images=True)
     with pytest.raises(ValueError, match="no dataset"):
         _trainer(_tiny(), tmp_path / "r", dataset=None).train_step()
-    for parallel in (dict(mesh=object()), dict(fsdp=True), dict(pp=2), dict(pipeline_microbatches=2)):
-        with pytest.raises(NotImplementedError, match="A13"):
+    # the pipeline is the next slice of the port; a mesh must be a Mesh
+    for parallel in (dict(pp=2), dict(pipeline_microbatches=2)):
+        with pytest.raises(NotImplementedError, match="pipeline"):
             _trainer(_tiny(), tmp_path / "r", **parallel)
+    with pytest.raises(TypeError, match="Mesh"):
+        _trainer(_tiny(), tmp_path / "r", mesh=object())
 
 
 @pytest.mark.parametrize("critic", ["none", "token", "self"])

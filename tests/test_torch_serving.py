@@ -17,7 +17,7 @@ coalescing and the launch log, decorrelated identical prompts, error
 isolation, uint8 against the quantised float32 of a server with the same
 seed, shedding, deadlines, mixed text and embeddings, `close`, multi-scene
 videos, mixed single and video requests, uploaded primes, the HTTP front
-end (with a TokenCritic too), `prewarm`; `mesh=` raises. Every wait is
+end (with a TokenCritic too), `prewarm`; a `mesh=` that is no Mesh raises. Every wait is
 bounded: results take a timeout, servers close in `finally`, and the HTTP
 tests bind a free port and poll /healthz with a deadline.
 """
@@ -231,8 +231,8 @@ def test_uint8_output_matches_quantized_float(tiny):
     np.testing.assert_array_equal(v_u8, np.clip(v_f32 * 255.0, 0, 255).astype(np.uint8))
 
 
-def test_server_mesh_is_not_ported(tiny):
-    with pytest.raises(NotImplementedError, match="A13"):
+def test_server_mesh_must_be_a_mesh(tiny):
+    with pytest.raises(TypeError, match="Mesh"):
         PhenakiServer(tiny, mesh=object())
 
 
