@@ -81,7 +81,15 @@ sample) and at dp = 2 (each rank's row bit-equal alone), a small fp32 tp =
 consolidated parameters against DDP's), a consolidated checkpoint written at
 dp = 2 and loaded at tp = 2 and a bit-equal resume, `CViViTTrainer` at dp =
 2, and `PhenakiServer(mesh=)` at tp = 2; kernels 1 and 4-6 are also held at
-a tp rank's 4-head shapes. Each main path is
+a tp rank's 4-head shapes, and kernels 4-6 at a pipeline microbatch's 2
+rows. The same ranks train a small fp32 model at pp =
+2 against the CPU, and the flagship at pp = 2 in 4 microbatches
+(`PhenakiTrainer(pp=2, pipeline_microbatches=4)`: the first loss against one
+process's, exact launches a rank and step, peak memory with and without
+the whole Phenaki rank 0 keeps for its milestones, the trunk's bytes a
+rank, a bit-equal resume from its consolidated checkpoint). Before the
+flagship paths, the T5 encoder stack at t5-v1_1-base's width is held card
+vs CPU, and examples/e2e_smoke_torch.py runs on the card. Each main path is
 checked to have launched exactly its kernels. Every check raises on
 failure; the last line is the JSON verdict, printed only when all passed.
 Needs no JAX.
@@ -178,6 +186,22 @@ MESH = 2
 MESH_TRAIN_BATCH, MESH_TRAIN_STEPS = 8, 2
 MESH_GAN_BATCH, MESH_GAN_STEPS = 4, 3
 MESH_SERVE_REQUESTS = 2
+# the pipeline train path on the mesh ranks: `PhenakiTrainer(pp=2,
+# pipeline_microbatches=4)` on the flagship at the mesh paths' global batch
+# of 8 (two rows a microbatch). Each rank holds 3 of the 6 MaskGit layers and
+# runs them on all 4 microbatches: kernel 1 (self + cross attention), dQ and
+# dK/dV 3 x 2 x 4 times a step, dBias (the self-attention's CPB bias) 3 x 4
+# times; the loss runs on every rank's replicated output, as in the JAX
+# package, so each rank launches the fused CE's three kernels once a step
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_TRAIN_STEPS = 2, 4, 2
+PIPE_STAGE_LAYERS = 6 // PIPE_STAGES
+PIPE_ATTENTION_CALLS = PIPE_STAGE_LAYERS * 2 * PIPE_MICROBATCHES  # self + cross, each microbatch
+PIPE_TRAIN_PER_STEP = {"fwd": PIPE_ATTENTION_CALLS, "dq": PIPE_ATTENTION_CALLS, "dkv": PIPE_ATTENTION_CALLS,
+                       "dbias": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+# the T5 encoder stack at t5-v1_1-base's width (12 layers, d 768, 12 heads,
+# d_ff 2048, vocab 32128) with seeded random weights, f32 on the card against
+# the CPU: 8 sequences of 128 ids with a padding mask
+T5_BATCH, T5_LEN, T5_TOL = 8, 128, 1e-3
 LEARN_MARGIN = 3.0  # nats the learning check's loss must fall by
 # every trainer samples and checkpoints at its step-1 milestone; the paths
 # that measure steps sample one video there, with this caption
@@ -310,8 +334,8 @@ def qk(shape, gen, dtype):
 # the backward kernels' timed shapes (the train steps'), and those also
 # given bounds and SDPA's whole backward beside them
 BWD_TIMED_SHAPES = ("maskgit_self", "critic_self", "maskgit_cross", "cvivit_spatial_b4", "maskgit_self_tp2",
-                    "maskgit_cross_tp2")
-BWD_YARDSTICK_SHAPES = ("maskgit_self", "cvivit_spatial_b4", "maskgit_self_tp2")
+                    "maskgit_cross_tp2", "maskgit_self_mb2", "maskgit_cross_mb2")
+BWD_YARDSTICK_SHAPES = ("maskgit_self", "cvivit_spatial_b4", "maskgit_self_tp2", "maskgit_self_mb2")
 # kernel 1's main-path shapes: each is timed beside its bound and one SDPA
 # call on the same inputs
 FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self",
@@ -515,7 +539,9 @@ def flash_bwd_cases(torch, dtype, gen):
     bias, and with an (8, 1152, 130) bias: ragged key tiles, dBias rows of
     130), a causal ALiBi case, d = 128 with ragged tiles, and the C-ViViT's
     spatial attention in the GAN train step (b = 4 videos x 9 latent frames
-    of 16 x 8 tokens, with the trained (8, 128, 128) CPB bias)."""
+    of 16 x 8 tokens, with the trained (8, 128, 128) CPB bias); a tp = 2
+    rank's self- and cross-attention (4 heads); and a pipeline microbatch's
+    (b = 2)."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
     from phenaki_tpu_torch.ops.positional import alibi_bias
 
@@ -549,6 +575,13 @@ def flash_bwd_cases(torch, dtype, gen):
     cases["maskgit_self_tp2"] = (q4, k4, v4, rand(8, 1152, 1152)[4:], torch.zeros(4, 1152, device="cuda"), False)
     kc4, vc4 = qk((4, 4, 130, 64), gen, dtype), rand(4, 4, 130, 64)
     cases["maskgit_cross_tp2"] = (q4, kc4, vc4, None, torch.where(keep, 0.0, NEG_INF).float().cuda(), False)
+    # a pipeline microbatch of the train path (8 rows in 4 microbatches): 2
+    # rows of self-attention with the bias, whose dBias sums the 2 rows, and
+    # of cross-attention
+    q2, k2, v2 = qk((2, 8, 1152, 64), gen, dtype), qk((2, 8, 1152, 64), gen, dtype), rand(2, 8, 1152, 64)
+    cases["maskgit_self_mb2"] = (q2, k2, v2, rand(8, 1152, 1152), torch.zeros(2, 1152, device="cuda"), False)
+    kc2, vc2 = qk((2, 8, 130, 64), gen, dtype), rand(2, 8, 130, 64)
+    cases["maskgit_cross_mb2"] = (q2, kc2, vc2, None, torch.where(keep[:2], 0.0, NEG_INF).float().cuda(), False)
     return cases
 
 
@@ -1957,6 +1990,65 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
+def check_t5_stack(torch):
+    """`T5EncoderStack` at t5-v1_1-base's width with seeded random weights
+    (torch's default init under seed 0), f32: 8 sequences of 128 ids, each
+    padded after a seeded length, encoded on the card and on the CPU. The
+    outputs within T5_TOL, padded positions exactly zero on the card; the
+    card's milliseconds a call (back to back, `cuda_ms`)."""
+    from phenaki_tpu_torch.text.t5_torch import T5EncoderConfig, T5EncoderStack
+
+    cfg = T5EncoderConfig()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        stack = T5EncoderStack(cfg).eval()
+    gen = torch.Generator().manual_seed(9)
+    ids = torch.randint(0, cfg.vocab_size, (T5_BATCH, T5_LEN), generator=gen)
+    lengths = torch.randint(8, T5_LEN + 1, (T5_BATCH,), generator=gen)
+    lengths[0] = T5_LEN
+    mask = (torch.arange(T5_LEN)[None] < lengths[:, None]).long()
+    with torch.no_grad():
+        cpu = stack(ids, mask)
+        stack.cuda()
+        ids_c, mask_c = ids.cuda(), mask.cuda()
+        card = stack(ids_c, mask_c)
+        ms = cuda_ms(lambda: stack(ids_c, mask_c))
+    err = (card.cpu() - cpu).abs().max().item()
+    padded_zero = bool((card[mask_c == 0] == 0).all().item())
+    check(err <= T5_TOL, f"t5 stack: card vs cpu max abs err {err} > {T5_TOL}")
+    check(padded_zero, "t5 stack: a padded position is not zero on the card")
+    phase("t5 stack card vs cpu", layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads, d_ff=cfg.d_ff,
+          vocab=cfg.vocab_size, batch=T5_BATCH, length=T5_LEN, lengths=lengths.tolist(), max_abs_err=err,
+          tolerance=T5_TOL, max_abs_out=cpu.abs().max().item(), padded_zero=padded_zero, ms=ms)
+    del stack
+    torch.cuda.empty_cache()
+
+
+def run_e2e_example(torch):
+    """examples/e2e_smoke_torch.py's `main` in this process on the card:
+    every stage must pass and the last line must be "E2E: ALL PASS"; its
+    kernel launches are reported (the example's small model is not a main
+    path)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    example = Path(__file__).parent / "examples" / "e2e_smoke_torch.py"
+    spec = importlib.util.spec_from_file_location("e2e_smoke_torch", example)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    reset_kernel_counts()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        module.main(["--device", "cuda"])
+    seconds = time.perf_counter() - t
+    lines = buf.getvalue().strip().splitlines()
+    check(bool(lines) and lines[-1] == "E2E: ALL PASS", f"e2e example: last line {lines[-1:] or None}")
+    phase("e2e example on the card", seconds=seconds, stages=[line.split("] ", 1)[-1] for line in lines],
+          launches=nonzero(kernel_counts()))
+
+
 def small_train_models(torch, seed):
     """A small fp32 MaskGit over 128 tokens on a (2, 8, 8) grid with 2 x 64
     heads (both attention calls pass the kernel gate; dim 128 and a 512-word
@@ -2926,11 +3018,12 @@ def mesh_rank(rank, world, profile_path=None):
     torch.set_num_threads(2)  # two ranks share the host's cores (the small model's CPU run)
     if dist.get_backend() != "nccl":
         torch.cuda.set_device(0)  # every gloo rank computes on the one card
-    tp, dp = make_mesh(tp=MESH), make_mesh(dp=MESH)
+    tp, dp, pp = make_mesh(tp=MESH), make_mesh(dp=MESH), make_mesh(pp=PIPE_STAGES)
     out = {"backend": dist.get_backend(), "device": torch.cuda.current_device(), "phase_s": {}}
     phases = (("tp_sample", lambda: mesh_tp_sample(torch, tp, profile_path)),
               ("small_tp", lambda: mesh_small_tp(torch, tp)), ("dp_sample", lambda: mesh_dp_sample(torch, dp)),
               ("train", lambda: mesh_train_paths(torch, dp, tp)), ("resume", lambda: mesh_resume(torch, dp, tp)),
+              ("small_pp", lambda: mesh_small_pp(torch, pp)), ("pipeline", lambda: mesh_pipeline_train(torch, pp)),
               ("gan", lambda: mesh_gan_dp(torch, dp)), ("serving", lambda: mesh_serving(torch, tp)))
     for name, run in phases:
         t = time.perf_counter()
@@ -3057,6 +3150,7 @@ def mesh_small_tp(torch, tp):
             ph = Phenaki(maskgit=mg.to(device), cvivit=cv.to(device), text_embed_dim=64, steps=6,
                          max_text_len=16)
             before = kernel_counts()
+            t = time.perf_counter()
             ids = ph.tp_shard(tp).sample_ids(num_frames=3, text_embeds=emb, cond_scale=5.0,
                                              starting_temperature=0.0, generator=torch.Generator().manual_seed(0))
             trainer = PhenakiTrainer(ph, dataset=data, batch_size=4, seed=0, log_every=10**9, num_samples=1,
@@ -3064,7 +3158,8 @@ def mesh_small_tp(torch, tp):
                                      mesh=tp, train_lr=1e-4)
             losses = [trainer.train_step().item() for _ in range(2)]
             params = trainer._ckpt_tree(with_optimizer=False)["params"]["maskgit"]
-            runs[device] = dict(ids=ids.cpu(), losses=losses, params=params, launches=nonzero(launched_since(before)))
+            runs[device] = dict(ids=ids.cpu(), losses=losses, params=params, launches=nonzero(launched_since(before)),
+                                seconds=time.perf_counter() - t)
     cpu, card = runs["cpu"], runs["cuda"]
     worst = max(((card["params"][k] - v).abs() - (3e-4 + 1e-3 * v.abs())).max().item()
                 for k, v in cpu["params"].items())
@@ -3075,7 +3170,8 @@ def mesh_small_tp(torch, tp):
     check(loss_ok, f"small tp: losses {card['losses']} vs CPU {cpu['losses']}")
     check(worst <= 0, f"small tp: a parameter is {worst} beyond rtol 1e-3, atol 3e-4 of the CPU's")
     return dict(ids_equal=True, losses_card=card["losses"], losses_cpu=cpu["losses"],
-                worst_param_excess=worst, card_launches=card["launches"])
+                worst_param_excess=worst, card_launches=card["launches"], seconds_card=card["seconds"],
+                seconds_cpu=cpu["seconds"])
 
 
 def mesh_dp_sample(torch, dp):
@@ -3146,9 +3242,16 @@ def mesh_train_paths(torch, dp, tp):
     base = flagship_train_phenaki(seed=0, device="cuda")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        if dp.rank == 0:
+        if dp.rank == 0:  # its first loss, one timed step and its peak (the pipeline path's yardsticks too)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             ref = _mesh_trainer(copy.deepcopy(base), f"{tmp}/ref", data)
             out["one_process_loss"] = ref.train_step().item()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref.train_step().item()
+            out["one_process_step_s"] = time.perf_counter() - t
+            out["one_process_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             del ref
             torch.cuda.empty_cache()
         for label, mesh, fsdp in (("dp", dp, False), ("fsdp", dp, True), ("tp", tp, False)):
@@ -3229,6 +3332,139 @@ def mesh_resume(torch, dp, tp):
     torch.cuda.empty_cache()
     return dict(tp_load_params_equal=params_equal, tp_load_adam_equal=adam_equal, load_s=load_s,
                 resume_bit_equal=same)
+
+
+def mesh_small_pp(torch, pp):
+    """The small fp32 model (`small_train_models`, 2 layers: one a stage) at
+    pp = 2 in 2 microbatches on the card against the same at pp = 2 on the
+    CPU: two `PhenakiTrainer` steps whose losses agree within rtol 2e-4,
+    atol 2e-5 and consolidated parameters within rtol 1e-3, atol 3e-4 (the
+    tolerances of tests/test_parallel.py:380-393); the card's run launches
+    kernel 1, the CPU's none."""
+    from phenaki_tpu_torch.models.phenaki import Phenaki
+    from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
+
+    gen = torch.Generator().manual_seed(8)
+    data = torch.utils.data.TensorDataset(torch.randint(0, 512, (8, 2, 8, 8), generator=gen),
+                                          torch.randn(8, 8, 64, generator=gen))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cpu", "cuda"):
+            mg, cv = small_train_models(torch, 5)
+            ph = Phenaki(maskgit=mg.to(device), cvivit=cv.to(device), text_embed_dim=64, steps=6, max_text_len=16)
+            before = kernel_counts()
+            t = time.perf_counter()
+            trainer = PhenakiTrainer(ph, dataset=data, batch_size=4, seed=0, log_every=10**9, num_samples=1,
+                                     num_frames=3, sample_texts=[SAMPLE_TEXT], results_folder=f"{tmp}/{device}",
+                                     mesh=pp, pipeline_microbatches=2, train_lr=1e-4)
+            losses = [trainer.train_step().item() for _ in range(2)]
+            params = trainer._ckpt_tree(with_optimizer=False)["params"]["maskgit"]
+            runs[device] = dict(losses=losses, params=params, launches=nonzero(launched_since(before)),
+                                seconds=time.perf_counter() - t)
+    cpu, card = runs["cpu"], runs["cuda"]
+    worst = max(((card["params"][k] - v).abs() - (3e-4 + 1e-3 * v.abs())).max().item()
+                for k, v in cpu["params"].items())
+    loss_ok = all(abs(a - b) <= 2e-5 + 2e-4 * abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    check(card["launches"].get("fwd", 0) > 0 and "fwd" not in cpu["launches"],
+          f"small pp: kernel 1 ran {card['launches']} on the card, {cpu['launches']} on the CPU")
+    check(loss_ok, f"small pp: losses {card['losses']} vs CPU {cpu['losses']}")
+    check(worst <= 0, f"small pp: a parameter is {worst} beyond rtol 1e-3, atol 3e-4 of the CPU's")
+    return dict(losses_card=card["losses"], losses_cpu=cpu["losses"], worst_param_excess=worst,
+                card_launches=card["launches"], seconds_card=card["seconds"], seconds_cpu=cpu["seconds"])
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mesh_pipeline_train(torch, pp):
+    """`PhenakiTrainer(pp=2, pipeline_microbatches=4)` on the flagship (f32
+    parameters, bf16 compute) at a global batch of MESH_TRAIN_BATCH, every
+    rank of the pipeline on the whole batch: the pipeline trainer A's first
+    step (the milestone: rank 0's dense sample and the consolidated
+    checkpoint 0) must give the one process's loss ("dp train"'s reference)
+    within 1e-3 relative; then PIPE_TRAIN_STEPS counted steps, each with
+    exactly PIPE_TRAIN_PER_STEP launches on this rank. Trainer B loads
+    checkpoint 0 and takes A's second step on A's second batch: this rank's
+    parameters must equal A's after that step, bit for bit. Rank 0 keeps the
+    whole Phenaki for its milestones; the other rank drops its reference
+    once its trainer is built, and its trainer keeps none. Returns seconds,
+    tokens/s, the peak memory of the build (the whole Phenaki and the stage's
+    copy) and of the counted steps, the bytes of the whole Phenaki kept, the
+    bytes of the trunk this rank holds, and the launches."""
+    from phenaki_tpu_torch.parallel.collectives import broadcast_object
+    from phenaki_tpu_torch.presets import flagship_train_phenaki
+
+    data = _mesh_data(torch)
+    torch.cuda.synchronize()
+    base_before = torch.cuda.memory_allocated()
+    base = flagship_train_phenaki(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dense_gb = (torch.cuda.memory_allocated() - base_before) / 1e9
+    out = {"dense_phenaki_gb": dense_gb,
+           "trunk_gb_whole": _tensor_bytes(base.maskgit.transformer.layers.parameters()) / 1e9}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = broadcast_object(tmp, pp.world_group)  # one folder for both ranks: rank 0's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        a = _mesh_trainer(base, f"{folder}/a", data, mesh=pp, pipeline_microbatches=PIPE_MICROBATCHES)
+        out["build_s"] = time.perf_counter() - t
+        check((a.dense_model is not None) == (pp.rank == 0),
+              f"pipeline train: rank {pp.rank}'s trainer keeps the whole Phenaki: {a.dense_model is not None}")
+        if pp.rank != 0:
+            base = None  # only rank 0 samples the milestones
+        gc.collect()
+        torch.cuda.synchronize()
+        out["build_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["dense_phenaki_gb_kept"] = dense_gb if base is not None else 0.0
+        out["trunk_gb_this_rank"] = _tensor_bytes(a.model.maskgit.transformer.layers.parameters()) / 1e9
+        out["stage_layers"] = sorted(int(k) for k in a.model.maskgit.transformer.layers.keys())
+        t = time.perf_counter()
+        out["first_loss"] = a.train_step().item()
+        out["first_step_s"] = time.perf_counter() - t  # the milestone's sample and checkpoint included
+        torch.cuda.synchronize()
+        out["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        seconds, losses = [], []
+        for step in range(PIPE_TRAIN_STEPS):
+            before = kernel_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(a.train_step().item())
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+            launched = launched_since(before)
+            check(launched == exact(PIPE_TRAIN_PER_STEP),
+                  f"pipeline train step {step}: launches {nonzero(launched)} != {PIPE_TRAIN_PER_STEP}")
+            if step == 0:
+                after_step2 = _params_sha(a.model.maskgit.named_parameters())
+        check(all(map(math.isfinite, losses)), f"pipeline train: non-finite loss {losses}")
+        out["train_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["train_peak_gb_without_dense"] = out["train_peak_gb"] - out["dense_phenaki_gb_kept"]
+        consolidated = a._ckpt_tree(with_optimizer=False)["params"]["maskgit"]
+        out.update(losses=losses, step_seconds=seconds, launches=kernel_counts(),
+                   consolidated_sha=_params_sha(sorted(consolidated.items())))
+        checkpoints = a.checkpoints
+        del a
+        torch.cuda.empty_cache()
+        b = _mesh_trainer(base if base is not None else flagship_train_phenaki(seed=0, device="cuda"),
+                          f"{folder}/b", data, mesh=pp, pipeline_microbatches=PIPE_MICROBATCHES)
+        b.checkpoints = checkpoints
+        next(b.dl)  # the batch A's first step took: a checkpoint holds no data order
+        t = time.perf_counter()
+        b.load(0)
+        out["load_s"] = time.perf_counter() - t
+        b.train_step()
+        out["resume_bit_equal"] = _params_sha(b.model.maskgit.named_parameters()) == after_step2
+        check(out["resume_bit_equal"], "pipeline resume: the resumed pp = 2 trainer's step differs from the live one's")
+        out["checkpoint_bytes"] = checkpoints.path(0).stat().st_size
+        del b
+        torch.distributed.barrier()  # rank 0's folder outlives every rank's use of it
+    del base
+    torch.cuda.empty_cache()
+    return out
 
 
 def mesh_gan_dp(torch, dp):
@@ -3372,6 +3608,33 @@ def run_mesh_paths(torch, card, profile_path=None):
               launches_per_step_per_rank=TRAIN_PER_STEP, card=card, **extra)
     for rank, r in enumerate(results):
         phase(f"sharded resume, rank {rank}", **r["resume"])
+    for rank, r in enumerate(results):
+        phase(f"small fp32 pipeline card vs cpu, rank {rank}", **r["small_pp"])
+    pipes = [r["pipeline"] for r in results]
+    one = trains[0]  # rank 0's one-process trainer on the same data ("dp train")
+    ref = one["one_process_loss"]
+    firsts = [p["first_loss"] for p in pipes]
+    check(all(abs(f - ref) <= 1e-3 * abs(ref) for f in firsts),
+          f"pipeline train: first losses {firsts} vs one process {ref}")
+    check(all(p["losses"] == pipes[0]["losses"] for p in pipes), "pipeline train: losses differ across ranks")
+    check(len({p["consolidated_sha"] for p in pipes}) == 1, "pipeline train: consolidated parameters differ")
+    check(sorted(sum((p["stage_layers"] for p in pipes), [])) == list(range(6)),
+          f"pipeline train: the stages hold layers {[p['stage_layers'] for p in pipes]}")
+    for rank, p in enumerate(pipes):
+        per_step = statistics.median(p["step_seconds"])
+        phase(f"pipeline train path, rank {rank}", card=card, stages=PIPE_STAGES, microbatches=PIPE_MICROBATCHES,
+              batch=MESH_TRAIN_BATCH, seconds_per_step=per_step, step_seconds=p["step_seconds"],
+              tokens_per_s=MESH_TRAIN_BATCH * 1152 / per_step, first_loss=p["first_loss"],
+              one_process_first_loss=ref, losses=p["losses"], train_peak_gb=p["train_peak_gb"],
+              train_peak_gb_without_dense=p["train_peak_gb_without_dense"],
+              dense_phenaki_gb_kept_for_milestones=p["dense_phenaki_gb_kept"],
+              dense_phenaki_gb=p["dense_phenaki_gb"], build_peak_gb=p["build_peak_gb"],
+              resident_gb_after_milestone=p["resident_gb"],
+              one_process_peak_gb=one["one_process_peak_gb"], one_process_step_s=one["one_process_step_s"],
+              build_s=p["build_s"], first_step_s=p["first_step_s"], stage_layers=p["stage_layers"],
+              trunk_gb_this_rank=p["trunk_gb_this_rank"], trunk_gb_whole=p["trunk_gb_whole"],
+              launches_per_step=PIPE_TRAIN_PER_STEP, launches=nonzero(p["launches"]),
+              resume_bit_equal=p["resume_bit_equal"], load_s=p["load_s"], checkpoint_bytes=p["checkpoint_bytes"])
     gans = [r["gan"] for r in results]
     check(len({g["params_sha"] for g in gans}) == 1, "gan dp: parameters differ across ranks")
     phase("cvivit gan dp", logs=gans[0]["logs"], step_seconds=[g["step_seconds"] for g in gans],
@@ -3388,7 +3651,8 @@ def run_mesh_paths(torch, card, profile_path=None):
 
     return {"tp_sample": summed("tp_sample"), "dp_sample": summed("dp_sample"),
             "dp_train": summed("train", "dp"), "fsdp_train": summed("train", "fsdp"),
-            "tp_train": summed("train", "tp"), "cvivit_gan_dp": summed("gan"), "serving_mesh": summed("serving")}
+            "tp_train": summed("train", "tp"), "pipeline_train": summed("pipeline"),
+            "cvivit_gan_dp": summed("gan"), "serving_mesh": summed("serving")}
 
 
 def profile_train_steps(torch, trainer, path):
@@ -3451,6 +3715,8 @@ def main() -> int:
     check_gumbel(torch)
     check_learning(torch)
     check_small_discriminator(torch)
+    check_t5_stack(torch)
+    run_e2e_example(torch)
     args = sys.argv[1:]
     sample_profile = args[args.index("--profile-sample") + 1] if "--profile-sample" in args else None
     paths = run_sample_paths(torch, sample_profile)

@@ -30,6 +30,11 @@ Loading is strict both ways: every parameter and buffer of the module must
 have an entry, and every entry must land in the module. No tree the TPU
 package builds for a ported module carries an entry the port drops.
 
+`load_t5_params` loads the TPU package's `t5_jax.T5EncoderStack` variables
+into the port's `text.t5_torch.T5EncoderStack`: its flat `block_{i}_attn`,
+`block_{i}_attn_norm`, `block_{i}_ff` and `block_{i}_ff_norm` become
+`blocks.{i}.attn`, `.attn_norm`, `.ff` and `.ff_norm`.
+
 `load_tp_flax_params` loads a tree into rank r's tensor-parallel clone
 (`parallel.tp_inference.tp_local_module`), by either route: the tree as it
 is, packed here (`pack_tp_params` on the bridged state_dict), or a tree that
@@ -47,6 +52,7 @@ import torch
 from torch import nn
 
 _INDEXED = re.compile(r"^(layers|net_hidden)_(\d+)$")
+_T5_BLOCK = re.compile(r"^block_(\d+)_(attn_norm|attn|ff_norm|ff)\.")
 
 
 def _convert_leaf(name: str, arr: np.ndarray, parent: str):
@@ -139,6 +145,14 @@ def _load_state(module: nn.Module, sd: Dict[str, torch.Tensor]) -> nn.Module:
             raise ValueError(f"{name}: flax {tuple(src.shape)} vs port {tuple(target.shape)}")
         target.copy_(src.to(target.dtype))
     return module
+
+
+def load_t5_params(stack, variables: Mapping):
+    """Copy the TPU package's T5 encoder stack variables (`{"params": ...}`
+    or the params alone) into a port `T5EncoderStack` of the same
+    configuration."""
+    sd = flax_to_state_dict(_params(variables))
+    return _load_state(stack, {_T5_BLOCK.sub(r"blocks.\1.\2.", k): v for k, v in sd.items()})
 
 
 def load_cvivit_variables(cvivit, variables: Mapping):

@@ -29,6 +29,11 @@ FF dropout in training mode; `unconditional` builds no cross-attention.
 `reference_attention_kv` (MaskGit and TokenCritic) takes the self-attention's
 K/V from the pre-norm input, as weights trained with the reference
 phenaki-pytorch expect (`convert.py`); the parameters do not change.
+`pipeline_mesh` (a mesh with a 'pp' axis; JAX `maskgit.py:158-180,359-375`)
+runs the trunk on GPipe's schedule (`parallel.pipeline`) in
+`pipeline_microbatches` microbatches: the module is then a rank's
+stage-local clone (`pipeline_stage_module`), and its dropout streams are
+seeded from `generator`. A SelfCritic rides on the MaskGit's trunk.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from phenaki_tpu_torch.models.transformer import Transformer
 from phenaki_tpu_torch.ops.feedforward import linear
 from phenaki_tpu_torch.ops.positional import ContinuousPositionBias
 from phenaki_tpu_torch.ops.sampling import prob_mask_like
+from phenaki_tpu_torch.parallel.pipeline import pipeline_transformer_apply
 
 GRADIENT_SHRINK_ALPHA = 0.1
 
@@ -71,6 +77,14 @@ def _check_seq_len(n: int, max_seq_len: int) -> None:
         raise ValueError(f"sequence length {n} exceeds max_seq_len {max_seq_len} — when sampling"
                          " with prime frames, max_seq_len must cover the prime tokens plus the new"
                          " scene's tokens")
+
+
+def _trunk(transformer, h, pipeline_mesh, pipeline_microbatches, generator, **kwargs):
+    """The trunk sequentially, or pipelined over `pipeline_mesh`."""
+    if pipeline_mesh is None:
+        return transformer(h, **kwargs)
+    return pipeline_transformer_apply(transformer, h, pipeline_mesh, num_microbatches=pipeline_microbatches,
+                                      training=transformer.training, generator=generator, **kwargs)
 
 
 def _cond_dropout(text_mask, cond_drop_prob: float, b: int, generator, device):
@@ -119,11 +133,12 @@ class MaskGit(nn.Module):
     def forward(self, x: torch.Tensor, *, video_patch_shape=None, cond_drop_prob: float = 0.0,
                 text_mask=None, video_mask=None, context=None, attn_bias=None,
                 return_embeds: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, pipeline_mesh=None,
+                pipeline_microbatches: Optional[int] = None) -> torch.Tensor:
         """x: (b, n) or (b, t, h, w) token ids -> logits (or final-norm
         embeddings). video_mask (b, n) bool masks the self-attention keys;
         `cond_drop_prob` drops whole text conditions with draws from
-        `generator`."""
+        `generator`; `pipeline_mesh` pipelines the trunk (module docstring)."""
         if x.ndim == 4:
             video_patch_shape = tuple(x.shape[1:])
             x = x.reshape(x.shape[0], -1)
@@ -146,9 +161,9 @@ class MaskGit(nn.Module):
         # bf16 the two products round, so it is not the identity
         h = h * GRADIENT_SHRINK_ALPHA + h.detach() * (1 - GRADIENT_SHRINK_ALPHA)
 
-        h = self.transformer(h, video_shape=(b, *video_patch_shape), attn_bias=rel_pos_bias,
-                             context=context, self_attn_mask=video_mask,
-                             cross_attn_context_mask=text_mask)
+        h = _trunk(self.transformer, h, pipeline_mesh, pipeline_microbatches, generator,
+                   video_shape=(b, *video_patch_shape), attn_bias=rel_pos_bias, context=context,
+                   self_attn_mask=video_mask, cross_attn_context_mask=text_mask)
         return h if return_embeds else linear(h, self.to_logits)
 
     def forward_with_cond_scale(self, x, *, cond_scale: float = 3.0, text_mask=None, context=None,
@@ -204,7 +219,8 @@ class TokenCritic(nn.Module):
 
     def forward(self, x: torch.Tensor, *, video_patch_shape=None, cond_drop_prob: float = 0.0,
                 text_mask=None, video_mask=None, context=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, pipeline_mesh=None,
+                pipeline_microbatches: Optional[int] = None) -> torch.Tensor:
         """x: (b, n) or (b, t, h, w) token ids -> (b, n) critic logits."""
         if x.ndim == 4:
             video_patch_shape = tuple(x.shape[1:])
@@ -223,8 +239,9 @@ class TokenCritic(nn.Module):
 
         dtype = self.compute_dtype
         h = self.token_emb(x).to(dtype) + self.pos_emb(torch.arange(n, device=x.device)).to(dtype)
-        h = self.transformer(h, video_shape=(b, *video_patch_shape), context=context,
-                             self_attn_mask=video_mask, cross_attn_context_mask=text_mask)
+        h = _trunk(self.transformer, h, pipeline_mesh, pipeline_microbatches, generator,
+                   video_shape=(b, *video_patch_shape), context=context, self_attn_mask=video_mask,
+                   cross_attn_context_mask=text_mask)
         return linear(h, self.to_logits)[..., 0]
 
     def forward_with_cond_scale(self, x, *, cond_scale: float = 3.0, text_mask=None, context=None,

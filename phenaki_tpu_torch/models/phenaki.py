@@ -45,7 +45,12 @@ and the rank keeps its rows, and the masked-token mean divides by the global
 count, so the ranks' losses (and gradients) average to the one-process
 loss of the global batch. On the card the critic branch's sampler draws its
 noise from a seed for the local rows, so only the CPU, which draws the
-uniforms, holds that exactly with a critic.
+uniforms, holds that exactly with a critic. With `pipeline_mesh` set (a
+mesh with a 'pp' axis, JAX `phenaki.py:110-114,308-311,385-397`) the loss
+runs the MaskGit's trunk on GPipe's schedule in `pipeline_microbatches`
+microbatches, and the critic's when its depth divides by pp (else it runs
+whole on every rank); `pipeline_shard(mesh)` makes the rank's stage-local
+Phenaki that does so. Sampling stays dense, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,24 +76,17 @@ from phenaki_tpu_torch.ops.sampling import (
     uniform,
 )
 from phenaki_tpu_torch.parallel import collectives
-from phenaki_tpu_torch.parallel.tp_inference import tp_local_module
+from phenaki_tpu_torch.parallel.pipeline import pipeline_stage_module
+from phenaki_tpu_torch.parallel.tp_inference import clone_module, tp_local_module
 from phenaki_tpu_torch.text.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 from phenaki_tpu_torch.training.checkpoint import load_pytree, save_pytree
-
-
-def _base_seed(generator: Optional[torch.Generator], group) -> int:
-    """A seed drawn from `generator` (every rank holds the same), or without
-    one rank 0's random seed, broadcast over `group`."""
-    if generator is not None:
-        return int(torch.randint(0, 2**62, (), generator=generator))
-    return collectives.broadcast_object(int(np.random.randint(0, 2**62, dtype=np.int64)), group)
 
 
 def dp_generator(generator: Optional[torch.Generator], shard: int, group=None) -> torch.Generator:
     """The generator data-parallel shard `shard` samples with: a CPU
     generator seeded from a number drawn from `generator` and the shard
     (without a generator, rank 0's random number, broadcast over `group`)."""
-    seed = np.random.SeedSequence([_base_seed(generator, group), shard]).generate_state(1, np.uint64)[0]
+    seed = np.random.SeedSequence([collectives.shared_seed(generator, group), shard]).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(seed) % 2**63)
 
 
@@ -127,6 +125,9 @@ class Phenaki:
         self.cond_drop_prob = cond_drop_prob
         self.tp_mesh = None  # the mesh whose tp group the trunks are sharded over
         self._mesh_views: Dict[int, tuple] = {}
+        # the mesh whose 'pp' axis the loss pipelines the trunks over (None: sequential)
+        self.pipeline_mesh = None
+        self.pipeline_microbatches: Optional[int] = None
 
     def tp_shard(self, mesh) -> "Phenaki":
         """This rank's tensor-parallel Phenaki over `mesh`'s tp group: the
@@ -149,6 +150,45 @@ class Phenaki:
         local.tp_mesh = mesh
         local._mesh_views = {}
         return local
+
+    def pipeline_shard(self, mesh, microbatches: Optional[int] = None) -> "Phenaki":
+        """This rank's pipeline-parallel Phenaki over `mesh` (which has a 'pp'
+        axis): the MaskGit as its stage-local clone
+        (`parallel.pipeline.pipeline_stage_module`, tp-local too when the
+        mesh has tp > 1), a SelfCritic on that trunk with a copy of its head,
+        a TokenCritic stage-local when its depth divides by pp and else
+        whole (tp-local with tp > 1); the C-ViViT shared. Its loss pipelines
+        in `microbatches` microbatches (the default of
+        `pipeline_transformer_apply` when None)."""
+        if self.tp_mesh is not None or self.pipeline_mesh is not None:
+            raise ValueError("this Phenaki is sharded over a mesh already")
+        local = copy.copy(self)
+        local.maskgit = pipeline_stage_module(self.maskgit, mesh)
+        if self.self_token_critic:
+            local.critic = SelfCritic(local.maskgit)
+            local.critic.to_pred = clone_module(self.critic.to_pred)
+        elif self.critic is not None:
+            if self.critic.transformer.depth % mesh.pp == 0:
+                local.critic = pipeline_stage_module(self.critic, mesh)
+            elif mesh.tp > 1:
+                local.critic = tp_local_module(self.critic, mesh.tp, mesh.tp_group)
+            else:
+                local.critic = clone_module(self.critic)
+        local.tp_mesh = mesh if mesh.tp > 1 else None
+        local.pipeline_mesh, local.pipeline_microbatches = mesh, microbatches
+        local._mesh_views = {}
+        return local
+
+    def _pipeline_kwargs(self, module, generator) -> dict:
+        """The pipeline's arguments for the MaskGit or a TokenCritic: none
+        without a pipeline mesh, or for a critic whose depth pp does not
+        divide (it runs whole on every rank)."""
+        if self.pipeline_mesh is None:
+            return {}
+        if module is not self.maskgit and module.transformer.depth % self.pipeline_mesh.pp:
+            return {}
+        return dict(pipeline_mesh=self.pipeline_mesh, pipeline_microbatches=self.pipeline_microbatches,
+                    generator=generator)
 
     def _sampling_view(self, mesh) -> "Phenaki":
         """`tp_shard(mesh)`, kept while no parameter changed in place."""
@@ -246,7 +286,7 @@ class Phenaki:
         if n > 1:
             generator = dp_generator(generator, shard, mesh.world_group)
         elif generator is None:
-            generator = torch.Generator().manual_seed(_base_seed(None, mesh.world_group))
+            generator = torch.Generator().manual_seed(collectives.shared_seed(None, mesh.world_group))
         rows = slice(shard * batch_size // n, (shard + 1) * batch_size // n)
         video = self._sampling_view(mesh).sample(
             text_embeds=text_embeds[rows] if text_embeds is not None else None,
@@ -418,7 +458,8 @@ class Phenaki:
         fuse_ce = can_fuse_ce(proj.in_features, proj.out_features)
         out = self.maskgit(masked_input.reshape(b, *patch_shape), video_mask=video_mask,
                            text_mask=self._text_dropout(text_mask, drop_prob, generator, shard, shards),
-                           context=text_embeds, return_embeds=fuse_ce)
+                           context=text_embeds, return_embeds=fuse_ce,
+                           **self._pipeline_kwargs(self.maskgit, generator))
         # read after the forward: under FSDP the head's whole weight is registered
         # from the MaskGit's forward on (its shard before)
         weight, bias = proj.weight, proj.bias
@@ -455,9 +496,11 @@ class Phenaki:
         has_text = self.self_token_critic or self.critic.has_cross_attn
         self.critic.train(train)
         critic_text_mask = self._text_dropout(text_mask, drop_prob, generator, shard, shards) if has_text else None
+        critic_trunk = self.maskgit if self.self_token_critic else self.critic
         critic_logits = self.critic(
             critic_input, video_mask=video_mask, text_mask=critic_text_mask,
-            context=text_embeds if has_text else None).float()
+            context=text_embeds if has_text else None,
+            **self._pipeline_kwargs(critic_trunk, generator)).float()
         critic_loss = F.binary_cross_entropy_with_logits(critic_logits, (ids != pred_ids).float())
         metrics["critic_loss"] = critic_loss
         loss = critic_loss if only_train_critic else gen_loss + critic_loss * self.critic_loss_weight

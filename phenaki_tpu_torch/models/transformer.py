@@ -9,6 +9,9 @@ input, the quirk of reference-trained weights (`ops.attention.Attention`,
 Attention and FF dropout act in training mode (`module.train()`), where the
 TPU package passes `deterministic=False`. `seq_group` (a process group)
 makes the self-attention sequence-parallel (`ops.attention.Attention`).
+A pipeline stage's stack (`parallel.pipeline.pipeline_stage_module`) holds
+only its layers, keyed by their global index, and runs only through
+`parallel.pipeline.pipeline_transformer_apply`.
 """
 
 from __future__ import annotations
@@ -57,12 +60,19 @@ class TransformerLayer(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, **layer_kwargs):
         super().__init__()
+        self.depth = depth
+        self.causal = layer_kwargs.get("causal", False)
         self.layers = nn.ModuleList(TransformerLayer(dim, **layer_kwargs) for _ in range(depth))
         self.norm_out = LayerNorm(dim)
+        # the global indices of the layers a pipeline stage holds (None: all)
+        self.stage: Optional[range] = None
 
     def forward(self, x: torch.Tensor, video_shape: Optional[Tuple[int, int, int, int]] = None,
                 attn_bias=None, context=None, self_attn_mask=None,
                 cross_attn_context_mask=None) -> torch.Tensor:
+        if self.stage is not None:
+            raise RuntimeError(f"this stack holds only layers {list(self.stage)} of {self.depth}: "
+                               "run it through parallel.pipeline.pipeline_transformer_apply")
         for layer in self.layers:
             x = layer(x, attn_bias, context, self_attn_mask, cross_attn_context_mask, video_shape)
         return self.norm_out(x)

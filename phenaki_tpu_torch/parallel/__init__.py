@@ -9,9 +9,15 @@ from phenaki_tpu_torch.parallel.mesh import (
     make_mesh,
     make_multislice_mesh,
     param_partition_spec,
+    pipeline_stage,
     place_like,
     replicate,
     shard_batch,
+)
+from phenaki_tpu_torch.parallel.pipeline import (
+    make_pipeline_mesh,
+    pipeline_stage_module,
+    pipeline_transformer_apply,
 )
 from phenaki_tpu_torch.parallel.ring_attention import (
     ring_qk_norm_attention,
@@ -32,9 +38,13 @@ __all__ = [
     "make_mesh",
     "make_multislice_mesh",
     "param_partition_spec",
+    "pipeline_stage",
     "place_like",
     "replicate",
     "shard_batch",
+    "make_pipeline_mesh",
+    "pipeline_stage_module",
+    "pipeline_transformer_apply",
     "ring_qk_norm_attention",
     "sequence_sharded_attention",
     "pack_tp_params",

@@ -87,6 +87,17 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return _all_gather(x, group, dim)
 
 
+def shared_seed(generator, group) -> int:
+    """A seed every rank of `group` holds alike: drawn from `generator`
+    (every rank holds the same one), or without one rank 0's draw from
+    numpy's global generator, broadcast over `group`."""
+    if generator is not None:
+        return int(torch.randint(0, 2**62, (), generator=generator))
+    import numpy as np
+
+    return broadcast_object(int(np.random.randint(0, 2**62, dtype=np.int64)), group)
+
+
 def broadcast_object(obj: Any, group, src_group_rank: int = 0) -> Any:
     """`obj` of the group's rank `src_group_rank`, on every rank (pickled;
     tensors travel by value on the CPU)."""

@@ -8,7 +8,9 @@ order over ('dp', 'tp') (`make_mesh`), or ('dcn', 'dp', 'tp') with the nodes
 on 'dcn' (`make_multislice_mesh`). For each axis (and for the data axes
 together) the mesh holds the process groups of the ranks that differ only
 on it: `mesh.group("tp")` is this rank's tensor-parallel group,
-`mesh.data_group` its data-parallel one. A group of one is None, and every
+`mesh.group("pp")` its pipeline's ring of stages, `mesh.data_group` its
+data-parallel one. `make_mesh(pp=)` adds the 'pp' axis last, ('dp', 'tp',
+'pp'), with the ranks in JAX's row-major order. A group of one is None, and every
 collective of the port treats None as the identity, so one code path serves
 any mesh, the 1 x 1 mesh of a single process included.
 
@@ -22,10 +24,13 @@ replicated; they are the JAX rules on the port's layout (a Linear weight is
 least 2**16 elements on its largest dim that divides by the data axis and
 holds no "tp", ties going to the dim that comes first in the JAX layout.
 The manual tensor parallelism of the port (`tp_inference`) and its FSDP
-(`fsdp_shard_dim`) read these rules.
-
-`pp > 1` raises: the pipeline comes with `parallel/pipeline.py`, the next
-slice of the port.
+(`fsdp_shard_dim`) read these rules. The pipeline's rule (`pipeline_stage`)
+names the stage that holds a trunk layer: layer i of a trunk of `depth`
+layers belongs to stage i // (depth / pp) when pp divides the depth (JAX
+shards the stacked depth axis so); every other parameter is on every stage.
+`stage_layers` lists a stage's layers by that rule, and the pipeline builds
+a rank's stage from it. It composes with the TP rules: a stage holds its tp
+rank's shards of its layers (`parallel/pipeline.py`).
 """
 
 from __future__ import annotations
@@ -43,8 +48,7 @@ from phenaki_tpu_torch.parallel import collectives
 
 DATA_AXIS = "dp"
 MODEL_AXIS = "tp"
-PIPELINE_NOT_PORTED = ("pipeline parallelism (pp > 1, pipeline_microbatches) is not ported yet: it "
-                       "comes with parallel/pipeline.py in the next slice of the port (ROADMAP A13)")
+PIPE_AXIS = "pp"
 
 # FSDP: parameters below this many elements stay replicated (JAX's minimum)
 FSDP_MIN_SIZE = 2**16
@@ -119,6 +123,18 @@ class Mesh:
         return self.group(MODEL_AXIS) if MODEL_AXIS in self.shape else None
 
     @property
+    def pp(self) -> int:
+        return self.shape.get(PIPE_AXIS, 1)
+
+    @property
+    def pp_index(self) -> int:
+        return self.coords.get(PIPE_AXIS, 0)
+
+    @property
+    def pp_group(self):
+        return self.group(PIPE_AXIS) if PIPE_AXIS in self.shape else None
+
+    @property
     def data_size(self) -> int:
         """The batch's shards: the product of the data axes ('dcn', 'dp')."""
         return int(np.prod([self.shape[a] for a in self.data_axes]))
@@ -160,18 +176,22 @@ def _world() -> int:
 
 def make_mesh(dp: Optional[int] = None, tp: int = 1, pp: int = 1) -> Mesh:
     """A ('dp', 'tp') mesh over the default process group (the ranks in
-    row-major order: rank = dp_index * tp + tp_index). `dp` defaults to
-    world / tp. A single process without a group makes the 1 x 1 mesh."""
-    if pp != 1:
-        raise NotImplementedError(PIPELINE_NOT_PORTED)
+    row-major order: rank = dp_index * tp + tp_index), or with `pp > 1` a
+    ('dp', 'tp', 'pp') one (rank = (dp_index * tp + tp_index) * pp +
+    pp_index). `dp` defaults to world / (tp * pp). A single process without
+    a group makes the 1 x 1 mesh."""
     world = _world()
+    if tp < 1 or pp < 1:
+        raise ValueError(f"tp ({tp}) and pp ({pp}) must be positive")
     if dp is None:
-        if world % tp:
-            raise ValueError(f"tp ({tp}) does not divide the world size ({world})")
-        dp = world // tp
-    if dp * tp != world:
-        raise ValueError(f"dp ({dp}) * tp ({tp}) != world size ({world}); "
+        if world % (tp * pp):
+            raise ValueError(f"tp ({tp}) * pp ({pp}) does not divide the world size ({world})")
+        dp = world // (tp * pp)
+    if dp * tp * pp != world:
+        raise ValueError(f"dp ({dp}) * tp ({tp}) * pp ({pp}) != world size ({world}); "
                          "init_distributed joins the process group first")
+    if pp > 1:
+        return Mesh(np.arange(world).reshape(dp, tp, pp), (DATA_AXIS, MODEL_AXIS, PIPE_AXIS))
     return Mesh(np.arange(world).reshape(dp, tp), (DATA_AXIS, MODEL_AXIS))
 
 
@@ -220,6 +240,31 @@ TP_RULES: Tuple[Tuple[str, Spec], ...] = (
 )
 
 _EMBEDDING = re.compile(r".*_emb\.weight$")
+
+# a layer of a MaskGit's or TokenCritic's trunk (the module named `transformer`;
+# the C-ViViT's stacks are named otherwise and are not pipelined)
+TRUNK_LAYER = re.compile(r"^(?:.*\.)?transformer\.layers\.(\d+)\.")
+
+
+def pipeline_stage(name: str, depth: int, pp: int) -> Optional[int]:
+    """The pipeline stage that holds parameter `name` of a model whose trunk
+    has `depth` layers, over `pp` stages: layer i's parameters belong to
+    stage i // (depth / pp); None (every stage holds it) for a parameter
+    outside the trunk's layers, or when pp does not divide the depth (JAX
+    then leaves the stacked layers replicated)."""
+    m = TRUNK_LAYER.match(name)
+    if m is None or pp <= 1 or depth % pp:
+        return None
+    return int(m.group(1)) // (depth // pp)
+
+
+def stage_layers(depth: int, pp: int, stage: int) -> range:
+    """The global indices of the trunk layers that stage `stage` of `pp`
+    holds, by `pipeline_stage` (every layer when pp = 1)."""
+    if depth % pp:
+        raise ValueError(f"the trunk's depth ({depth}) does not divide by pp ({pp})")
+    own = [i for i in range(depth) if (pipeline_stage(f"transformer.layers.{i}.", depth, pp) or 0) == stage]
+    return range(own[0], own[-1] + 1)
 
 
 def jax_dim_order(name: str, ndim: int) -> Tuple[int, ...]:

@@ -5,15 +5,20 @@ positions zeroed (the model recovers the text mask as `any(embed != 0, -1)`),
 `get_encoded_dim(name)` and `DEFAULT_T5_NAME`; one encoder per (name,
 fallback_dim, device), cached for the process.
 
-Backends, in order:
+Backends, in order, as the TPU package's `get_text_encoder` tries them:
 
-1. HuggingFace `transformers` `T5EncoderModel` when its weights are on disk
-   (a local directory, `PHENAKI_T5_PATH`, or a warm cache; nothing is
-   downloaded), run on `device` (the card unless the caller asks for
-   another; `Phenaki.embed_texts` passes the MaskGit's). The tokenizer is
-   `AutoTokenizer`, or the sentencepiece-free conversion of `spiece.model`
-   (`spm_tokenizer.py`).
-2. Otherwise `HashTextEncoder`: a deterministic offline encoder on the host.
+1. The port's own encoder stack (`t5_torch.TorchT5Encoder`, the counterpart
+   of the TPU package's `JaxT5Encoder`) loaded with a T5 checkpoint's
+   weights when they are on disk (a local directory, `PHENAKI_T5_PATH`, or
+   a warm cache; nothing is downloaded).
+2. HuggingFace `transformers` `T5EncoderModel` on the same weights, where
+   the first did not load.
+3. Otherwise `HashTextEncoder`: a deterministic offline encoder on the host.
+
+The first two run on `device` (the card unless the caller asks for
+another; `Phenaki.embed_texts` passes the MaskGit's); their tokenizer is
+`AutoTokenizer`, or the sentencepiece-free conversion of `spiece.model`
+(`spm_tokenizer.py`).
    Tokens (lower-case words and single punctuation marks) map to Gaussian
    vectors seeded by their blake2b hash, plus a sinusoid by position; its
    output equals the TPU package's bit for bit.
@@ -139,16 +144,27 @@ class _HFT5Encoder:
         return out.float().cpu().numpy()
 
 
+def _torch_t5_encoder(name: str):
+    from phenaki_tpu_torch.text.t5_torch import TorchT5Encoder
+
+    return TorchT5Encoder(name, max_length=MAX_LENGTH, device="cpu")
+
+
 def get_text_encoder(name: str = DEFAULT_T5_NAME, fallback_dim: Optional[int] = None, device="cuda"):
-    """One encoder per (name, fallback_dim, device): HF T5 on `device`
-    where its weights are on disk, else the hash encoder, of width
-    `fallback_dim` when given (a model's explicit text_embed_dim) or the
-    checkpoint's."""
+    """One encoder per (name, fallback_dim, device): the port's T5 stack on
+    `device` where a checkpoint's weights are on disk, else HF's T5 there,
+    else the hash encoder, of width `fallback_dim` when given (a model's
+    explicit text_embed_dim) or the checkpoint's."""
     key = (name, fallback_dim, str(device))
     if key not in _ENCODERS:
-        try:
-            encoder = _HFT5Encoder(name)
-        except Exception:  # noqa: BLE001 — no weights on disk: the offline encoder
+        encoder = None
+        for build in (_torch_t5_encoder, _HFT5Encoder):
+            try:  # each loads on the host
+                encoder = build(name)
+                break
+            except Exception:  # noqa: BLE001 — no weights on disk: the next backend
+                continue
+        if encoder is None:
             dim = fallback_dim if fallback_dim is not None else get_encoded_dim(name)
             encoder = HashTextEncoder(dim)
         else:

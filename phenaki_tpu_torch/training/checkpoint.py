@@ -13,7 +13,11 @@ tensors (parameters, and an optimizer's or an EMA's state of the same
 layout) into the global ones, collectively over the mesh, and
 `parallel.mesh.place_like` cuts global tensors back to a rank's layout,
 so a checkpoint written on one mesh loads on any other
-(`parallel.tp_inference`, `global_value` and `local_value`).
+(`parallel.tp_inference`, `global_value` and `local_value`). On a mesh
+with a 'pp' axis each stage holds only its own trunk layers: `consolidate`
+also gathers those over the pp group, and an optimizer's state is written
+in the order of the whole model's optimizer (`consolidate_optimizer`'s
+`groups`), which `shard_optimizer_state` reads back by name.
 """
 
 from __future__ import annotations
@@ -44,28 +48,73 @@ def load_pytree(path: str | os.PathLike, map_location="cpu") -> Any:
     return torch.load(path, map_location=map_location, weights_only=True)
 
 
+def _gather_stages(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """`tree` (by parameter name) with the other pipeline stages' trunk
+    layers added: each rank sends its entries of trunk layers over the pp
+    group (one collective); a replicated entry stays this rank's own."""
+    from phenaki_tpu_torch.parallel.collectives import group_size
+    from phenaki_tpu_torch.parallel.mesh import TRUNK_LAYER
+
+    group = mesh.pp_group if mesh is not None else None
+    if group_size(group) == 1:
+        return tree
+    import torch.distributed as dist
+
+    mine = {k: v for k, v in tree.items() if TRUNK_LAYER.match(k)}
+    parts: List[Any] = [None] * group_size(group)
+    dist.all_gather_object(parts, mine, group=group)
+    merged = dict(tree)
+    for part in parts:
+        for k, v in part.items():
+            merged.setdefault(k, v)
+    return merged
+
+
 def consolidate(tensors: Dict[str, torch.Tensor], mesh, shapes: Dict[str, Sequence[int]]
                 ) -> Dict[str, torch.Tensor]:
     """Each rank-local tensor by its parameter name, as the global tensor of
-    global shape `shapes[name]`, on the CPU; collective over `mesh` (every
-    rank calls it with the same names, in the same order)."""
+    global shape `shapes[name]`, on the CPU, and on a pipeline mesh the
+    other stages' trunk layers too; collective over `mesh` (every rank calls
+    it with the same names, in the same order, as its stage holds them)."""
     from phenaki_tpu_torch.parallel.tp_inference import global_value
 
-    return {name: global_value(name, t, mesh, shapes[name]).cpu() for name, t in tensors.items()}
+    local = {name: global_value(name, t, mesh, shapes[name]).cpu() for name, t in tensors.items()}
+    return _gather_stages(local, mesh)
+
+
+def optimizer_groups(opt: torch.optim.Optimizer, named_params) -> List[List[str]]:
+    """The names of an optimizer's parameters, group by group, in its
+    state_dict's index order, from (name, parameter) pairs."""
+    name_of = {id(p): n for n, p in named_params}
+    return [[name_of[id(p)] for p in g["params"]] for g in opt.param_groups]
 
 
 def consolidate_optimizer(opt: torch.optim.Optimizer, names: List[str], mesh,
-                          shapes: Dict[str, Sequence[int]]) -> dict:
+                          shapes: Dict[str, Sequence[int]], groups: List[List[str]]) -> dict:
     """An optimizer's state_dict with every per-parameter tensor of the
     parameter's shape (Adam's moments) consolidated; `names` are the
-    optimizer's parameters' names in its order."""
+    optimizer's parameters' names in its index order. The written state
+    follows `groups`, the whole model's optimizer's groups by name: the
+    optimizer's own (`optimizer_groups`), unless it holds a pipeline
+    stage's part of them."""
+    from phenaki_tpu_torch.parallel.tp_inference import global_value
+
     sd = opt.state_dict()
-    state = {}
+    if len(groups) != len(sd["param_groups"]):
+        raise ValueError(f"{len(groups)} groups given, the optimizer has {len(sd['param_groups'])}")
+    by_name = {}
     for i, per in sd["state"].items():
         name = names[i]
-        state[i] = {k: consolidate({name: v}, mesh, shapes)[name]
-                    if isinstance(v, torch.Tensor) and v.ndim else v for k, v in per.items()}
-    return {"state": state, "param_groups": sd["param_groups"]}
+        by_name[name] = {k: global_value(name, v, mesh, shapes[name]).cpu()
+                         if isinstance(v, torch.Tensor) and v.ndim else v for k, v in per.items()}
+    by_name = _gather_stages(by_name, mesh)
+    order = [n for g in groups for n in g]
+    param_groups, start = [], 0
+    for group, own in zip(groups, sd["param_groups"]):
+        param_groups.append({**own, "params": list(range(start, start + len(group)))})
+        start += len(group)
+    return {"state": {i: by_name[n] for i, n in enumerate(order) if n in by_name},
+            "param_groups": param_groups}
 
 
 @torch.no_grad()
@@ -82,16 +131,26 @@ def load_sharded(module_params: Dict[str, torch.Tensor], values: Dict[str, torch
             target.copy_(local)
 
 
-def shard_optimizer_state(sd: dict, params: List[torch.Tensor], names: List[str], mesh) -> dict:
-    """A consolidated optimizer state_dict cut to this rank's parameters."""
+def shard_optimizer_state(sd: dict, opt: torch.optim.Optimizer, names: List[str], mesh,
+                          written: List[str]) -> dict:
+    """A consolidated optimizer state_dict cut to the parameters of `opt`,
+    this rank's optimizer (`names`: its parameters' names in its index
+    order); `written` names the written state's parameters in its index
+    order (`consolidate_optimizer`'s `groups`, flattened)."""
     from phenaki_tpu_torch.parallel.mesh import place_like
 
+    params = [p for g in opt.param_groups for p in g["params"]]
+    index = {n: i for i, n in enumerate(written)}
     state = {}
-    for i, per in sd["state"].items():
-        name, p = names[i], params[i]
+    for i, (name, p) in enumerate(zip(names, params)):
+        per = sd["state"].get(index[name])
+        if per is None:
+            continue
         state[i] = {k: place_like({name: p}, {name: v}, mesh)[name]
                     if isinstance(v, torch.Tensor) and v.ndim else v for k, v in per.items()}
-    return {"state": state, "param_groups": sd["param_groups"]}
+    own_groups = opt.state_dict()["param_groups"]
+    return {"state": state, "param_groups": [{**written_group, "params": own["params"]}
+                                             for written_group, own in zip(sd["param_groups"], own_groups)]}
 
 
 def _to_meta(tree: Any) -> Any:

@@ -86,6 +86,7 @@ from phenaki_tpu_torch.training.checkpoint import (
     consolidate,
     consolidate_optimizer,
     load_sharded,
+    optimizer_groups,
     shard_optimizer_state,
 )
 from phenaki_tpu_torch.training.ema import EMAState, ema_init, ema_update
@@ -374,8 +375,8 @@ class CViViTTrainer:
         if self.sharded:
             shapes = {k: v.shape for k, v in self.dense_vae.state_dict().items()}
             vae = consolidate(vae, self.mesh, shapes)
-            gen_opt = consolidate_optimizer(self.gen_opt, [n for n, p in self.vae.named_parameters()
-                                                           if p.requires_grad], self.mesh, shapes)
+            groups = optimizer_groups(self.gen_opt, self.vae.named_parameters())
+            gen_opt = consolidate_optimizer(self.gen_opt, [n for g in groups for n in g], self.mesh, shapes, groups)
             ema = consolidate(ema, self.mesh, shapes) if ema is not None else None
         return {"vae": vae,
                 "discr": self.discr.state_dict() if self.discr is not None else None,
@@ -402,11 +403,11 @@ class CViViTTrainer:
         if (restored["discr"] is None) != (self.discr is None) or \
                 (restored["ema"] is None) != (self.ema is None):
             raise ValueError("the checkpoint and this trainer differ in having a discriminator or an EMA")
-        named = [(n, p) for n, p in self.vae.named_parameters() if p.requires_grad]
         if self.sharded:
             load_sharded(self.vae.state_dict(), restored["vae"], self.mesh)
-            self.gen_opt.load_state_dict(shard_optimizer_state(
-                restored["gen_opt_state"], [p for _, p in named], [n for n, _ in named], self.mesh))
+            names = [n for g in optimizer_groups(self.gen_opt, self.vae.named_parameters()) for n in g]
+            self.gen_opt.load_state_dict(shard_optimizer_state(restored["gen_opt_state"], self.gen_opt, names,
+                                                               self.mesh, names))
         else:
             self.vae.load_state_dict(restored["vae"])
             self.gen_opt.load_state_dict(restored["gen_opt_state"])

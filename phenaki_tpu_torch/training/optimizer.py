@@ -8,20 +8,26 @@ clipped to that global norm before every step, as the TPU package's
 optax by the norm). `grad_norm` replaces the norm's computation (a
 trainer on a mesh passes one that sums the shards of sharded gradients
 over their groups, `global_grad_norm`); the clip is then torch's formula.
+`param_groups` is the grouping, which a checkpoint's optimizer state
+follows.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Collection, Iterable, List, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
+T = TypeVar("T")
 
-def global_grad_norm(named_params: List[Tuple[str, torch.nn.Parameter]], mesh) -> torch.Tensor:
+
+def global_grad_norm(named_params: List[Tuple[str, torch.nn.Parameter]], mesh,
+                     stage_owned: Collection[str] = ()) -> torch.Tensor:
     """The L2 norm of the whole gradient of a model sharded over `mesh`:
     the squares of FSDP shards (DTensors) summed over the data group, those
-    of tensor-parallel shards over the tp group, replicated ones counted
-    once."""
+    of tensor-parallel shards over the tp group, those of the pipeline
+    stage's own layers (`stage_owned`, by name) over the pp group;
+    replicated ones counted once."""
     from phenaki_tpu_torch.parallel.collectives import all_reduce
     from phenaki_tpu_torch.parallel.tp_inference import is_tp_sharded
 
@@ -30,14 +36,26 @@ def global_grad_norm(named_params: List[Tuple[str, torch.nn.Parameter]], mesh) -
         if p.grad is None:
             continue
         g = p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad
-        part = torch.zeros(4, device=g.device)
-        part[2 * is_tp_sharded(name) + hasattr(p.grad, "to_local")] = g.float().pow(2).sum()
+        part = torch.zeros(8, device=g.device)
+        part[4 * (name in stage_owned) + 2 * is_tp_sharded(name) + hasattr(p.grad, "to_local")] = \
+            g.float().pow(2).sum()
         sums = part if sums is None else sums + part
     if sums is None:
         return torch.zeros(())
-    sums = torch.cat([sums[::2], all_reduce(sums[1::2], mesh.data_group)])  # FSDP parts over dp
-    sums = torch.stack([sums[0] + sums[2], all_reduce(sums[1] + sums[3], mesh.tp_group)])
+    # bit 1: FSDP parts over dp; bit 2: tp parts over tp; bit 4: stage parts over pp
+    for bit, group in ((1, mesh.data_group), (2, mesh.tp_group), (4, mesh.pp_group)):
+        idx = torch.tensor([i for i in range(8) if i & bit], device=sums.device)
+        sums = sums.index_copy(0, idx, all_reduce(sums[idx], group))
     return sums.sum().sqrt()
+
+
+def param_groups(params: Sequence[T], wd: float) -> List[List[T]]:
+    """The optimizer's parameter groups (`params` are parameters, or any
+    items with an `ndim`): one, or with weight decay the matrices and then
+    the rest (no decay on biases, norm gains and per-dim scales)."""
+    if wd == 0:
+        return [list(params)]
+    return [[p for p in params if p.ndim >= 2], [p for p in params if p.ndim < 2]]
 
 
 def get_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4, wd: float = 1e-2,
@@ -51,8 +69,8 @@ def get_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4, wd: fl
     if wd == 0:
         opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8, foreach=foreach)
     else:
-        groups = [{"params": [p for p in params if p.ndim >= 2]},
-                  {"params": [p for p in params if p.ndim < 2], "weight_decay": 0.0}]
+        decayed, plain = param_groups(params, wd)
+        groups = [{"params": decayed}, {"params": plain, "weight_decay": 0.0}]
         opt = torch.optim.AdamW(groups, lr=lr, betas=betas, eps=1e-8, weight_decay=wd, foreach=foreach)
 
     if max_grad_norm is not None:

@@ -52,13 +52,23 @@ MaskGit and critic (`Phenaki.tp_shard`), whose attention and FF blocks
 all-reduce their outputs. `fsdp=True` shards the trunks over the data group
 (`parallel.fsdp.apply_fsdp`, on each `TransformerLayer` and on the MaskGit
 and a TokenCritic), JAX's ZeRO-3 placement; FSDP then averages the sharded
-gradients. A sharded trainer trains copies and leaves the given Phenaki as
-it was. Every rank draws the same numbers from `seed`. A milestone's
-samples come from rank 0 alone, from the given Phenaki loaded with the
-consolidated parameters, with a generator seeded from the trainer's; its
-checkpoint holds the consolidated (global) state, written by rank 0, and
-loads on any mesh (`training.checkpoint.consolidate`). Not accepted: `pp`
-and `pipeline_microbatches` (the pipeline is the next slice of the port).
+gradients. `pp > 1` (or a mesh with a 'pp' axis; `make_mesh(pp=pp)` when no
+mesh is given) trains this rank's pipeline stage (`Phenaki.pipeline_shard`):
+its own trunk layers, tp-local with tp > 1, and the rest of the MaskGit
+whole; the loss runs the trunks on GPipe's schedule in
+`pipeline_microbatches` microbatches of the global batch
+(`parallel.pipeline`), every rank of a stage's data-parallel row gets the
+same batch, and the gradients of what every stage holds arrive whole on
+every stage, so only the data group averages them. FSDP does not compose
+with the pipeline here and is refused. A sharded trainer trains copies and
+leaves the given Phenaki as it was; the trainer of a rank other than 0
+keeps no reference to it. Every rank draws the same numbers from
+`seed`. A milestone's samples come from rank 0 alone, from the given
+Phenaki loaded with the consolidated parameters, with a generator seeded
+from the trainer's; its checkpoint holds the consolidated (global) state,
+the stages' layers gathered and Adam's state in the whole model's order,
+written by rank 0, and loads on any mesh
+(`training.checkpoint.consolidate`).
 """
 
 from __future__ import annotations
@@ -86,16 +96,17 @@ from phenaki_tpu_torch.models.phenaki import Phenaki
 from phenaki_tpu_torch.models.transformer import TransformerLayer
 from phenaki_tpu_torch.parallel import collectives
 from phenaki_tpu_torch.parallel.fsdp import apply_fsdp
-from phenaki_tpu_torch.parallel.mesh import PIPELINE_NOT_PORTED, Mesh, make_mesh
+from phenaki_tpu_torch.parallel.mesh import PIPE_AXIS, Mesh, make_mesh
 from phenaki_tpu_torch.parallel.tp_inference import clone_module
 from phenaki_tpu_torch.training.checkpoint import (
     CheckpointManager,
     consolidate,
     consolidate_optimizer,
     load_sharded,
+    optimizer_groups,
     shard_optimizer_state,
 )
-from phenaki_tpu_torch.training.optimizer import get_optimizer, global_grad_norm
+from phenaki_tpu_torch.training.optimizer import get_optimizer, global_grad_norm, param_groups
 from phenaki_tpu_torch.utils.image_grid import save_image_grid
 from phenaki_tpu_torch.utils.logging import start_trace, stop_trace
 from phenaki_tpu_torch.utils.results_folder import prepare_results_folder
@@ -125,6 +136,41 @@ def trainable_copy(phenaki: Phenaki, mesh) -> Phenaki:
         local.critic = clone_module(phenaki.critic)
     local._mesh_views = {}
     return local
+
+
+def check_pipeline(phenaki: Phenaki, mesh: Mesh) -> None:
+    """The JAX trainer's conditions on a pipeline mesh, as ValueErrors."""
+    depth = phenaki.maskgit.transformer.depth
+    if depth % mesh.pp:
+        raise ValueError(f"the MaskGit's depth ({depth}) does not divide by pp ({mesh.pp})")
+    heads = phenaki.maskgit.transformer.layers[0].self_attn.heads
+    if heads % mesh.tp:
+        raise ValueError(f"the MaskGit's heads ({heads}) do not divide by tp ({mesh.tp})")
+
+
+def _named_trained(phenaki: Phenaki) -> List[Tuple[str, torch.nn.Parameter]]:
+    """The MaskGit's and critic's parameters by qualified name ("maskgit.*",
+    "critic.*"), in the order of `Phenaki.parameters`."""
+    named = [(f"maskgit.{n}", p) for n, p in phenaki.maskgit.named_parameters()]
+    if phenaki.critic is not None:
+        named += [(f"critic.{n}", p) for n, p in phenaki.critic.named_parameters()]
+    return named
+
+
+def global_shapes(phenaki: Phenaki) -> dict:
+    """The whole Phenaki's MaskGit and critic tensors' shapes by qualified name."""
+    shapes = {f"maskgit.{k}": v.shape for k, v in phenaki.maskgit.state_dict().items()}
+    if phenaki.critic is not None:
+        shapes.update({f"critic.{k}": v.shape for k, v in phenaki.critic.state_dict().items()})
+    return shapes
+
+
+def dense_groups(phenaki: Phenaki, wd: float) -> List[List[str]]:
+    """The names of the whole Phenaki's optimizer's parameter groups, the
+    order its (and a checkpoint's) state follows."""
+    named = _named_trained(phenaki)
+    name_of = {id(p): n for n, p in named}
+    return [[name_of[id(p)] for p in group] for group in param_groups([p for _, p in named if p.requires_grad], wd)]
 
 
 def num_to_groups(num: int, divisor: int) -> List[int]:
@@ -185,13 +231,20 @@ class PhenakiTrainer:
                  fsdp: bool = False, pp: int = 1, pipeline_microbatches: Optional[int] = None,
                  seed: int = 42, log_every: int = 10, profile_dir: Optional[str] = None,
                  profile_steps: Tuple[int, int] = (2, 4)):
-        if pp != 1 or pipeline_microbatches is not None:
-            raise NotImplementedError(PIPELINE_NOT_PORTED)
         check_mesh(mesh)
-        if phenaki.tp_mesh is not None:
+        if phenaki.tp_mesh is not None or phenaki.pipeline_mesh is not None:
             raise ValueError("give the trainer the whole Phenaki: it shards it over `mesh` itself")
-        if fsdp and mesh is None:
-            mesh = make_mesh()
+        if mesh is not None and PIPE_AXIS in mesh.shape and pp not in (1, mesh.pp):
+            raise ValueError(f"pp ({pp}) differs from the mesh's ({mesh.pp})")
+        if (fsdp or pp > 1) and mesh is None:
+            mesh = make_mesh(pp=pp)
+        pp = mesh.pp if mesh is not None else 1
+        if pipeline_microbatches is not None and pp == 1:
+            raise ValueError("pipeline_microbatches needs pp > 1 (or a mesh with a 'pp' axis)")
+        if pp > 1:
+            check_pipeline(phenaki, mesh)
+            if fsdp:
+                raise ValueError("fsdp=True does not compose with pipeline parallelism (pp > 1)")
         if math.isqrt(num_samples) ** 2 != num_samples:
             raise ValueError("number of samples must have an integer square root")
         if dataset_fields is not None and (len(set(dataset_fields)) != len(dataset_fields)
@@ -203,10 +256,18 @@ class PhenakiTrainer:
             raise ValueError(f"the global batch ({batch_size}) must divide by the mesh's data axes ({dp})")
         self.dp_group = mesh.data_group if mesh is not None else None
         self.is_main = mesh is None or mesh.rank == 0
-        # a sharded trainer trains copies; the given Phenaki samples the milestones
-        self.sharded = mesh is not None and (fsdp or mesh.tp > 1)
-        self.dense_model = phenaki
-        self.model = trainable_copy(phenaki, mesh) if self.sharded else phenaki
+        # a sharded trainer trains copies; rank 0's given Phenaki samples the
+        # milestones, and the other ranks keep none of it (a pipeline stage's
+        # rank holds only its own trunk layers)
+        self.sharded = mesh is not None and (fsdp or mesh.tp > 1 or pp > 1)
+        if pp > 1:
+            self.model = phenaki.pipeline_shard(mesh, pipeline_microbatches)
+        else:
+            self.model = trainable_copy(phenaki, mesh) if self.sharded else phenaki
+        # a checkpoint's layout: the whole model's shapes and optimizer groups
+        self.global_shapes = global_shapes(phenaki)
+        self.dense_groups = dense_groups(phenaki, wd)
+        self.dense_model = phenaki if self.is_main or not self.sharded else None
         # the parameters FSDP leaves replicated, whose gradients are averaged here
         self.fsdp = bool(fsdp and mesh.data_size > 1)
         self.fsdp_ignored: List[torch.nn.Parameter] = []
@@ -263,7 +324,8 @@ class PhenakiTrainer:
                                       collate_fn=partial(collate_and_cast, dtype=phenaki.cvivit.dtype)))
 
         named = self._named_params()
-        grad_norm = (lambda: global_grad_norm(named, mesh)) if mesh is not None else None
+        stage_owned = self._stage_owned()
+        grad_norm = (lambda: global_grad_norm(named, mesh, stage_owned)) if mesh is not None else None
         self.opt = get_optimizer(self.model.parameters(), lr=train_lr, wd=wd, betas=adam_betas,
                                  max_grad_norm=max_grad_norm, grad_norm=grad_norm)
         self.results_folder = prepare_results_folder(results_folder, clear_previous_results)
@@ -272,10 +334,20 @@ class PhenakiTrainer:
     def _named_params(self) -> List[Tuple[str, torch.nn.Parameter]]:
         """The trained parameters by qualified name ("maskgit.*", "critic.*"),
         in the order of `Phenaki.parameters`, the optimizer's."""
-        out = [(f"maskgit.{n}", p) for n, p in self.model.maskgit.named_parameters()]
-        if self.model.critic is not None:
-            out += [(f"critic.{n}", p) for n, p in self.model.critic.named_parameters()]
-        return out
+        return _named_trained(self.model)
+
+    def _stage_owned(self) -> set:
+        """The names of the trained parameters that only this rank's pipeline
+        stage holds: its trunk layers, where a trunk is split over stages."""
+        owned = set()
+        for prefix, module in (("maskgit.", self.model.maskgit), ("critic.", self.model.critic)):
+            trunk = getattr(module, "transformer", None)
+            if trunk is not None and trunk.stage is not None and len(trunk.stage) < trunk.depth:
+                owned |= {prefix + n for n, _ in module.named_parameters() if n.startswith("transformer.layers.")}
+        return owned
+
+    def _optimizer_names(self) -> List[str]:
+        return [n for g in optimizer_groups(self.opt, self._named_params()) for n in g]
 
     def data_tuple_to_fields(self, data: Tuple) -> Tuple[str, ...]:
         if self.dataset_fields is None:
@@ -422,26 +494,20 @@ class PhenakiTrainer:
                 params["critic"] = self.model.critic.state_dict()
             opt_state = self.opt.state_dict()
         else:
-            shapes = self._global_shapes()
+            shapes = self.global_shapes
             params = {"maskgit": self._strip("maskgit.", consolidate(
                 {f"maskgit.{k}": v for k, v in self.model.maskgit.state_dict().items()}, self.mesh, shapes))}
             if self.model.critic is not None:
                 params["critic"] = self._strip("critic.", consolidate(
                     {f"critic.{k}": v for k, v in self.model.critic.state_dict().items()}, self.mesh, shapes))
-            opt_state = consolidate_optimizer(self.opt, [n for n, p in self._named_params() if p.requires_grad],
-                                              self.mesh, shapes) if with_optimizer else None
+            opt_state = consolidate_optimizer(self.opt, self._optimizer_names(), self.mesh, shapes,
+                                              self.dense_groups) if with_optimizer else None
         return {"params": params, "opt_state": opt_state,
                 "generator": self.generator.get_state(), "step": self.step}
 
     @staticmethod
     def _strip(prefix: str, tree: dict) -> dict:
         return {k[len(prefix):]: v for k, v in tree.items()}
-
-    def _global_shapes(self) -> dict:
-        shapes = {f"maskgit.{k}": v.shape for k, v in self.dense_model.maskgit.state_dict().items()}
-        if self.dense_model.critic is not None:
-            shapes.update({f"critic.{k}": v.shape for k, v in self.dense_model.critic.state_dict().items()})
-        return shapes
 
     def save(self, milestone: int) -> None:
         """Write checkpoint `milestone` (on a mesh: every rank calls it, rank 0
@@ -467,9 +533,9 @@ class PhenakiTrainer:
             load_sharded(self.model.maskgit.state_dict(), params["maskgit"], self.mesh)
             if self.model.critic is not None:
                 load_sharded(self.model.critic.state_dict(), params["critic"], self.mesh)
-            named = [(n, p) for n, p in self._named_params() if p.requires_grad]
             self.opt.load_state_dict(shard_optimizer_state(
-                restored["opt_state"], [p for _, p in named], [n for n, _ in named], self.mesh))
+                restored["opt_state"], self.opt, self._optimizer_names(), self.mesh,
+                [n for g in self.dense_groups for n in g]))
         self.generator.set_state(restored["generator"])
         self.step = int(restored["step"])
 

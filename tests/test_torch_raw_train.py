@@ -344,10 +344,11 @@ def test_trainer_arguments_checked(tmp_path):
         _trainer(_tiny(), tmp_path / "r", dataset=None, train_on_images=True)
     with pytest.raises(ValueError, match="no dataset"):
         _trainer(_tiny(), tmp_path / "r", dataset=None).train_step()
-    # the pipeline is the next slice of the port; a mesh must be a Mesh
-    for parallel in (dict(pp=2), dict(pipeline_microbatches=2)):
-        with pytest.raises(NotImplementedError, match="pipeline"):
-            _trainer(_tiny(), tmp_path / "r", **parallel)
+    # pp = 2 needs two ranks; microbatches need a pipeline; a mesh must be a Mesh
+    with pytest.raises(ValueError, match="pp"):
+        _trainer(_tiny(), tmp_path / "r", pp=2)
+    with pytest.raises(ValueError, match="pipeline_microbatches needs pp > 1"):
+        _trainer(_tiny(), tmp_path / "r", pipeline_microbatches=2)
     with pytest.raises(TypeError, match="Mesh"):
         _trainer(_tiny(), tmp_path / "r", mesh=object())
 
