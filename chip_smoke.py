@@ -34,7 +34,9 @@ projection sampler also on the strided scene rows of primed embeddings and
 at a served bucket 8), checks small fp32 models sampled and trained on the
 card against the same models on the CPU (with and without a critic, and on
 the logits path; a small discriminator's R1 penalty and its second-order
-gradients, which launch no kernel), and drives the flagship model (random weights from a
+gradients, which launch no kernel), overfits tests/test_learning.py's small
+C-ViViT on one batch on the card (the recon loss must fall below 0.7 of its
+first and the PSNR rise), and drives the flagship model (random weights from a
 seed) through its entry points: `flagship_phenaki(...).sample(...)` plain,
 with a TokenCritic and with a SelfCritic; the logits path of
 `maskgit_sample_loop`; and `PhenakiTrainer(...).train_step()` on seeded
@@ -87,7 +89,14 @@ rows. The same ranks train a small fp32 model at pp =
 (`PhenakiTrainer(pp=2, pipeline_microbatches=4)`: the first loss against one
 process's, exact launches a rank and step, peak memory with and without
 the whole Phenaki rank 0 keeps for its milestones, the trunk's bytes a
-rank, a bit-equal resume from its consolidated checkpoint). Before the
+rank, a bit-equal resume from its consolidated checkpoint); at tp = 2 each
+rank holds its 32,768 rows of the vocab head, and the head's gather is
+timed. Then FSDP_PIPE_RANKS = 4 spawned ranks at dp 2 x pp 2 (gloo, all on
+the one card when it is alone): a small fp32 FSDP model against one process
+(losses, parameters and every step-1 gradient), and the flagship trained in 4 microbatches without FSDP and with it
+(`PhenakiTrainer(mesh=make_mesh(dp=2, pp=2), fsdp=True)`: the first loss
+against one process's, exact launches a rank, peak memory, parameter and
+Adam bytes a rank beside the run without FSDP, a bit-equal resume). Before the
 flagship paths, the T5 encoder stack at t5-v1_1-base's width is held card
 vs CPU, and examples/e2e_smoke_torch.py runs on the card. Each main path is
 checked to have launched exactly its kernels. Every check raises on
@@ -198,6 +207,26 @@ PIPE_STAGE_LAYERS = 6 // PIPE_STAGES
 PIPE_ATTENTION_CALLS = PIPE_STAGE_LAYERS * 2 * PIPE_MICROBATCHES  # self + cross, each microbatch
 PIPE_TRAIN_PER_STEP = {"fwd": PIPE_ATTENTION_CALLS, "dq": PIPE_ATTENTION_CALLS, "dkv": PIPE_ATTENTION_CALLS,
                        "dbias": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+# the FSDP x pipeline train path on FSDP_PIPE_RANKS spawned ranks (gloo, all
+# on the one card when it is alone): `PhenakiTrainer(mesh=make_mesh(dp=2,
+# pp=2), fsdp=True, pipeline_microbatches=4)` on the flagship at the mesh
+# paths' global batch of 8. Each data row pipelines 2 of the 4 microbatches
+# (two rows each), so a rank runs its stage's 3 layers on 2 microbatches:
+# kernel 1, dQ and dK/dV 3 x 2 x 2 times a step, dBias 3 x 2 times, and the
+# fused CE's three kernels once on its 4 rows
+FSDP_PIPE_RANKS, FSDP_PIPE_DP = 4, 2
+FSDP_PIPE_STEPS = 3
+FSDP_PIPE_MB_LOCAL = PIPE_MICROBATCHES // FSDP_PIPE_DP
+FSDP_PIPE_TRAIN_PER_STEP = {
+    "fwd": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL, "dq": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL,
+    "dkv": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL, "dbias": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL,
+    "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+# the C-ViViT overfit check: tests/test_learning.py's C-ViViT, recon-only,
+# 30 Adam steps at lr 3e-3 on one batch, f32 on the card; the last recon loss
+# must be below 0.7 of the first and the reconstruction PSNR must rise
+OVERFIT_CVIVIT = dict(dim=32, codebook_size=64, image_size=16, patch_size=8, temporal_patch_size=2,
+                      spatial_depth=1, temporal_depth=1, dim_head=16, heads=2)
+OVERFIT_STEPS, OVERFIT_LR, OVERFIT_DROP = 30, 3e-3, 0.7
 # the T5 encoder stack at t5-v1_1-base's width (12 layers, d 768, 12 heads,
 # d_ff 2048, vocab 32128) with seeded random weights, f32 on the card against
 # the CPU: 8 sequences of 128 ids with a padding mask
@@ -2231,6 +2260,42 @@ def check_learning(torch):
           f"the loss fell by {first - last} (margin {LEARN_MARGIN}, noise {noise})")
 
 
+def check_cvivit_overfit(torch, card):
+    """tests/test_learning.py's C-ViViT overfit on the card in f32: seeded
+    weights, one seeded batch of 2 videos of 3 x 16 x 16, OVERFIT_STEPS
+    recon-only Adam steps (`cvivit_generator_loss(use_vgg_and_gan=False)`);
+    the last step's recon loss below OVERFIT_DROP of the first, and the
+    reconstruction PSNR up."""
+    import numpy as np
+
+    from phenaki_tpu_torch.models.cvivit import CViViT
+    from phenaki_tpu_torch.models.cvivit_losses import cvivit_generator_loss
+    from phenaki_tpu_torch.ops.torch_init import init_parameters
+    from phenaki_tpu_torch.training.optimizer import get_optimizer
+    from phenaki_tpu_torch.utils.metrics import reconstruction_psnr
+
+    model = init_parameters(CViViT(**OVERFIT_CVIVIT), torch.Generator().manual_seed(0)).cuda().train()
+    video = torch.from_numpy(np.random.RandomState(0).rand(2, 3, 16, 16, 3).astype(np.float32)).cuda()
+    psnr_before = reconstruction_psnr(model, video).item()
+    opt = get_optimizer(model.parameters(), lr=OVERFIT_LR, wd=0.0)
+    losses = []
+    t = time.perf_counter()
+    for _ in range(OVERFIT_STEPS):
+        loss, aux = cvivit_generator_loss(model, video, use_vgg_and_gan=False)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(aux["recon_loss"].item())
+    seconds = time.perf_counter() - t
+    psnr_after = reconstruction_psnr(model, video).item()
+    phase("cvivit overfit check", card=card, steps=OVERFIT_STEPS, lr=OVERFIT_LR, first_recon_loss=losses[0],
+          last_recon_loss=losses[-1], psnr_before=psnr_before, psnr_after=psnr_after, seconds=seconds,
+          recon_losses=losses[::5])
+    check(all(map(math.isfinite, losses)), "cvivit overfit: non-finite recon loss")
+    check(losses[-1] < OVERFIT_DROP * losses[0], f"cvivit overfit: recon loss {losses[0]} -> {losses[-1]}")
+    check(psnr_after > psnr_before, f"cvivit overfit: PSNR {psnr_before} -> {psnr_after}")
+
+
 def run_train_path(torch, label, per_step, steps, profile_path=None, **preset):
     """The flagship (f32 parameters, bf16 compute; `preset` adds a critic)
     trained through `PhenakiTrainer.train_step()` at b = 4 on seeded random
@@ -3258,7 +3323,10 @@ def mesh_train_paths(torch, dp, tp):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             trainer = _mesh_trainer(copy.deepcopy(base), f"{tmp}/{label}", data, mesh=mesh, fsdp=fsdp)
+            gather_s = _time_head_gather(torch, trainer) if label == "tp" else None
             first = trainer.train_step().item()
+            if gather_s is not None:
+                gather_s.clear()  # the counted steps' gathers alone
             reset_kernel_counts()
             seconds, losses = [], []
             for step in range(MESH_TRAIN_STEPS):
@@ -3276,6 +3344,14 @@ def mesh_train_paths(torch, dp, tp):
                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
             if label == "dp":
                 entry["params_sha"] = _params_sha(trainer.model.maskgit.named_parameters())
+            if label == "tp":  # the rank's rows of the vocab head, and of Adam's moments of them
+                head = trainer.model.maskgit.to_logits
+                moments = trainer.opt.state[head.weight]
+                entry.update(head_rows=head.weight.shape[0], head_bias_rows=head.bias.shape[0],
+                             head_moment_rows=[moments[k].shape[0] for k in ("exp_avg", "exp_avg_sq")],
+                             head_gather_s=list(gather_s))
+                check(entry["head_rows"] * tp.tp == head.out_features and entry["head_moment_rows"] == [
+                    entry["head_rows"]] * 2, f"tp train: the rank holds {entry['head_rows']} head rows")
             consolidated = trainer._ckpt_tree(with_optimizer=False)["params"]["maskgit"]
             entry["consolidated_sha"] = _params_sha(sorted(consolidated.items()))
             if label in ("dp", "fsdp") and dp.rank == 0:
@@ -3286,6 +3362,24 @@ def mesh_train_paths(torch, dp, tp):
     del base
     torch.cuda.empty_cache()
     return out
+
+
+def _time_head_gather(torch, trainer):
+    """A list that gains the host seconds of each gather of the tp rank's
+    vocab head (`VocabShardedHead.gather`, synchronised at both ends)."""
+    head = trainer.model.maskgit.to_logits
+    seconds, gather = [], head.gather
+
+    def timed(dtype):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        whole = gather(dtype)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        return whole
+
+    head.gather = timed
+    return seconds
 
 
 def mesh_resume(torch, dp, tp):
@@ -3467,6 +3561,241 @@ def mesh_pipeline_train(torch, pp):
     return out
 
 
+def fsdp_pipeline_rank(rank, world):
+    """One rank of the FSDP x pipeline paths (spawned, FSDP_PIPE_RANKS ranks
+    on a dp 2 x pp 2 mesh): the small fp32 check, then the flagship train
+    path. Returns plain numbers; raises on a failed check."""
+    import torch
+    import torch.distributed as dist
+
+    from phenaki_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    if dist.get_backend() != "nccl":
+        torch.cuda.set_device(0)  # every gloo rank computes on the one card
+    mesh = make_mesh(dp=FSDP_PIPE_DP, pp=PIPE_STAGES)
+    out = {"backend": dist.get_backend(), "device": torch.cuda.current_device(), "coords": mesh.coords,
+           "phase_s": {}}
+    for name, run in (("small", lambda: fsdp_pipeline_small(torch, mesh)),
+                      ("train", lambda: fsdp_pipeline_train(torch, mesh))):
+        t = time.perf_counter()
+        out[name] = run()
+        out["phase_s"][name] = time.perf_counter() - t
+    return out
+
+
+def fsdp_pipeline_small(torch, mesh):
+    """The small fp32 model (`small_train_models`) at dp 2 x pp 2 with FSDP
+    (the size threshold lowered to 256, as the CPU tests lower it, so that
+    its layers shard too) in 4 microbatches against one process, both on the
+    card: two `PhenakiTrainer` steps, the losses and parameters within the
+    tolerances of tests/test_parallel.py:380-393, and step 1's gradient of
+    every parameter this rank holds (consolidated, the clipped ones Adam
+    reads) within atol 1e-4 x max|g| (floored at 1e-3), since Adam's first
+    steps barely see a gradient's scale. Each rank runs the one process too."""
+    from phenaki_tpu_torch.models.phenaki import Phenaki
+    from phenaki_tpu_torch.parallel import mesh as mesh_rules
+    from phenaki_tpu_torch.parallel.tp_inference import global_value
+    from phenaki_tpu_torch.training.phenaki_trainer import PhenakiTrainer
+
+    gen = torch.Generator().manual_seed(8)
+    data = torch.utils.data.TensorDataset(torch.randint(0, 512, (8, 2, 8, 8), generator=gen),
+                                          torch.randn(8, 8, 64, generator=gen))
+    runs, min_size = {}, mesh_rules.FSDP_MIN_SIZE
+    mesh_rules.FSDP_MIN_SIZE = 256
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, on_mesh in (("one", None), ("fsdp_pp", mesh)):
+                mg, cv = small_train_models(torch, 5)
+                ph = Phenaki(maskgit=mg.cuda(), cvivit=cv.cuda(), text_embed_dim=64, steps=6, max_text_len=16)
+                before = kernel_counts()
+                t = time.perf_counter()
+                trainer = PhenakiTrainer(ph, dataset=data, batch_size=4, seed=0, log_every=10**9, num_samples=1,
+                                         num_frames=3, sample_texts=[SAMPLE_TEXT], results_folder=f"{tmp}/{label}",
+                                         mesh=on_mesh, fsdp=on_mesh is not None,
+                                         pipeline_microbatches=None if on_mesh is None else 4, train_lr=1e-4,
+                                         max_grad_norm=0.5)
+                grads = []
+
+                def record(*_, trainer=trainer, on_mesh=on_mesh):
+                    grads.append({n: global_value(n, p.grad, on_mesh, trainer.global_shapes[n]).cpu()
+                                  if on_mesh is not None else p.grad.detach().cpu()
+                                  for n, p in trainer._named_params()})
+
+                trainer.opt.register_step_pre_hook(record)
+                losses = [trainer.train_step().item() for _ in range(2)]
+                params = {k: v.cpu() for k, v in trainer._ckpt_tree(with_optimizer=False)["params"]["maskgit"].items()}
+                runs[label] = dict(losses=losses, params=params, grads=grads[0], seconds=time.perf_counter() - t,
+                                   launches=nonzero(launched_since(before)),
+                                   sharded=sum(hasattr(p, "placements") for p in trainer.model.maskgit.parameters()))
+    finally:
+        mesh_rules.FSDP_MIN_SIZE = min_size
+    one, sharded = runs["one"], runs["fsdp_pp"]
+    worst = max(((sharded["params"][k] - v).abs() - (3e-4 + 1e-3 * v.abs())).max().item()
+                for k, v in one["params"].items())
+    grad_worst = max(((g - one["grads"][n]).abs().max() / max(one["grads"][n].abs().max().item(), 1e-3)).item()
+                     for n, g in sharded["grads"].items())
+    loss_ok = all(abs(a - b) <= 2e-5 + 2e-4 * abs(b) for a, b in zip(sharded["losses"], one["losses"]))
+    check(sharded["sharded"] > 0, "small fsdp pp: no parameter is FSDP-sharded")
+    check(sharded["launches"].get("fwd", 0) > 0, f"small fsdp pp: kernel 1 ran {sharded['launches']}")
+    check(loss_ok, f"small fsdp pp: losses {sharded['losses']} vs one process {one['losses']}")
+    check(worst <= 0, f"small fsdp pp: a parameter is {worst} beyond rtol 1e-3, atol 3e-4 of one process's")
+    check(grad_worst <= 1e-4, f"small fsdp pp: a step-1 gradient is {grad_worst} x max|g| from one process's")
+    return dict(losses=sharded["losses"], losses_one_process=one["losses"], worst_param_excess=worst,
+                worst_grad_err_over_max=grad_worst, grads_compared=len(sharded["grads"]),
+                sharded_maskgit_params=sharded["sharded"], launches=sharded["launches"],
+                seconds=sharded["seconds"], seconds_one_process=one["seconds"])
+
+
+def _local_bytes(params) -> int:
+    return _tensor_bytes(p.to_local() if hasattr(p, "to_local") else p for p in params)
+
+
+def fsdp_pipeline_train(torch, mesh):
+    """`PhenakiTrainer(mesh=dp 2 x pp 2, pipeline_microbatches=4)` on the
+    flagship (f32 parameters, bf16 compute) at a global batch of
+    MESH_TRAIN_BATCH, without FSDP (the yardstick) and with it: each
+    trainer's first step (the milestone) must give rank 0's one-process loss
+    within 1e-3 relative; then FSDP_PIPE_STEPS counted steps, each with
+    exactly FSDP_PIPE_TRAIN_PER_STEP launches on this rank. With FSDP,
+    trainer B loads checkpoint 0 and takes A's second step on A's second
+    batch: this rank's shards must equal A's, bit for bit. Returns seconds,
+    peak memory of the counted steps, the parameter bytes this rank holds,
+    the launches, and the consolidated parameters' digest."""
+    import copy
+
+    from phenaki_tpu_torch.parallel.collectives import broadcast_object
+    from phenaki_tpu_torch.presets import flagship_train_phenaki
+
+    data = _mesh_data(torch)
+    base = flagship_train_phenaki(seed=0, device="cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = broadcast_object(tmp, mesh.world_group)  # one folder for every rank: rank 0's
+        if mesh.rank == 0:
+            ref = _mesh_trainer(copy.deepcopy(base), f"{folder}/ref", data)
+            out["one_process_loss"] = ref.train_step().item()
+            del ref
+            torch.cuda.empty_cache()
+        for label, fsdp in (("pp", False), ("fsdp_pp", True)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            a = _mesh_trainer(copy.deepcopy(base), f"{folder}/{label}", data, mesh=mesh, fsdp=fsdp,
+                              pipeline_microbatches=PIPE_MICROBATCHES)
+            entry = {"build_s": time.perf_counter() - t,
+                     "param_bytes": _local_bytes(a.model.maskgit.parameters()),
+                     "sharded_params": sum(hasattr(p, "placements") for p in a.model.maskgit.parameters()),
+                     "stage_layers": sorted(int(k) for k in a.model.maskgit.transformer.layers.keys())}
+            t = time.perf_counter()
+            entry["first_loss"] = a.train_step().item()
+            entry["first_step_s"] = time.perf_counter() - t  # the milestone's sample and checkpoint included
+            torch.cuda.synchronize()
+            entry["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_counts()
+            seconds, losses = [], []
+            for step in range(FSDP_PIPE_STEPS):
+                before = kernel_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                losses.append(a.train_step().item())
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t)
+                launched = launched_since(before)
+                check(launched == exact(FSDP_PIPE_TRAIN_PER_STEP),
+                      f"{label} train step {step}: launches {nonzero(launched)} != {FSDP_PIPE_TRAIN_PER_STEP}")
+                if step == 0:
+                    after_step2 = _params_sha(a.model.maskgit.named_parameters())
+            check(all(map(math.isfinite, losses)), f"{label} train: non-finite loss {losses}")
+            entry.update(losses=losses, step_seconds=seconds, launches=kernel_counts(),
+                         train_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         adam_bytes=_local_bytes(v for per in a.opt.state.values() for v in per.values()
+                                                 if isinstance(v, torch.Tensor) and v.ndim))
+            consolidated = a._ckpt_tree(with_optimizer=False)["params"]["maskgit"]
+            entry["consolidated_sha"] = _params_sha(sorted(consolidated.items()))
+            del consolidated
+            if fsdp:
+                checkpoints = a.checkpoints
+                del a
+                gc.collect()
+                torch.cuda.empty_cache()
+                b = _mesh_trainer(copy.deepcopy(base), f"{folder}/b", data, mesh=mesh, fsdp=True,
+                                  pipeline_microbatches=PIPE_MICROBATCHES)
+                b.checkpoints = checkpoints
+                next(b.dl)  # the batch A's first step took: a checkpoint holds no data order
+                t = time.perf_counter()
+                b.load(0)
+                entry["load_s"] = time.perf_counter() - t
+                b.train_step()
+                entry["resume_bit_equal"] = _params_sha(b.model.maskgit.named_parameters()) == after_step2
+                check(entry["resume_bit_equal"],
+                      "fsdp pipeline resume: the resumed trainer's step differs from the live one's")
+                entry["checkpoint_bytes"] = checkpoints.path(0).stat().st_size
+                del b
+            else:
+                del a
+            out[label] = entry
+        torch.distributed.barrier()  # rank 0's folder outlives every rank's use of it
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_fsdp_pipeline(torch, card, pipe_peaks_gb=None):
+    """Spawn FSDP_PIPE_RANKS ranks (NCCL with a GPU a rank when there are
+    enough cards; gloo with every rank on cuda:0 otherwise) for the FSDP x
+    pipeline paths. Checks across ranks: equal losses and consolidated
+    parameters, first losses against rank 0's one process, the stages'
+    layers. `pipe_peaks_gb` is the pp = 2 path's step peaks a rank (two
+    ranks, no FSDP, each rank on the whole batch), printed beside. Returns
+    the FSDP path's launches summed over the ranks."""
+    from phenaki_tpu_torch.parallel.distributed import default_backend, spawn_ranks
+
+    backend = default_backend(FSDP_PIPE_RANKS)
+    t0 = time.perf_counter()
+    results = spawn_ranks(fsdp_pipeline_rank, FSDP_PIPE_RANKS, backend=backend, timeout=RANK_TIMEOUT_S)
+    phase("fsdp pipeline ranks", backend=backend, ranks=FSDP_PIPE_RANKS, coords=[r["coords"] for r in results],
+          devices=[r["device"] for r in results], one_shared_gpu=backend != "nccl",
+          gpus=torch.cuda.device_count(), wall_s=time.perf_counter() - t0,
+          phase_s=[r["phase_s"] for r in results], card=card)
+    for rank, r in enumerate(results):
+        phase(f"small fp32 fsdp pipeline vs one process on the card, rank {rank}", card=card, **r["small"])
+    ref = results[0]["train"]["one_process_loss"]
+    for label in ("pp", "fsdp_pp"):
+        entries = [r["train"][label] for r in results]
+        firsts = [e["first_loss"] for e in entries]
+        check(all(abs(f - ref) <= 1e-3 * abs(ref) for f in firsts),
+              f"{label} train: first losses {firsts} vs one process {ref}")
+        check(all(e["losses"] == entries[0]["losses"] for e in entries), f"{label} train: losses differ across ranks")
+        check(len({e["consolidated_sha"] for e in entries}) == 1, f"{label} train: consolidated parameters differ")
+        check(sorted(set(sum((e["stage_layers"] for e in entries), []))) == list(range(6)),
+              f"{label} train: the stages hold layers {[e['stage_layers'] for e in entries]}")
+    fsdp, plain = ([r["train"][k] for r in results] for k in ("fsdp_pp", "pp"))
+    check(all(e["sharded_params"] > 0 for e in fsdp), "fsdp pipeline train: a rank shards no parameter")
+    for rank, (e, p) in enumerate(zip(fsdp, plain)):
+        per_step = statistics.median(e["step_seconds"])
+        phase(f"fsdp pipeline train, rank {rank}", card=card, coords=results[rank]["coords"], dp=FSDP_PIPE_DP,
+              stages=PIPE_STAGES, microbatches=PIPE_MICROBATCHES, batch=MESH_TRAIN_BATCH,
+              seconds_per_step=per_step, step_seconds=e["step_seconds"],
+              tokens_per_s=MESH_TRAIN_BATCH * 1152 / per_step, first_loss=e["first_loss"],
+              one_process_first_loss=ref, losses=e["losses"], train_peak_gb=e["train_peak_gb"],
+              train_peak_gb_without_fsdp=p["train_peak_gb"], pp2_two_rank_train_peak_gb=pipe_peaks_gb,
+              seconds_per_step_without_fsdp=statistics.median(p["step_seconds"]),
+              param_bytes=e["param_bytes"], param_bytes_without_fsdp=p["param_bytes"],
+              adam_bytes=e["adam_bytes"], adam_bytes_without_fsdp=p["adam_bytes"],
+              sharded_params=e["sharded_params"], stage_layers=e["stage_layers"],
+              resident_gb_after_milestone=e["resident_gb"], build_s=e["build_s"], first_step_s=e["first_step_s"],
+              launches_per_step=FSDP_PIPE_TRAIN_PER_STEP, launches=nonzero(e["launches"]),
+              resume_bit_equal=e["resume_bit_equal"], load_s=e["load_s"], checkpoint_bytes=e["checkpoint_bytes"])
+    return {"fsdp_pipeline_train": {key: sum(e["launches"][key] for e in fsdp) for key in all_kernels()}}
+
+
 def mesh_gan_dp(torch, dp):
     """`CViViTTrainer` on the flagship C-ViViT at dp = 2, a global batch of
     MESH_GAN_BATCH (2 a rank) from 8 seeded videos, the R1 penalty on step
@@ -3548,7 +3877,7 @@ def run_mesh_paths(torch, card, profile_path=None):
     bit-identical, the same GAN parameters; on rank 0 the dp and fsdp
     first losses against the one-process step, and FSDP's consolidated
     parameters against DDP's. Returns each path's launches summed over the
-    ranks."""
+    ranks, and the pipeline path's step peaks a rank."""
     import numpy as np
 
     from phenaki_tpu_torch.parallel.distributed import default_backend, spawn_ranks
@@ -3594,6 +3923,11 @@ def run_mesh_paths(torch, card, profile_path=None):
         if label == "dp":
             check(len({e["params_sha"] for e in entries}) == 1, "dp train: parameters differ across ranks")
             extra["params_identical_across_ranks"] = True
+        if label == "tp":
+            extra.update(head_rows_per_rank=[e["head_rows"] for e in entries],
+                         head_moment_rows_per_rank=[e["head_moment_rows"] for e in entries],
+                         head_gather_host_s_per_step=statistics.median(s for e in entries for s in e["head_gather_s"]),
+                         head_gather_host_s=[e["head_gather_s"] for e in entries])
         if label == "fsdp":
             dense = trains[0]["dp"]["consolidated"]
             worst = max((v.float().cpu() - dense[k].float().cpu()).abs().max().item()
@@ -3649,10 +3983,11 @@ def run_mesh_paths(torch, card, profile_path=None):
         return {key: sum((r[path][sub] if sub else r[path])["launches"][key] for r in results)
                 for key in all_kernels()}
 
-    return {"tp_sample": summed("tp_sample"), "dp_sample": summed("dp_sample"),
-            "dp_train": summed("train", "dp"), "fsdp_train": summed("train", "fsdp"),
-            "tp_train": summed("train", "tp"), "pipeline_train": summed("pipeline"),
-            "cvivit_gan_dp": summed("gan"), "serving_mesh": summed("serving")}
+    launches = {"tp_sample": summed("tp_sample"), "dp_sample": summed("dp_sample"),
+                "dp_train": summed("train", "dp"), "fsdp_train": summed("train", "fsdp"),
+                "tp_train": summed("train", "tp"), "pipeline_train": summed("pipeline"),
+                "cvivit_gan_dp": summed("gan"), "serving_mesh": summed("serving")}
+    return launches, [p["train_peak_gb"] for p in pipes]
 
 
 def profile_train_steps(torch, trainer, path):
@@ -3714,6 +4049,7 @@ def main() -> int:
     check_small_critic(torch)
     check_gumbel(torch)
     check_learning(torch)
+    check_cvivit_overfit(torch, card)
     check_small_discriminator(torch)
     check_t5_stack(torch)
     run_e2e_example(torch)
@@ -3735,7 +4071,9 @@ def main() -> int:
     seq_profile = args[args.index("--profile-seq") + 1] if "--profile-seq" in args else None
     paths["seq_sharded_sample_and_train"] = run_seq_parallel(torch, seq_profile)
     tp_profile = args[args.index("--profile-tp") + 1] if "--profile-tp" in args else None
-    paths.update(run_mesh_paths(torch, card, tp_profile))
+    mesh_paths, pipe_peaks_gb = run_mesh_paths(torch, card, tp_profile)
+    paths.update(mesh_paths)
+    paths.update(run_fsdp_pipeline(torch, card, pipe_peaks_gb))
     # each path ran with its counts set to 0 before it: a kernel's launches
     # are its sum over the paths
     launches = {key: sum(p[key] for p in paths.values()) for key in all_kernels()}

@@ -50,7 +50,11 @@ mesh with a 'pp' axis, JAX `phenaki.py:110-114,308-311,385-397`) the loss
 runs the MaskGit's trunk on GPipe's schedule in `pipeline_microbatches`
 microbatches, and the critic's when its depth divides by pp (else it runs
 whole on every rank); `pipeline_shard(mesh)` makes the rank's stage-local
-Phenaki that does so. Sampling stays dense, as in the JAX package.
+Phenaki that does so. Sampling stays dense, as in the JAX package. A
+trainer's tensor-parallel clone (`tp_shard(shard_head=True)`) holds a rank's
+rows of the vocab head alone; its loss gathers the whole head once a call in
+the compute dtype, which the fused CE and the critic branch's sampler read,
+as GSPMD hands JAX's Pallas CE the gathered vocab-parallel head.
 """
 
 from __future__ import annotations
@@ -77,7 +81,7 @@ from phenaki_tpu_torch.ops.sampling import (
 )
 from phenaki_tpu_torch.parallel import collectives
 from phenaki_tpu_torch.parallel.pipeline import pipeline_stage_module
-from phenaki_tpu_torch.parallel.tp_inference import clone_module, tp_local_module
+from phenaki_tpu_torch.parallel.tp_inference import VocabShardedHead, clone_module, tp_local_module
 from phenaki_tpu_torch.text.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 from phenaki_tpu_torch.training.checkpoint import load_pytree, save_pytree
 
@@ -129,18 +133,20 @@ class Phenaki:
         self.pipeline_mesh = None
         self.pipeline_microbatches: Optional[int] = None
 
-    def tp_shard(self, mesh) -> "Phenaki":
+    def tp_shard(self, mesh, shard_head: bool = False) -> "Phenaki":
         """This rank's tensor-parallel Phenaki over `mesh`'s tp group: the
         MaskGit and a TokenCritic as their tp-local clones
         (`parallel.tp_inference.tp_local_module`, copies), a SelfCritic on the
-        local trunk with a copy of its head; the C-ViViT shared. With tp = 1,
-        or already sharded over `mesh`, itself."""
+        local trunk with a copy of its head; the C-ViViT shared. `shard_head`
+        (training) keeps the rank's rows of the MaskGit's vocab head alone;
+        sampling keeps it whole. With tp = 1, or already sharded over `mesh`,
+        itself."""
         if mesh.tp == 1 or self.tp_mesh is mesh:
             return self
         if self.tp_mesh is not None:
             raise ValueError("this Phenaki is tensor-parallel over another mesh already")
         local = copy.copy(self)
-        local.maskgit = tp_local_module(self.maskgit, mesh.tp, mesh.tp_group)
+        local.maskgit = tp_local_module(self.maskgit, mesh.tp, mesh.tp_group, shard_head=shard_head)
         if self.self_token_critic:
             head = copy.deepcopy(self.critic.to_pred)
             local.critic = SelfCritic(local.maskgit)
@@ -151,11 +157,12 @@ class Phenaki:
         local._mesh_views = {}
         return local
 
-    def pipeline_shard(self, mesh, microbatches: Optional[int] = None) -> "Phenaki":
+    def pipeline_shard(self, mesh, microbatches: Optional[int] = None, shard_head: bool = False) -> "Phenaki":
         """This rank's pipeline-parallel Phenaki over `mesh` (which has a 'pp'
         axis): the MaskGit as its stage-local clone
         (`parallel.pipeline.pipeline_stage_module`, tp-local too when the
-        mesh has tp > 1), a SelfCritic on that trunk with a copy of its head,
+        mesh has tp > 1, its vocab head's rows alone with `shard_head`), a
+        SelfCritic on that trunk with a copy of its head,
         a TokenCritic stage-local when its depth divides by pp and else
         whole (tp-local with tp > 1); the C-ViViT shared. Its loss pipelines
         in `microbatches` microbatches (the default of
@@ -163,7 +170,7 @@ class Phenaki:
         if self.tp_mesh is not None or self.pipeline_mesh is not None:
             raise ValueError("this Phenaki is sharded over a mesh already")
         local = copy.copy(self)
-        local.maskgit = pipeline_stage_module(self.maskgit, mesh)
+        local.maskgit = pipeline_stage_module(self.maskgit, mesh, shard_head=shard_head)
         if self.self_token_critic:
             local.critic = SelfCritic(local.maskgit)
             local.critic.to_pred = clone_module(self.critic.to_pred)
@@ -463,11 +470,16 @@ class Phenaki:
         # read after the forward: under FSDP the head's whole weight is registered
         # from the MaskGit's forward on (its shard before)
         weight, bias = proj.weight, proj.bias
+        # a tp rank's rows of the head: the whole one gathered once, in the compute dtype
+        whole = None
+        if fuse_ce and isinstance(proj, VocabShardedHead):
+            whole = (*proj.gather(out.dtype), proj.row_offset)
         if only_train_critic:
             out = out.detach()
             weight, bias = weight.detach(), bias.detach() if bias is not None else None
         if fuse_ce:
-            ce = fused_vocab_cross_entropy(out, weight, bias, ids).reshape(-1)
+            ce = fused_vocab_cross_entropy(out, weight, bias, ids, **({} if whole is None else {"whole": whole}))
+            ce = ce.reshape(-1)
         else:
             out = out.float()
             ce = F.cross_entropy(out.reshape(b * n, -1), ids.reshape(-1), reduction="none")
@@ -487,6 +499,8 @@ class Phenaki:
             sample_noise = rows(uniform((b * shards, n, proj.out_features), generator, device))
         if fuse_ce:
             embeds = out.detach()
+            if whole is not None:
+                weight, bias = whole[0], whole[1]
             pred_ids, _ = project_sample(
                 embeds, weight.detach().to(embeds.dtype), bias.detach() if bias is not None else None,
                 temperature, generator=generator, noise=sample_noise)

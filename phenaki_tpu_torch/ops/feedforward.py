@@ -23,7 +23,11 @@ def ff_inner_dim(dim: int, mult: int = 4) -> int:
 
 def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     """`layer(x)` computed in x's dtype: the weights are cast at use, as a
-    flax module's `dtype` does (no copy when the dtypes already match)."""
+    flax module's `dtype` does (no copy when the dtypes already match). A
+    layer that is not an nn.Linear (a tensor-parallel rank's rows of a vocab
+    head, `parallel.tp_inference.VocabShardedHead`) computes itself."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
     bias = layer.bias.to(x.dtype) if layer.bias is not None else None
     return F.linear(x, layer.weight.to(x.dtype), bias)
 

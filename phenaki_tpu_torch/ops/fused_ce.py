@@ -241,15 +241,19 @@ def fused_ce_bwd_dw(h, weight, bias, labels, lse, g):
 
 class _FusedCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, weight, bias, labels):
+    def forward(ctx, h, weight, bias, labels, whole):
+        ctx.h_shape, ctx.h_dtype, ctx.w_dtype = h.shape, h.dtype, weight.dtype
+        ctx.b_dtype = bias.dtype if bias is not None else None
+        ctx.rows = None
+        if whole is not None:  # rows of a head: the kernels read the whole one
+            ctx.rows = (whole[2], weight.shape[0])
+            weight, bias = whole[0], whole[1]
         ops = _operands(h, weight, bias, labels)
         if _on_card(*ops):
             loss, lse = fused_ce_fwd(*ops)
         else:
             loss, lse = cross_entropy_plain(*ops)
         ctx.save_for_backward(*ops, lse)
-        ctx.h_shape, ctx.h_dtype, ctx.w_dtype = h.shape, h.dtype, weight.dtype
-        ctx.b_dtype = bias.dtype if bias is not None else None
         return loss.view(h.shape[:-1])
 
     @staticmethod
@@ -262,18 +266,26 @@ class _FusedCE(torch.autograd.Function):
         else:
             dh = cross_entropy_bwd_dh_plain(h, weight, bias, labels, lse, g)
             dw, db = cross_entropy_bwd_dw_plain(h, weight, bias, labels, lse, g)
+        if ctx.rows is not None:  # copies: a view would keep the whole gradient alive
+            dw = dw.narrow(0, *ctx.rows).clone()
+            db = db.narrow(0, *ctx.rows).clone() if db is not None else None
         db = db.to(ctx.b_dtype) if ctx.b_dtype is not None else None
-        return dh.to(ctx.h_dtype).view(ctx.h_shape), dw.to(ctx.w_dtype), db, None
+        return dh.to(ctx.h_dtype).view(ctx.h_shape), dw.to(ctx.w_dtype), db, None, None
 
 
-def fused_vocab_cross_entropy(h, weight, bias, labels):
+def fused_vocab_cross_entropy(h, weight, bias, labels, whole=None):
     """Per-token softmax CE of `h @ weight^T + bias` against integer labels.
 
     h (..., d); weight (V, d), the nn.Linear layout; bias (V,) or None;
     labels h's leading shape, int. Returns f32 losses of the labels' shape.
     A CPU tensor takes the plain versions; a CUDA tensor launches the
-    kernels (or raises). Gradients reach h, weight and bias."""
-    return _FusedCE.apply(h, weight, bias, labels)
+    kernels (or raises). Gradients reach h, weight and bias.
+
+    `whole` = (whole weight, whole bias, offset) makes `weight` and `bias`
+    rows [offset, offset + rows) of a head whose whole copy (in h's dtype,
+    no gradient, `parallel.tp_inference.VocabShardedHead.gather`) the kernels
+    read: the gradients of those rows are the rows of the whole head's."""
+    return _FusedCE.apply(h, weight, bias, labels, whole)
 
 
 fused_ce_fwd.launches = 0

@@ -22,7 +22,9 @@ FF outputs row-parallel, the vocab head column-parallel, the embeddings
 replicated; they are the JAX rules on the port's layout (a Linear weight is
 (out, in), the transpose of a flax kernel). FSDP shards a parameter of at
 least 2**16 elements on its largest dim that divides by the data axis and
-holds no "tp", ties going to the dim that comes first in the JAX layout.
+holds no "tp", ties going to the dim that comes first in the JAX layout (on
+a pipeline mesh a trunk layer's parameter counts its whole stack of layers,
+as JAX's scanned leaf does: `fsdp.fsdp_shard_dim`).
 The manual tensor parallelism of the port (`tp_inference`) and its FSDP
 (`fsdp_shard_dim`) read these rules. The pipeline's rule (`pipeline_stage`)
 names the stage that holds a trunk layer: layer i of a trunk of `depth`

@@ -68,20 +68,21 @@ def _trunk(module: nn.Module) -> nn.Module:
     return module if hasattr(module, "norm_out") else module.transformer
 
 
-def pipeline_stage_module(module: nn.Module, mesh: Mesh) -> nn.Module:
+def pipeline_stage_module(module: nn.Module, mesh: Mesh, shard_head: bool = False) -> nn.Module:
     """This rank's stage-local clone of `module` (a MaskGit, a TokenCritic
     or a `Transformer`): copies of its own stage's trunk layers (a
     ModuleDict keyed by their global index, so the names are the whole
     model's) and of everything outside the trunk's layers; the rank's
-    tp-local clone (`tp_local_module`) when the mesh has tp > 1. The other
-    stages' layers are never copied."""
+    tp-local clone (`tp_local_module`, with `shard_head`) when the mesh has
+    tp > 1. The other stages' layers are never copied."""
     trunk = _trunk(module)
     own = stage_layers(trunk.depth, mesh.pp, mesh.pp_index)
     whole = trunk.layers
     # the clone is taken while the trunk shows only this stage's layers
     trunk.layers = nn.ModuleDict({str(i): whole[i] for i in own})
     try:
-        local = tp_local_module(module, mesh.tp, mesh.tp_group) if mesh.tp > 1 else clone_module(module)
+        local = (tp_local_module(module, mesh.tp, mesh.tp_group, shard_head=shard_head) if mesh.tp > 1
+                 else clone_module(module))
     finally:
         trunk.layers = whole
     _trunk(local).stage = own

@@ -9,7 +9,13 @@ FF block completes its row-parallel output with one all-reduce
 norms, PEGs, the vocab head and the C-ViViT's pixel heads stay replicated,
 as JAX's sampling keeps them: the fused projection sampler streams the
 whole 65,536-wide vocab on every rank with the same seed, so every rank
-draws the same ids.
+draws the same ids. In training (`tp_local_module(shard_head=True)`, which
+the trainer asks for) the MaskGit's vocab head is cut as JAX's rules cut it
+(`mesh.TP_RULES`, "vocab-parallel head"): rank r keeps rows [r * V / tp,
+(r + 1) * V / tp) of the weight and the bias (`VocabShardedHead`), and the
+loss gathers the whole head over the tp group once a call, the copy in the
+compute dtype that the fused CE reads, as GSPMD hands JAX's Pallas CE the
+gathered weight.
 
 * `pack_tp_params(state, tp)` reorders a global state_dict so that a
   contiguous 1/tp slice of each sharded tensor is rank r's share, with JAX's
@@ -26,7 +32,8 @@ draws the same ids.
   module).
 * `global_value` and `local_value` move one tensor between the global
   layout and a rank's (tp slice, then FSDP shard): checkpoints hold the
-  global layout, so they load on any mesh.
+  global layout, so they load on any mesh. A vocab head is cut over tp
+  where the rank's tensor holds fewer rows than the global one.
 """
 
 from __future__ import annotations
@@ -106,6 +113,72 @@ def tp_rule(name: str):
     return None
 
 
+# the MaskGit's vocab head, by its name in the MaskGit or in a trainer's tree;
+# its rows are cut over tp in training only (`VocabShardedHead`)
+VOCAB_HEAD = re.compile(r"^(?:maskgit\.)?to_logits\.(weight|bias)$")
+
+
+def _head_rows_cut(name: str, local_rows: int, global_rows: int, tp: int) -> bool:
+    """Whether a tensor of `name` with `local_rows` rows is a tp rank's rows
+    of a vocab head of `global_rows`."""
+    return tp > 1 and VOCAB_HEAD.match(name) is not None and local_rows * tp == global_rows
+
+
+class _GatherRows(torch.autograd.Function):
+    """The ranks' rows concatenated in group order; the backward keeps this
+    rank's rows of the gradient, which every rank of the group holds whole
+    and alike (no collective)."""
+
+    @staticmethod
+    def forward(ctx, rows, group, offset):
+        ctx.offset, ctx.rows = offset, rows.shape[0]
+        return collectives.all_gather(rows.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.offset, ctx.rows).clone(), None, None  # a view would keep g alive
+
+
+class VocabShardedHead(nn.Module):
+    """A tensor-parallel rank's rows of a vocab head nn.Linear(d, V): rows
+    [offset, offset + V / tp) of the weight (V, d) and of the bias, in
+    training (JAX's `_TP_RULES` shard `to_logits` over 'tp'). `in_features`
+    and `out_features` are the whole head's. The ranks of the group see one
+    batch and one trunk output, so the whole head's gradient is the same on
+    each of them: each keeps its rows of it, and its Adam moments follow
+    those rows."""
+
+    def __init__(self, head: nn.Linear, tp: int, rank: int, group):
+        super().__init__()
+        if head.out_features % tp:
+            raise ValueError(f"the vocab ({head.out_features}) does not divide by tp ({tp})")
+        rows = head.out_features // tp
+        self.in_features, self.out_features = head.in_features, head.out_features
+        self.tp_group, self.row_offset = group, rank * rows
+        cut = slice(self.row_offset, self.row_offset + rows)
+        self.weight = nn.Parameter(head.weight.detach()[cut].clone(), requires_grad=head.weight.requires_grad)
+        self.bias = (nn.Parameter(head.bias.detach()[cut].clone(), requires_grad=head.bias.requires_grad)
+                     if head.bias is not None else None)
+
+    def gather(self, dtype: torch.dtype):
+        """The whole head without a gradient, for the fused CE and the
+        projection sampler: the weight's rows cast to `dtype` and gathered
+        over the group, the bias in its own dtype."""
+        with torch.no_grad():
+            weight = collectives.all_gather(self.weight.detach().to(dtype).contiguous(), self.tp_group)
+            bias = (collectives.all_gather(self.bias.detach().contiguous(), self.tp_group)
+                    if self.bias is not None else None)
+        return weight, bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole vocab's logits in x's dtype (the materialised-logits path),
+        the gradient reaching this rank's rows."""
+        weight = _GatherRows.apply(self.weight.to(x.dtype), self.tp_group, self.row_offset)
+        bias = (_GatherRows.apply(self.bias.to(x.dtype), self.tp_group, self.row_offset)
+                if self.bias is not None else None)
+        return torch.nn.functional.linear(x, weight, bias)
+
+
 def pack_tensor(name: str, value: torch.Tensor, tp: int) -> torch.Tensor:
     rule = tp_rule(name)
     if tp == 1 or rule is None or rule[0] is None:
@@ -160,13 +233,16 @@ def clone_module(module: nn.Module) -> nn.Module:
     return copy.deepcopy(module, {id(g): g for g in _process_groups(module)})
 
 
-def tp_local_module(module: nn.Module, tp: int, group=None, rank: Optional[int] = None) -> nn.Module:
+def tp_local_module(module: nn.Module, tp: int, group=None, rank: Optional[int] = None,
+                    shard_head: bool = False) -> nn.Module:
     """The rank-local clone of `module` (a MaskGit, TokenCritic, C-ViViT or
     anything built of the port's `Attention`, `FeedForward` and
     `ContinuousPositionBias`): heads / tp heads a block, the GEGLU's
     ceil(inner / tp) columns, and `group`, the tp process group (its rank
     is `rank` unless given). Its tensors are copies of the rank's share of
-    the module's, on the module's device. tp == 1 returns the module."""
+    the module's, on the module's device. `shard_head` (a MaskGit, in
+    training) keeps the rank's rows of the vocab head `to_logits` alone
+    (`VocabShardedHead`). tp == 1 returns the module."""
     if tp == 1:
         return module
     from phenaki_tpu_torch.ops.attention import Attention
@@ -216,6 +292,8 @@ def tp_local_module(module: nn.Module, tp: int, group=None, rank: Optional[int] 
     for m in local.modules():
         if isinstance(m, nn.Linear):
             m.out_features, m.in_features = m.weight.shape
+    if shard_head:
+        local.to_logits = VocabShardedHead(module.to_logits, tp, rank, group)
     return local
 
 
@@ -238,6 +316,8 @@ def local_value(name: str, value: torch.Tensor, template: torch.Tensor, mesh) ->
     tp = mesh.tp if mesh is not None else 1
     if tp > 1 and tp_rule(name) is not None and value.ndim:
         value = pack_tensor(name, value, tp).chunk(tp, dim=tp_rule(name)[1])[mesh.tp_index]
+    elif value.ndim and _head_rows_cut(name, template.shape[0], value.shape[0], tp):
+        value = value.chunk(tp)[mesh.tp_index]
     dim = _fsdp_dim(template)
     if dim is None:
         return value.to(device=template.device, dtype=template.dtype)
@@ -262,6 +342,8 @@ def global_value(name: str, local: torch.Tensor, mesh, shape: Sequence[int]) -> 
         local = collectives.all_gather(local.contiguous(), mesh.tp_group, rule[1])
         if rule[0] is not None:
             local = rule[0][1](local, tp, tuple(shape))
+    elif local.ndim and _head_rows_cut(name, local.shape[0], shape[0], tp):
+        local = collectives.all_gather(local.contiguous(), mesh.tp_group)
     return local.detach()
 
 

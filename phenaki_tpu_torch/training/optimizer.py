@@ -22,22 +22,26 @@ T = TypeVar("T")
 
 
 def global_grad_norm(named_params: List[Tuple[str, torch.nn.Parameter]], mesh,
-                     stage_owned: Collection[str] = ()) -> torch.Tensor:
+                     stage_owned: Collection[str] = (),
+                     tp_sharded: Optional[Collection[str]] = None) -> torch.Tensor:
     """The L2 norm of the whole gradient of a model sharded over `mesh`:
     the squares of FSDP shards (DTensors) summed over the data group, those
-    of tensor-parallel shards over the tp group, those of the pipeline
-    stage's own layers (`stage_owned`, by name) over the pp group;
-    replicated ones counted once."""
+    of tensor-parallel shards (`tp_sharded`, by name; the tp rules' when
+    None) over the tp group, those of the pipeline stage's own layers
+    (`stage_owned`, by name) over the pp group; replicated ones counted
+    once."""
     from phenaki_tpu_torch.parallel.collectives import all_reduce
     from phenaki_tpu_torch.parallel.tp_inference import is_tp_sharded
 
+    if tp_sharded is None:
+        tp_sharded = {name for name, _ in named_params if is_tp_sharded(name)}
     sums = None
     for name, p in named_params:
         if p.grad is None:
             continue
         g = p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad
         part = torch.zeros(8, device=g.device)
-        part[4 * (name in stage_owned) + 2 * is_tp_sharded(name) + hasattr(p.grad, "to_local")] = \
+        part[4 * (name in stage_owned) + 2 * (name in tp_sharded) + hasattr(p.grad, "to_local")] = \
             g.float().pow(2).sum()
         sums = part if sums is None else sums + part
     if sums is None:

@@ -48,8 +48,11 @@ shard_id=)`) and takes its share of the global batch's loss
 (`Phenaki.loss(dp_group=)`), so the ranks' gradients average to the one
 process's; the average is one all-reduce a step (`collectives.
 all_reduce_grads`). tp > 1 trains this rank's tensor-parallel clone of the
-MaskGit and critic (`Phenaki.tp_shard`), whose attention and FF blocks
-all-reduce their outputs. `fsdp=True` shards the trunks over the data group
+MaskGit and critic (`Phenaki.tp_shard(shard_head=True)`), whose attention
+and FF blocks all-reduce their outputs; each tp rank holds its V / tp rows
+of the MaskGit's vocab head (and Adam's moments of them), as JAX's rules
+place `to_logits`, and the loss gathers the whole head once a step for the
+fused CE. `fsdp=True` shards the trunks over the data group
 (`parallel.fsdp.apply_fsdp`, on each `TransformerLayer` and on the MaskGit
 and a TokenCritic), JAX's ZeRO-3 placement; FSDP then averages the sharded
 gradients. `pp > 1` (or a mesh with a 'pp' axis; `make_mesh(pp=pp)` when no
@@ -59,8 +62,11 @@ whole; the loss runs the trunks on GPipe's schedule in
 `pipeline_microbatches` microbatches of the global batch
 (`parallel.pipeline`), every rank of a stage's data-parallel row gets the
 same batch, and the gradients of what every stage holds arrive whole on
-every stage, so only the data group averages them. FSDP does not compose
-with the pipeline here and is refused. A sharded trainer trains copies and
+every stage, so only the data group averages them. With `fsdp=True` as well
+(dp x pp, JAX's placement of a pipelined, fully sharded tree) FSDP shards
+the stage's clone over the stage's data group: its layers are gathered once
+a step and kept through the backward, then freed before the optimizer's
+step. A sharded trainer trains copies and
 leaves the given Phenaki as it was; the trainer of a rank other than 0
 keeps no reference to it. Every rank draws the same numbers from
 `seed`. A milestone's samples come from rank 0 alone, from the given
@@ -95,9 +101,9 @@ from phenaki_tpu_torch.models.maskgit import SelfCritic
 from phenaki_tpu_torch.models.phenaki import Phenaki
 from phenaki_tpu_torch.models.transformer import TransformerLayer
 from phenaki_tpu_torch.parallel import collectives
-from phenaki_tpu_torch.parallel.fsdp import apply_fsdp
+from phenaki_tpu_torch.parallel.fsdp import apply_fsdp, reshard
 from phenaki_tpu_torch.parallel.mesh import PIPE_AXIS, Mesh, make_mesh
-from phenaki_tpu_torch.parallel.tp_inference import clone_module
+from phenaki_tpu_torch.parallel.tp_inference import VocabShardedHead, clone_module, is_tp_sharded
 from phenaki_tpu_torch.training.checkpoint import (
     CheckpointManager,
     consolidate,
@@ -123,10 +129,10 @@ def check_mesh(mesh) -> None:
 
 def trainable_copy(phenaki: Phenaki, mesh) -> Phenaki:
     """The Phenaki a sharded trainer trains: this rank's tensor-parallel
-    clone (tp > 1), else copies of the MaskGit and critic; the C-ViViT
-    shared."""
+    clone with its rows of the vocab head (tp > 1), else copies of the
+    MaskGit and critic; the C-ViViT shared."""
     if mesh.tp > 1:
-        return phenaki.tp_shard(mesh)
+        return phenaki.tp_shard(mesh, shard_head=True)
     local = copy.copy(phenaki)
     local.maskgit = clone_module(phenaki.maskgit)
     if phenaki.self_token_critic:
@@ -243,8 +249,6 @@ class PhenakiTrainer:
             raise ValueError("pipeline_microbatches needs pp > 1 (or a mesh with a 'pp' axis)")
         if pp > 1:
             check_pipeline(phenaki, mesh)
-            if fsdp:
-                raise ValueError("fsdp=True does not compose with pipeline parallelism (pp > 1)")
         if math.isqrt(num_samples) ** 2 != num_samples:
             raise ValueError("number of samples must have an integer square root")
         if dataset_fields is not None and (len(set(dataset_fields)) != len(dataset_fields)
@@ -261,7 +265,7 @@ class PhenakiTrainer:
         # rank holds only its own trunk layers)
         self.sharded = mesh is not None and (fsdp or mesh.tp > 1 or pp > 1)
         if pp > 1:
-            self.model = phenaki.pipeline_shard(mesh, pipeline_microbatches)
+            self.model = phenaki.pipeline_shard(mesh, pipeline_microbatches, shard_head=mesh.tp > 1)
         else:
             self.model = trainable_copy(phenaki, mesh) if self.sharded else phenaki
         # a checkpoint's layout: the whole model's shapes and optimizer groups
@@ -325,7 +329,10 @@ class PhenakiTrainer:
 
         named = self._named_params()
         stage_owned = self._stage_owned()
-        grad_norm = (lambda: global_grad_norm(named, mesh, stage_owned)) if mesh is not None else None
+        heads = {f"maskgit.to_logits.{n}" for n, _ in self.model.maskgit.to_logits.named_parameters()
+                 } if isinstance(self.model.maskgit.to_logits, VocabShardedHead) else set()
+        tp_sharded = {n for n, _ in named if is_tp_sharded(n)} | heads
+        grad_norm = (lambda: global_grad_norm(named, mesh, stage_owned, tp_sharded)) if mesh is not None else None
         self.opt = get_optimizer(self.model.parameters(), lr=train_lr, wd=wd, betas=adam_betas,
                                  max_grad_norm=max_grad_norm, grad_norm=grad_norm)
         self.results_folder = prepare_results_folder(results_folder, clear_previous_results)
@@ -415,6 +422,10 @@ class PhenakiTrainer:
                                       dp_group=self.dp_group)
             (loss / self.grad_accum_every).backward()
             total = total + loss.detach() / self.grad_accum_every
+        if self.fsdp and self.mesh.pp > 1:  # the stages' layers were kept gathered through the backward
+            for part in (self.model.maskgit, self.model.critic):
+                if part is not None:
+                    reshard(part, (TransformerLayer,))
         self._complete_grads(only_train_generator, only_train_critic)
         if self.dp_group is not None:
             # FSDP averaged its shards' gradients; the rest are averaged here

@@ -25,7 +25,20 @@ world size (2 and 4, `spawn_ranks` with a timeout):
   (losses rtol 2e-4, atol 2e-5; consolidated parameters rtol 1e-3, atol
   3e-4); its checkpoint loads at pp = 1, at tp = 2 and at pp = 2, the
   last resuming bit-identically; rank 1's trainer keeps no reference to the
-  whole Phenaki it was given.
+  whole Phenaki it was given;
+* FSDP composed with the pipeline: a dp 2 x pp 2 `fsdp=True` trainer on
+  four ranks against one process over 2 steps (the same tolerances, the
+  MaskGit and the critic), the consolidated parameters equal on every rank,
+  each parameter's FSDP placement on each rank against JAX's
+  `param_partition_spec(fsdp_size=2, pp_size=2)` of the same models with
+  scanned layers (the size threshold lowered to 256 on both sides, as
+  `tests/test_parallel.py` lowers JAX's for its tiny models), and on the
+  flagship MaskGit's shapes at the real threshold; its checkpoint resumes
+  bit-identically at dp 2 x pp 2 with FSDP and loads at dp 2 x tp 2, at
+  dp 2 x pp 2 and in one process;
+* a tp = 2 trainer's checkpoint (each rank holding its rows of the vocab
+  head) loads at pp = 2, resumes bit-identically at tp = 2 and loads in
+  one process.
 
 The rank functions import no JAX: JAX is imported inside the fixtures and
 tests only.
@@ -48,7 +61,9 @@ from phenaki_tpu_torch.models.transformer import Transformer
 from phenaki_tpu_torch.ops.torch_init import init_parameters
 from phenaki_tpu_torch.parallel import collectives
 from phenaki_tpu_torch.parallel.distributed import spawn_ranks
-from phenaki_tpu_torch.parallel.mesh import make_mesh, pipeline_stage, stage_layers
+from phenaki_tpu_torch.parallel import mesh as mesh_rules
+from phenaki_tpu_torch.parallel.fsdp import fsdp_shard_dim
+from phenaki_tpu_torch.parallel.mesh import TRUNK_LAYER, jax_dim_order, make_mesh, pipeline_stage, stage_layers
 from phenaki_tpu_torch.parallel.pipeline import pipeline_stage_module, pipeline_transformer_apply
 from phenaki_tpu_torch.parallel.tp_inference import global_value
 from phenaki_tpu_torch.text import t5
@@ -230,13 +245,99 @@ def _train_cases(folder):
     return out
 
 
+def _loads_equal(trainer, checkpoints, milestone=0):
+    """Whether `trainer`, loading checkpoint `milestone`, consolidates to the
+    file's parameters and Adam state exactly."""
+    trainer.checkpoints = checkpoints
+    trainer.load(milestone)
+    tree = trainer._ckpt_tree()
+    written = checkpoints.restore(milestone)
+    return _trees_equal(tree["params"], written["params"]) and _trees_equal(tree["opt_state"], written["opt_state"])
+
+
+def _all_params(trainer):
+    tree = trainer._ckpt_tree(with_optimizer=False)["params"]
+    return {f"{part}.{k}": v.numpy() for part, sub in tree.items() for k, v in sub.items()}
+
+
+def _sharded_head_cases(folder):
+    """E: tp = 2 (each rank its rows of the vocab head), step 1 writes
+    checkpoint 0, then step 2; F: pp = 2 loads it; G: tp = 2 loads it and
+    takes E's step 2."""
+    e = _trainer(f"{folder}/e", mesh=make_mesh(tp=2))
+    head_rows = tuple(e.model.maskgit.to_logits.weight.shape)
+    e.train_step()
+    e.train_step()
+    params = _all_params(e)
+    out = {"head_rows": head_rows,
+           "pp_load_equal": _loads_equal(_trainer(f"{folder}/f", pp=2, pipeline_microbatches=2), e.checkpoints)}
+    g = _trainer(f"{folder}/g", mesh=make_mesh(tp=2))
+    next(g.dl)  # the batch E's first step took
+    g.checkpoints = e.checkpoints
+    g.load(0)
+    g.train_step()
+    out["resume_bit_equal"] = all(np.array_equal(v, params[k]) for k, v in _all_params(g).items())
+    torch.distributed.barrier()
+    return out
+
+
 def _rank2(rank, world, trees, folder):
     torch.set_num_threads(1)
     mesh = make_mesh(pp=2)
     return dict(jax_cases=_jax_case_outputs(trees, mesh, [c for c in JAX_CASES if c[0] == 2]),
                 peg=_peg_output(trees, mesh), grads=_pipelined_grads(mesh),
                 dropout=_dropout_logits(mesh, pipeline_stage_module(_dropout_model(), mesh)),
-                train=_train_cases(folder))
+                train=_train_cases(folder), sharded_head=_sharded_head_cases(folder))
+
+
+# the FSDP x pp trainer's size threshold: JAX's tests lower `_FSDP_MIN_SIZE`
+# to 256 for their tiny models (tests/test_parallel.py), so that layers shard
+FSDP_TEST_MIN_SIZE = 256
+
+
+def _fsdp_dim(p):
+    placements = getattr(p, "placements", None)
+    return next((q.dim for q in placements if hasattr(q, "dim")), None) if placements else None
+
+
+def _record_grads(trainer, mesh=None):
+    """A list that gains each step's gradients (the clipped ones Adam reads),
+    consolidated over the data and tp groups, by name."""
+    steps = []
+
+    def hook(*_):
+        steps.append({n: (global_value(n, p.grad, mesh, trainer.global_shapes[n]) if mesh is not None
+                          else p.grad.detach().clone()).numpy() for n, p in trainer._named_params()})
+
+    trainer.opt.register_step_pre_hook(hook)
+    return steps
+
+
+def _fsdp_pipeline_cases(folder):
+    """A: dp 2 x pp 2 with FSDP, 4 microbatches, step 1 (checkpoint 0) and
+    step 2; B: the same loads checkpoint 0 and takes A's step 2; C: dp 2 x
+    tp 2 and D: dp 2 x pp 2 without FSDP load it."""
+    mesh_rules.FSDP_MIN_SIZE = FSDP_TEST_MIN_SIZE
+    mesh = make_mesh(dp=2, pp=2)
+    a = _trainer(f"{folder}/fa", mesh=mesh, fsdp=True, pipeline_microbatches=4)
+    out = {"placement": {f"{part}.{n}": _fsdp_dim(p) for part in ("maskgit", "critic")
+                         for n, p in getattr(a.model, part).named_parameters()},
+           "stage": mesh.pp_index}
+    grads = _record_grads(a, mesh)
+    out["losses"] = [float(a.train_step()) for _ in range(2)]
+    out["grads"] = grads[0]
+    out["params"] = _all_params(a)
+    b = _trainer(f"{folder}/fb", mesh=mesh, fsdp=True, pipeline_microbatches=4)
+    next(b.dl)  # the batch A's first step took
+    b.checkpoints = a.checkpoints
+    b.load(0)
+    b.train_step()
+    out["resume_bit_equal"] = all(np.array_equal(v, out["params"][k]) for k, v in _all_params(b).items())
+    out["tp_load_equal"] = _loads_equal(_trainer(f"{folder}/fc", mesh=make_mesh(tp=2)), a.checkpoints)
+    out["pp_load_equal"] = _loads_equal(_trainer(f"{folder}/fd", mesh=mesh, pipeline_microbatches=4),
+                                        a.checkpoints)
+    torch.distributed.barrier()
+    return out
 
 
 def _peg_output(trees, mesh):
@@ -246,12 +347,26 @@ def _peg_output(trees, mesh):
                                           mesh, num_microbatches=2, video_shape=(B, 2, 2, 2)).numpy()
 
 
-def _rank4(rank, world, trees):
+def _rank4(rank, world, trees, folder):
     torch.set_num_threads(1)
     out = {"jax_cases": _jax_case_outputs(trees, make_mesh(pp=4), [c for c in JAX_CASES if c[0] == 4])}
     for label, axes in GRAD_MESHES.items():
         if label != "pp2":
             out[label] = _pipelined_grads(make_mesh(**axes))
+    out["fsdp_pp"] = _fsdp_pipeline_cases(folder)
+    out["fsdp_tp"] = _fsdp_tp_case(folder)
+    return out
+
+
+def _fsdp_tp_case(folder):
+    """dp 2 x tp 2 with FSDP (the threshold lowered as above): two steps, and
+    where the vocab head's weight and bias lie (tp rows, FSDP dim)."""
+    mesh_rules.FSDP_MIN_SIZE = FSDP_TEST_MIN_SIZE
+    trainer = _trainer(f"{folder}/tp", mesh=make_mesh(tp=2), fsdp=True)
+    head = trainer.model.maskgit.to_logits
+    out = {"head": [(tuple(p.shape), _fsdp_dim(p)) for p in (head.weight, head.bias)]}
+    out["losses"] = [float(trainer.train_step()) for _ in range(2)]
+    out["params"] = _all_params(trainer)
     return out
 
 
@@ -291,13 +406,19 @@ def shared_folder():
 
 
 @pytest.fixture(scope="module")
+def shared_folder4():
+    with tempfile.TemporaryDirectory() as folder:
+        yield folder
+
+
+@pytest.fixture(scope="module")
 def ranks2(jax_side, shared_folder):
     return spawn_ranks(_rank2, 2, jax_side["trees"], shared_folder, timeout=300)
 
 
 @pytest.fixture(scope="module")
-def ranks4(jax_side):
-    return spawn_ranks(_rank4, 4, jax_side["trees"], timeout=300)
+def ranks4(jax_side, shared_folder4):
+    return spawn_ranks(_rank4, 4, jax_side["trees"], shared_folder4, timeout=300)
 
 
 @pytest.mark.parametrize("pp,microbatches", JAX_CASES)
@@ -425,7 +546,7 @@ def test_pipeline_trainer_matches_one_process(ranks2):
             assert layers == {str(rank)}, (part, layers)
 
 
-def test_pipeline_checkpoint_loads_at_pp1_tp2_and_pp2(ranks2, shared_folder):
+def test_pipeline_checkpoint_loads_at_pp1_tp2_and_pp2(ranks2, ranks4, shared_folder, shared_folder4):
     for r in ranks2:
         assert r["train"]["resume_bit_equal"]
         assert r["train"]["tp_load_equal"]
@@ -440,3 +561,151 @@ def test_pipeline_checkpoint_loads_at_pp1_tp2_and_pp2(ranks2, shared_folder):
         one.train_step()
         for k, v in _maskgit_params(one).items():  # its step 2 is the pipeline's, within the trainer tolerance
             np.testing.assert_allclose(v, ranks2[0]["train"]["params"][k], rtol=1e-3, atol=3e-4, err_msg=k)
+    # the FSDP x pp checkpoint (four ranks) and the sharded-head one (tp = 2)
+    for r in ranks4:
+        f = r["fsdp_pp"]
+        assert f["resume_bit_equal"] and f["tp_load_equal"] and f["pp_load_equal"]
+    for r in ranks2:
+        h = r["sharded_head"]
+        assert h["head_rows"] == (MASKGIT["num_tokens"] // 2, MASKGIT["dim"])
+        assert h["pp_load_equal"] and h["resume_bit_equal"]
+    for folder in (f"{shared_folder4}/fa", f"{shared_folder}/e"):
+        with tempfile.TemporaryDirectory() as results:
+            one = _trainer(results)
+            one.checkpoints.directory = phenaki_trainer.Path(folder) / "checkpoints"
+            one.load(0)
+            written = one.checkpoints.restore(0)
+            assert _trees_equal(one._ckpt_tree()["params"], written["params"]), folder
+            assert _trees_equal(one.opt.state_dict(), written["opt_state"]), folder
+
+
+def test_fsdp_pipeline_trainer_matches_one_process(ranks4):
+    """dp 2 x pp 2 with FSDP against one process: the losses and every
+    parameter of the MaskGit and the critic after 2 steps, equal on all four
+    ranks, and step 1's gradient of every parameter a rank holds (so that
+    none is lost or averaged twice: Adam's first steps barely see a scale)."""
+    with tempfile.TemporaryDirectory() as results:
+        one = _trainer(results)
+        grads = _record_grads(one)
+        losses = [float(one.train_step()) for _ in range(2)]
+        params = _all_params(one)
+    for r in ranks4:
+        f = r["fsdp_pp"]
+        for n, g in f["grads"].items():
+            want = grads[0][n]
+            np.testing.assert_allclose(g, want, atol=1e-4 * max(np.abs(want).max(), 1e-3), err_msg=n)
+        np.testing.assert_allclose(f["losses"], losses, rtol=2e-4, atol=2e-5)
+        assert f["params"].keys() == params.keys()
+        for k, v in params.items():
+            np.testing.assert_allclose(f["params"][k], v, rtol=1e-3, atol=3e-4, err_msg=k)
+    for r in ranks4[1:]:
+        for k in params:
+            np.testing.assert_array_equal(r["fsdp_pp"]["params"][k], ranks4[0]["fsdp_pp"]["params"][k])
+
+
+def _jax_fsdp_pp_specs(models, depth_of):
+    """JAX's `param_partition_spec(..., fsdp_size=2, pp_size=2)` of each
+    model's scanned parameter tree, read as the port's per-layer names:
+    {name: (stage or None, the port's dim on 'dp' or None)}."""
+    import jax
+
+    from phenaki_tpu.parallel.mesh import param_partition_spec as jax_spec_of
+
+    class Leaf:
+        def __init__(self, shape):
+            self.shape, self.ndim, self.size = tuple(shape), len(shape), int(np.prod(shape))
+
+    out = {}
+    for part, shapes in models.items():
+        for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+            keys = [str(k.key) for k in path]
+            spec = tuple(jax_spec_of(path, Leaf(leaf.shape), False, 2, 2))  # tp = 1: JAX's trainer passes False
+            spec = spec + (None,) * (len(leaf.shape) - len(spec))
+            stacked = "layers_scan" in keys
+            tree = np.zeros((leaf.shape[0],) + (1,) * (len(leaf.shape) - 1) if stacked else (1,) * len(leaf.shape),
+                            np.float32)
+            for k in reversed(keys):
+                tree = {k: tree}
+            per_layer = spec[1:] if stacked else spec
+            for i, name in enumerate(flax_to_state_dict(tree)):
+                order = jax_dim_order(name, len(per_layer))
+                dp_dim = next((d for k, d in enumerate(order) if per_layer[k] == "dp"), None)
+                stage = i // (depth_of[part] // 2) if stacked and spec[0] == "pp" else None
+                out[f"{part}.{name}"] = (stage, dp_dim)
+    return out
+
+
+def _jax_shapes(maskgit_kw, critic_kw=None, patch_shape=(2, 2, 2)):
+    """The scanned flax parameter shapes of a JAX MaskGit (and TokenCritic)."""
+    import jax
+    import jax.numpy as jnp
+
+    from phenaki_tpu.models.maskgit import MaskGit as JMaskGit
+    from phenaki_tpu.models.maskgit import TokenCritic as JTokenCritic
+
+    ids = jnp.zeros((1, int(np.prod(patch_shape))), jnp.int32)
+    ctx = jnp.zeros((1, 3, maskgit_kw["dim_context"]))
+    out = {"maskgit": jax.eval_shape(lambda: JMaskGit(**maskgit_kw, scan_layers=True).init(
+        jax.random.PRNGKey(0), ids, video_patch_shape=patch_shape, context=ctx))["params"]}
+    if critic_kw is not None:
+        out["critic"] = jax.eval_shape(lambda: JTokenCritic(**critic_kw, scan_layers=True).init(
+            jax.random.PRNGKey(0), ids, video_patch_shape=patch_shape, context=ctx))["params"]
+    return out
+
+
+def test_fsdp_pipeline_placement_matches_jax(ranks4, monkeypatch):
+    """Each rank's FSDP placement of every parameter of the small trainer
+    against JAX's rule for a pipelined, fully sharded tree (threshold 256 on
+    both sides), and each rank holds its own stage's layers alone."""
+    import phenaki_tpu.parallel.mesh as jax_mesh
+
+    monkeypatch.setattr(jax_mesh, "_FSDP_MIN_SIZE", FSDP_TEST_MIN_SIZE)
+    want = _jax_fsdp_pp_specs(_jax_shapes(MASKGIT, CRITIC), {"maskgit": MASKGIT["depth"], "critic": CRITIC["depth"]})
+    sharded = 0
+    for r in ranks4:
+        f = r["fsdp_pp"]
+        for name, dim in f["placement"].items():
+            stage, dp_dim = want[name]
+            assert stage in (None, f["stage"]), (name, stage, f["stage"])
+            assert dim == dp_dim, (name, dim, dp_dim)
+            sharded += dim is not None
+        assert set(f["placement"]) == {n for n, (stage, _) in want.items() if stage in (None, f["stage"])}
+    assert sharded > 40  # trunk layers, embeddings and the head shard, on every rank
+
+
+def test_fsdp_pipeline_placement_rule_matches_jax_at_the_flagship():
+    """`fsdp.fsdp_shard_dim` as the trainer applies it on a pipeline mesh (a
+    trunk layer's size counted over the whole stack) and `pipeline_stage`
+    against JAX's spec for every leaf of the flagship MaskGit at fsdp 2 x pp
+    2, shapes only."""
+    depth = 6
+    kw = dict(dim=512, num_tokens=65536, max_seq_len=1152, depth=depth, heads=8, dim_head=64, dim_context=768)
+    want = _jax_fsdp_pp_specs(_jax_shapes(kw, patch_shape=(9, 16, 8)), {"maskgit": depth})
+    with torch.device("meta"):
+        port_shapes = {f"maskgit.{k}": v.shape for k, v in MaskGit(**kw).state_dict().items()}
+    assert set(want) == set(port_shapes)
+    for name, (stage, dp_dim) in want.items():
+        local = name[len("maskgit."):]
+        assert pipeline_stage(local, depth, 2) == stage, name
+        stacked = depth if TRUNK_LAYER.match(local) else 1
+        assert fsdp_shard_dim(local, port_shapes[name], None, 1, 2, stacked) == dp_dim, name
+    # the stack counts: a PEG's 13,824 weights a layer shard, as JAX's stacked 82,944 do
+    assert want["maskgit.transformer.layers.0.peg.weight"][1] is not None
+
+
+def test_fsdp_tp_trainer_places_the_head_on_both_axes(ranks4):
+    """dp 2 x tp 2 with FSDP: each rank's head holds V / 2 rows (tp) and is
+    FSDP-sharded on d, JAX's P(dp on d, tp on V) for the weight; the bias's
+    V / 2 rows stay whole over dp (its one dim is the tp dim); the trainer
+    against one process."""
+    with tempfile.TemporaryDirectory() as results:
+        one = _trainer(results)
+        losses = [float(one.train_step()) for _ in range(2)]
+        params = _all_params(one)
+    v, d = MASKGIT["num_tokens"], MASKGIT["dim"]
+    for r in ranks4:
+        f = r["fsdp_tp"]
+        assert f["head"] == [((v // 2, d), 1), ((v // 2,), None)]
+        np.testing.assert_allclose(f["losses"], losses, rtol=2e-4, atol=2e-5)
+        for k, val in params.items():
+            np.testing.assert_allclose(f["params"][k], val, rtol=1e-3, atol=3e-4, err_msg=k)

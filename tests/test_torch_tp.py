@@ -18,7 +18,10 @@ mesh.py) against the JAX package, fp32 on the CPU.
   two steps, against one process: losses at rtol 2e-4, atol 2e-5,
   parameters (consolidated) at rtol 1e-3, atol 3e-4
   (`tests/test_parallel.py:380-393`); the tp gradients, consolidated,
-  against the dense model's.
+  against the dense model's. Each tp rank's trainer holds V / 2 rows of
+  the MaskGit's vocab head and Adam's moments of them (JAX's vocab-parallel
+  head), with and without a TokenCritic, on the materialised-logits path
+  and on the fused CE's (d 128, V 512, where the loss gathers the head).
 
 The rank function imports no JAX: JAX is imported inside the fixtures and
 tests only.
@@ -111,6 +114,55 @@ def _train(results, mesh=None):
     return losses, params
 
 
+# the head-rows trainers: (critic, MaskGit width, vocab); a width of 128 and a
+# vocab of 512 take the fused CE (`can_fuse_ce`), whose loss gathers the head
+HEAD_CASES = {"token": ("token", 32, 64), "none": (None, 32, 64), "token_fused": ("token", 128, 512),
+              "none_fused": (None, 128, 512)}
+
+
+def _head_case_model(case):
+    critic, dim, vocab = HEAD_CASES[case]
+    gen = torch.Generator().manual_seed(1)
+    cv = CViViT(**dict(CVIVIT, codebook_size=vocab))
+    mg = init_parameters(MaskGit(**dict(MASKGIT, dim=dim, num_tokens=vocab)), gen)
+    return Phenaki(maskgit=mg, cvivit=cv, text_embed_dim=TEXT_DIM, max_text_len=4, steps=3,
+                   critic=init_parameters(TokenCritic(**dict(CRITIC, num_tokens=vocab)), gen) if critic else None)
+
+
+def _head_case(results, case, mesh=None):
+    """Two steps of a trainer on `case`'s model: the losses, the
+    consolidated MaskGit and critic, and this rank's vocab-head rows and
+    Adam moments' shapes."""
+    phenaki_trainer.LOADER_WORKERS = 0
+    t5._ENCODERS.setdefault((t5.DEFAULT_T5_NAME, TEXT_DIM, "cpu"), t5.HashTextEncoder(TEXT_DIM))
+    trainer = PhenakiTrainer(_head_case_model(case), dataset=_Ids(), batch_size=4, seed=4, log_every=10**9,
+                             num_frames=3, num_samples=1, sample_texts=["a cat"], results_folder=results,
+                             save_and_sample_every=10**9, mesh=mesh, max_grad_norm=0.5)
+    losses = [float(trainer.train_step()) for _ in range(2)]
+    head = trainer.model.maskgit.to_logits
+    moments = trainer.opt.state[head.weight]
+    tree = trainer._ckpt_tree(with_optimizer=False)["params"]
+    params = {f"{part}.{k}": v.numpy() for part, sub in tree.items() for k, v in sub.items()}
+    return dict(losses=losses, params=params, head_rows=[tuple(head.weight.shape), tuple(head.bias.shape)],
+                moment_rows=[tuple(moments["exp_avg"].shape), tuple(moments["exp_avg_sq"].shape)])
+
+
+def _head_case_grads(case, mesh=None):
+    """The loss (with the critic's) and the MaskGit's gradients on one batch,
+    of `case`'s model or of its tp clone with the rank's head rows (global)."""
+    ph = _head_case_model(case)
+    shapes = {k: v.shape for k, v in ph.maskgit.state_dict().items()}
+    model = ph.tp_shard(mesh, shard_head=True) if mesh is not None else ph
+    ds = _Ids()
+    ids = torch.from_numpy(np.stack([ds[i][0] for i in range(4)])).long()
+    emb = torch.from_numpy(np.stack([ds[i][1] for i in range(4)]))
+    loss, _ = model.loss(video_codebook_ids=ids, text_embeds=emb, generator=torch.Generator().manual_seed(0))
+    loss.backward()
+    grads = {n: (global_value(n, p.grad, mesh, shapes[n]) if mesh is not None else p.grad).numpy()
+             for n, p in model.maskgit.named_parameters()}
+    return dict(loss=loss.item(), grads=grads, head_rows=tuple(model.maskgit.to_logits.weight.shape))
+
+
 def _dense_grads():
     """The loss and MaskGit gradients of the training model on one batch."""
     ph = _train_model()
@@ -141,8 +193,10 @@ def _rank_cases(rank, world, trees, x):
     out["loss"] = loss.item()
     out["grads"] = {n: global_value(n, p.grad, mesh, shapes[n]).numpy()
                     for n, p in local.maskgit.named_parameters()}
+    out["head_grads"] = {case: _head_case_grads(case, mesh) for case in ("token", "token_fused")}
     with tempfile.TemporaryDirectory() as results:
         out["losses"], out["params"] = _train(results, mesh)
+        out["head_cases"] = {case: _head_case(f"{results}/{case}", case, mesh) for case in HEAD_CASES}
     return out
 
 
@@ -205,6 +259,43 @@ def test_tp_trainer_matches_one_process(ranks):
             np.testing.assert_allclose(r["params"][k], v, rtol=1e-3, atol=3e-4, err_msg=k)
     for k in params:
         np.testing.assert_array_equal(ranks[0]["params"][k], ranks[1]["params"][k])
+
+
+@pytest.mark.parametrize("case", ["token", "token_fused"])
+def test_tp_sharded_head_gradients_match_the_dense_model(ranks, case):
+    """The loss and every MaskGit gradient of a tp clone that holds its rows
+    of the vocab head (the materialised logits, or the fused CE on the
+    gathered head with the critic's sampler on it) against the dense
+    model's."""
+    dense = _head_case_grads(case)
+    for r in ranks:
+        got = r["head_grads"][case]
+        assert got["head_rows"][0] * 2 == dense["head_rows"][0]
+        np.testing.assert_allclose(got["loss"], dense["loss"], rtol=1e-5)
+        assert got["grads"].keys() == dense["grads"].keys()
+        for n, g in dense["grads"].items():
+            np.testing.assert_allclose(got["grads"][n], g, atol=1e-4 * max(np.abs(g).max(), 1e-3), err_msg=n)
+
+
+@pytest.mark.parametrize("case", list(HEAD_CASES))
+def test_tp_trainer_holds_its_vocab_head_rows(ranks, case):
+    """Each tp rank holds V / 2 rows of the head and of both Adam moments,
+    and trains as one process does (consolidated MaskGit and critic)."""
+    vocab = HEAD_CASES[case][2]
+    with tempfile.TemporaryDirectory() as results:
+        one = _head_case(results, case)
+    assert one["head_rows"] == [(vocab, HEAD_CASES[case][1]), (vocab,)]
+    for r in ranks:
+        got = r["head_cases"][case]
+        assert got["head_rows"] == [(vocab // 2, HEAD_CASES[case][1]), (vocab // 2,)]
+        assert got["moment_rows"] == [got["head_rows"][0]] * 2
+        np.testing.assert_allclose(got["losses"], one["losses"], rtol=2e-4, atol=2e-5)
+        assert got["params"].keys() == one["params"].keys()
+        for k, v in one["params"].items():
+            np.testing.assert_allclose(got["params"][k], v, rtol=1e-3, atol=3e-4, err_msg=f"{case} {k}")
+    for k in one["params"]:
+        np.testing.assert_array_equal(ranks[0]["head_cases"][case]["params"][k],
+                                      ranks[1]["head_cases"][case]["params"][k])
 
 
 def test_pack_tp_params_matches_the_bridged_jax_packing(jax_side):
