@@ -40,7 +40,11 @@ first and the PSNR rise), and drives the flagship model (random weights from a
 seed) through its entry points: `flagship_phenaki(...).sample(...)` plain,
 with a TokenCritic and with a SelfCritic; the logits path of
 `maskgit_sample_loop`; and `PhenakiTrainer(...).train_step()` on seeded
-random token ids, without a critic and with a TokenCritic. Then the
+random token ids, without a critic and with a TokenCritic. The 4 heads x
+128 flagship (`tpu_native=True`: kernel 1 and kernels 4-6 at d = 128) is
+sampled and trained beside the 8 x 64 one, and the 8 x 64 trainer runs
+again with `remat=True` on the MaskGit (the same losses, a lower peak,
+kernel 1 twice for each attention call). Then the
 primed flagship (`flagship_phenaki(num_frames=21)`): `CViViT.tokenize` of
 B = 32 videos of 17 x 256 x 128 (videos/s over two windows of back-to-back
 calls, the median call, peak memory; an f32 copy of the C-ViViT on the card
@@ -155,6 +159,19 @@ LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18}
 TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
 CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1)
 TRAIN_BATCH, TRAIN_STEPS, CRITIC_TRAIN_STEPS = 4, 5, 3
+# the 4 heads x 128 flagship (`tpu_native=True`) launches what the 8 x 64
+# one does, kernel 1 and kernels 4-6 at d = 128 (the backward on its f32
+# CUDA-core route); `remat=True` on the MaskGit recomputes each of its 12
+# attention calls once in the backward, so kernel 1 launches twice each
+TPU_NATIVE_TRAIN_STEPS = 3
+REMAT_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=2 * TRAIN_PER_STEP["fwd"])
+# a train path's losses beside "train path"'s: bit-equal is expected (the
+# kernels are deterministic); the check allows this relative difference, and
+# the phase prints the largest one seen
+REMAT_LOSS_RTOL = 1e-3
+# each sample and train path's summary numbers by label, for the phases that
+# print one path beside another
+PATH_NUMBERS = {}
 # the tokenize path: the flagship C-ViViT on B = 32 videos of 17 frames; a
 # call launches kernel 1 once for each of the encoder's 4 spatial layers
 # (its temporal attention, over 9 latent frames, takes the plain path)
@@ -363,14 +380,17 @@ def qk(shape, gen, dtype):
 # the backward kernels' timed shapes (the train steps'), and those also
 # given bounds and SDPA's whole backward beside them
 BWD_TIMED_SHAPES = ("maskgit_self", "critic_self", "maskgit_cross", "cvivit_spatial_b4", "maskgit_self_tp2",
-                    "maskgit_cross_tp2", "maskgit_self_mb2", "maskgit_cross_mb2")
-BWD_YARDSTICK_SHAPES = ("maskgit_self", "cvivit_spatial_b4", "maskgit_self_tp2", "maskgit_self_mb2")
+                    "maskgit_cross_tp2", "maskgit_self_mb2", "maskgit_cross_mb2", "tpu_native_self",
+                    "tpu_native_cross")
+BWD_YARDSTICK_SHAPES = ("maskgit_self", "cvivit_spatial_b4", "maskgit_self_tp2", "maskgit_self_mb2",
+                        "tpu_native_self")
 # kernel 1's main-path shapes: each is timed beside its bound and one SDPA
 # call on the same inputs
 FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self",
                      "cvivit_encode_spatial_b4", "cvivit_encode_spatial_b32", "maskgit_self_primed",
                      "maskgit_self_b8", "maskgit_cross_b8", "maskgit_self_primed_b2",
-                     "maskgit_self_tp2", "maskgit_cross_tp2")
+                     "maskgit_self_tp2", "maskgit_cross_tp2", "tpu_native_self", "tpu_native_cross",
+                     "tpu_native_train_self")
 
 
 def flash_cases(torch, dtype, gen):
@@ -381,8 +401,9 @@ def flash_cases(torch, dtype, gen):
     primed MaskGit self-attention; the served batches' shapes (MaskGit self-
     and cross-attention at bucket 8, the primed self-attention at bucket 2);
     the cross-attention with every key of one batch row hard-masked (out = 0,
-    lse = -inf), a causal case, ragged tiles (i = j = 1000 with a bias), and
-    d = 128 with ragged tiles."""
+    lse = -inf), a causal case, ragged tiles (i = j = 1000 with a bias),
+    d = 128 with ragged tiles, and the 4 heads x 128 flagship's (`tpu_native`)
+    sample and train shapes."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
     from phenaki_tpu_torch.ops.positional import alibi_bias
 
@@ -457,6 +478,20 @@ def flash_cases(torch, dtype, gen):
     cases["maskgit_self_tp2"] = (q4h, k4h, v4h, bias8[4:], None, False)
     kc4, vc4 = qk((2, 4, 130, 64), gen, dtype), torch.randn(2, 4, 130, 64, generator=gen).to("cuda", dtype)
     cases["maskgit_cross_tp2"] = (q4h, kc4, vc4, None, kmask, False)
+    # the 4 heads x 128 flagship (`tpu_native`): a sample's self-attention
+    # with its (4, 1152, 1152) bias and its cross-attention over 130 keys
+    # (b = 1, CFG stacks 2 rows), and a train step's self-attention (b = 4,
+    # an all-zero key mask, as the loss gives it)
+    qn, kn = qk((2, 4, 1152, 128), gen, dtype), qk((2, 4, 1152, 128), gen, dtype)
+    vn = torch.randn(2, 4, 1152, 128, generator=gen).to("cuda", dtype)
+    cases["tpu_native_self"] = (qn, kn, vn, torch.randn(4, 1152, 1152, generator=gen).to("cuda", dtype),
+                                None, False)
+    kcn, vcn = qk((2, 4, 130, 128), gen, dtype), torch.randn(2, 4, 130, 128, generator=gen).to("cuda", dtype)
+    cases["tpu_native_cross"] = (qn, kcn, vcn, None, kmask, False)
+    qt, kt = qk((4, 4, 1152, 128), gen, dtype), qk((4, 4, 1152, 128), gen, dtype)
+    vt = torch.randn(4, 4, 1152, 128, generator=gen).to("cuda", dtype)
+    cases["tpu_native_train_self"] = (qt, kt, vt, torch.randn(4, 1152, 1152, generator=gen).to("cuda", dtype),
+                                      torch.zeros(4, 1152, device="cuda"), False)
     return cases
 
 
@@ -507,8 +542,8 @@ def check_flash(torch):
     as every other kernel is timed; `graph_ms` replays the kernel's calls
     from one CUDA graph, its device time alone. At the main-path shapes in
     bf16 also the bound and SDPA's time by both methods (`library_ms`,
-    `library_graph_ms`; the bias, or the key mask as a (b, 1, 1, j) mask in
-    q's dtype, as its float mask)."""
+    `library_graph_ms`; the bias and the key mask, as a (b, 1, 1, j) mask in
+    q's dtype, summed into its float mask)."""
     from phenaki_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
     gen = torch.Generator().manual_seed(1)
@@ -546,7 +581,10 @@ def check_flash(torch):
                          plain_ms=cuda_ms(lambda: flash_attention_plain(q, k, v, bias, kmask, **kw), reps=5))
             if dtype == torch.bfloat16 and name in FLASH_MAIN_SHAPES:
                 b, h, i, d = q.shape
-                mask = bias if kmask is None else kmask[:, None, None, :].to(q.dtype)
+                mask = bias
+                if kmask is not None:  # the key mask as SDPA's float mask, on the bias where both are given
+                    km = kmask[:, None, None, :].to(q.dtype)
+                    mask = km if mask is None else mask + km
                 entry["bound_ms"], entry["bound_by"] = bound(
                     nbytes(q, k, v, bias, kmask, out), 4 * b * h * i * k.shape[2] * d)
                 sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
@@ -569,8 +607,8 @@ def flash_bwd_cases(torch, dtype, gen):
     130), a causal ALiBi case, d = 128 with ragged tiles, and the C-ViViT's
     spatial attention in the GAN train step (b = 4 videos x 9 latent frames
     of 16 x 8 tokens, with the trained (8, 128, 128) CPB bias); a tp = 2
-    rank's self- and cross-attention (4 heads); and a pipeline microbatch's
-    (b = 2)."""
+    rank's self- and cross-attention (4 heads); a pipeline microbatch's
+    (b = 2); and the 4 heads x 128 flagship's self- and cross-attention."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
     from phenaki_tpu_torch.ops.positional import alibi_bias
 
@@ -611,6 +649,13 @@ def flash_bwd_cases(torch, dtype, gen):
     cases["maskgit_self_mb2"] = (q2, k2, v2, rand(8, 1152, 1152), torch.zeros(2, 1152, device="cuda"), False)
     kc2, vc2 = qk((2, 8, 130, 64), gen, dtype), rand(2, 8, 130, 64)
     cases["maskgit_cross_mb2"] = (q2, kc2, vc2, None, torch.where(keep[:2], 0.0, NEG_INF).float().cuda(), False)
+    # the 4 heads x 128 flagship's train step (`tpu_native`): self-attention
+    # with the (4, 1152, 1152) bias and cross-attention; bf16 at d = 128 runs
+    # the f32 CUDA-core kernels
+    qn, kn, vn = qk((4, 4, 1152, 128), gen, dtype), qk((4, 4, 1152, 128), gen, dtype), rand(4, 4, 1152, 128)
+    cases["tpu_native_self"] = (qn, kn, vn, rand(4, 1152, 1152), torch.zeros(4, 1152, device="cuda"), False)
+    kcn, vcn = qk((4, 4, 130, 128), gen, dtype), rand(4, 4, 130, 128)
+    cases["tpu_native_cross"] = (qn, kcn, vcn, None, torch.where(keep, 0.0, NEG_INF).float().cuda(), False)
     return cases
 
 
@@ -1350,9 +1395,10 @@ def run_sample_path(torch, label, sample, per_sample):
     check(torch.equal(videos["req1"], videos["req1_again"]), f"{label}: the same seed gave a different video")
     check(not torch.equal(videos["req1"][:, :1], videos["req2"][:, :1]), f"{label}: distinct prompts gave one video")
     per_sample_s = statistics.median(seconds[n] for n in ("req1", "req2", "req3"))
-    phase(label, seconds_per_sample_b1=per_sample_s, seconds_batch2=seconds["batch2"],
-          frames_per_s_b1=17 / per_sample_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-          launches=nonzero(launches))
+    PATH_NUMBERS[label] = dict(seconds_per_sample_b1=per_sample_s, seconds_batch2=seconds["batch2"],
+                               frames_per_s_b1=17 / per_sample_s,
+                               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    phase(label, **PATH_NUMBERS[label], launches=nonzero(launches))
     return launches
 
 
@@ -2342,15 +2388,81 @@ def run_train_path(torch, label, per_step, steps, profile_path=None, **preset):
     unchanged = [n for n, p in params.items() if torch.equal(p, before[n])]
     check(not unchanged, f"{label}: parameters unchanged by training: {unchanged[:5]}")
     per_step_s = statistics.median(seconds)
+    PATH_NUMBERS[label] = dict(seconds_per_step=per_step_s, tokens_per_s=TRAIN_BATCH * 1152 / per_step_s,
+                               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, warmup_loss=warmup_loss,
+                               losses=losses)
     phase(label, build_model_s=build_model_s, batch=TRAIN_BATCH, tokens_per_step=TRAIN_BATCH * 1152,
-          seconds_per_step=per_step_s, step_seconds=seconds, tokens_per_s=TRAIN_BATCH * 1152 / per_step_s,
-          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, warmup_loss=warmup_loss, losses=losses,
-          parameters=len(params), launches=nonzero(launches))
+          step_seconds=seconds, **PATH_NUMBERS[label], parameters=len(params), launches=nonzero(launches))
     if profile_path:
         profile_train_steps(torch, trainer, profile_path)
     del trainer, ph
     results.cleanup()
     torch.cuda.empty_cache()
+    return launches
+
+
+def run_tpu_native_sample_path(torch):
+    """The 4 heads x 128 flagship (`flagship_phenaki(tpu_native=True)`)
+    sampled as the "sample" path is (`run_sample_path`): kernel 1 at d = 128,
+    exactly the 8 x 64 flagship's launches a sample; two b = 1 decodes from
+    one seed give the same ids. Its seconds a sample and frames/s print
+    beside the "sample" path's of this run. Returns the path's launches."""
+    from phenaki_tpu_torch.presets import flagship_phenaki
+
+    t0 = time.perf_counter()
+    ph = flagship_phenaki(seed=0, device="cuda", tpu_native=True)
+    torch.cuda.synchronize()
+    build_model_s = time.perf_counter() - t0
+    attn = ph.maskgit.transformer.layers[0].self_attn
+    check((attn.heads, attn.dim_head) == (4, 128), f"tpu_native: heads x dim_head {attn.heads} x {attn.dim_head}")
+
+    def sample(emb, gen):
+        return ph.sample(num_frames=17, text_embeds=emb, cond_scale=5.0, generator=gen)
+
+    launches = run_sample_path(torch, "tpu_native sample", sample, SAMPLE_LAUNCHES)
+    emb = sample_requests(torch)[1][1]
+    ids = [ph.sample_ids(num_frames=17, text_embeds=emb, cond_scale=5.0, generator=torch.Generator().manual_seed(11))
+           for _ in range(2)]
+    check(torch.equal(ids[0], ids[1]), "tpu_native sample: one seed gave two id grids")
+    phase("tpu_native sample path", build_model_s=build_model_s, heads=4, dim_head=128, ids_reproducible=True,
+          **PATH_NUMBERS["tpu_native sample"], flagship_8x64=PATH_NUMBERS["sample"], launches=nonzero(launches))
+    del ph
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_tpu_native_train_path(torch):
+    """`run_train_path` on the 4 heads x 128 flagship
+    (`flagship_train_phenaki(tpu_native=True)`), TPU_NATIVE_TRAIN_STEPS
+    counted steps with exactly TRAIN_PER_STEP launches each (kernels 1 and
+    4-6 at d = 128); its seconds a step, tokens/s and peak print beside the
+    "train path"'s of this run."""
+    launches = run_train_path(torch, "tpu_native train", TRAIN_PER_STEP, TPU_NATIVE_TRAIN_STEPS, tpu_native=True)
+    ours, ref = PATH_NUMBERS["tpu_native train"], PATH_NUMBERS["train path"]
+    keys = ("seconds_per_step", "tokens_per_s", "peak_mem_gb")
+    phase("tpu_native train path", heads=4, dim_head=128, **{k: ours[k] for k in keys},
+          flagship_8x64={k: ref[k] for k in keys}, losses=ours["losses"], launches=nonzero(launches))
+    return launches
+
+
+def run_remat_train_path(torch):
+    """`run_train_path` on the 8 x 64 flagship with `remat=True` on the
+    MaskGit, the seed and data of "train path": kernel 1 launches twice a
+    step for each attention call (the backward recomputes it), the rest as
+    TRAIN_PER_STEP; the warm-up and every counted loss equal to "train
+    path"'s (bit-equal expected; within REMAT_LOSS_RTOL, the largest relative
+    difference printed); the peak below "train path"'s."""
+    launches = run_train_path(torch, "remat train", REMAT_TRAIN_PER_STEP, TRAIN_STEPS, remat=True)
+    ours, ref = PATH_NUMBERS["remat train"], PATH_NUMBERS["train path"]
+    pairs = list(zip([ours["warmup_loss"], *ours["losses"]], [ref["warmup_loss"], *ref["losses"]]))
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    check(rel <= REMAT_LOSS_RTOL, f"remat train path: losses {pairs} differ by {rel} relative")
+    check(ours["peak_mem_gb"] < ref["peak_mem_gb"],
+          f"remat train path: peak {ours['peak_mem_gb']} GB not below {ref['peak_mem_gb']}")
+    keys = ("seconds_per_step", "tokens_per_s", "peak_mem_gb")
+    phase("remat train path", **{k: ours[k] for k in keys}, train_path={k: ref[k] for k in keys},
+          losses_bit_equal=all(a == b for a, b in pairs), max_loss_rel_diff=rel,
+          peak_saved_gb=ref["peak_mem_gb"] - ours["peak_mem_gb"], launches=nonzero(launches))
     return launches
 
 
@@ -4056,6 +4168,7 @@ def main() -> int:
     args = sys.argv[1:]
     sample_profile = args[args.index("--profile-sample") + 1] if "--profile-sample" in args else None
     paths = run_sample_paths(torch, sample_profile)
+    paths["tpu_native_sample"] = run_tpu_native_sample_path(torch)
     tokenize_profile = args[args.index("--profile-tokenize") + 1] if "--profile-tokenize" in args else None
     scene_profile = args[args.index("--profile-scene") + 1] if "--profile-scene" in args else None
     paths.update(run_long_video_paths(torch, card, tokenize_profile, scene_profile))
@@ -4063,6 +4176,8 @@ def main() -> int:
     paths.update(run_serving_paths(torch, card, serving_profile))
     profile_path = args[args.index("--profile-train") + 1] if "--profile-train" in args else None
     paths["train"] = run_train_path(torch, "train path", TRAIN_PER_STEP, TRAIN_STEPS, profile_path)
+    paths["tpu_native_train"] = run_tpu_native_train_path(torch)
+    paths["remat_train"] = run_remat_train_path(torch)
     paths["token_critic_train"] = run_train_path(torch, "token critic train path", CRITIC_TRAIN_PER_STEP,
                                                  CRITIC_TRAIN_STEPS, critic=True)
     paths["raw_train"] = run_raw_train_path(torch, card)

@@ -47,7 +47,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from phenaki_tpu_torch.models.transformer import NUM_NULL_KV  # the reference's too
+
+def _num_null_kv(model) -> int:
+    """The null key/value pairs of the model's cross-attention (0 without
+    one): the reference's weights hold 2, and `_attention` refuses others."""
+    cross = model.transformer.layers[0].cross_attn if len(model.transformer.layers) else None
+    return cross.num_null_kv if cross is not None else 0
 
 
 def _np(v) -> np.ndarray:
@@ -187,7 +192,7 @@ def convert_maskgit_state_dict(sd: Mapping[str, Any], maskgit, strict: bool = Tr
     out["pos_emb.weight"] = s.take("pos_emb.weight")
     _cpb(s.sub("continuous_pos_bias."), out, "continuous_pos_bias.")
     _transformer(s.sub("transformer."), out, "transformer.", depth=len(maskgit.transformer.layers),
-                 peg=True, has_cross_attn=not maskgit.unconditional, num_null_kv=NUM_NULL_KV)
+                 peg=True, has_cross_attn=not maskgit.unconditional, num_null_kv=_num_null_kv(maskgit))
     out["to_logits.weight"] = s.take("to_logits.weight")
     out["to_logits.bias"] = s.take("to_logits.bias")
     return _finish(s, maskgit, out, strict)
@@ -203,7 +208,7 @@ def convert_token_critic_state_dict(sd: Mapping[str, Any], critic, strict: bool 
     out["token_emb.weight"] = s.take("token_emb.weight")
     out["pos_emb.weight"] = s.take("pos_emb.weight")
     _transformer(s.sub("transformer."), out, "transformer.", depth=len(critic.transformer.layers),
-                 peg=True, has_cross_attn=critic.has_cross_attn, num_null_kv=NUM_NULL_KV)
+                 peg=True, has_cross_attn=critic.has_cross_attn, num_null_kv=_num_null_kv(critic))
     out["to_logits.weight"] = s.take("to_logits.0.weight")
     out["to_logits.bias"] = s.take("to_logits.0.bias")
     return _finish(s, critic, out, strict)

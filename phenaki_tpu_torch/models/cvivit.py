@@ -14,7 +14,9 @@ transformer -> pixel heads for the first frame and for the rest.
 `seq_group` (a process group) runs both temporal transformers'
 self-attention as ring attention over the frame axis; spatial attention
 stays dense, as in the JAX package. Attention and FF dropout act in training
-mode; `tokenize` always runs in eval mode and skips the decoder.
+mode; `tokenize` always runs in eval mode and skips the decoder. `remat`
+recomputes the four transformers' attention and FF blocks in the backward
+(`models.transformer`), as the TPU package's field of the same name.
 
 `dtype` is the compute dtype (the TPU package's `dtype` field): the video
 and the activations are cast to it and the weights at use, so f32 weights
@@ -56,7 +58,8 @@ class CViViT(nn.Module):
                  lookup_free_quantization: bool = True, lfq_entropy_loss_weight: float = 0.1,
                  lfq_commitment_loss_weight: float = 0.25, lfq_diversity_gamma: float = 1.0,
                  seq_group=None, dtype: Optional[torch.dtype] = None,
-                 peg_reference_layout: bool = False, reference_attention_kv: bool = False):
+                 peg_reference_layout: bool = False, reference_attention_kv: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.compute_dtype = dtype
         self.peg_reference_layout = peg_reference_layout
@@ -69,7 +72,7 @@ class CViViT(nn.Module):
         ph, pw = self.patch_hw
         c, pt = channels, temporal_patch_size
         spatial = dict(dim_head=dim_head, heads=heads, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
-                       attn_reference_self_kv=reference_attention_kv)
+                       attn_reference_self_kv=reference_attention_kv, remat=remat)
         # 'thw' on the flat (b*h*w, t) temporal sequence is the reference's
         # scrambled-grid stencil, which its trained weights expect
         temporal = dict(spatial, causal=True, peg=True, peg_causal=True,

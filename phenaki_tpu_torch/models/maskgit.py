@@ -34,6 +34,9 @@ runs the trunk on GPipe's schedule (`parallel.pipeline`) in
 `pipeline_microbatches` microbatches: the module is then a rank's
 stage-local clone (`pipeline_stage_module`), and its dropout streams are
 seeded from `generator`. A SelfCritic rides on the MaskGit's trunk.
+`remat` recomputes the trunk's attention and FF blocks in the backward
+(`models.transformer`); `gradient_shrink_alpha` and `ff_inner_dim` are the
+TPU package's fields of the same names.
 """
 
 from __future__ import annotations
@@ -48,8 +51,6 @@ from phenaki_tpu_torch.ops.feedforward import linear
 from phenaki_tpu_torch.ops.positional import ContinuousPositionBias
 from phenaki_tpu_torch.ops.sampling import prob_mask_like
 from phenaki_tpu_torch.parallel.pipeline import pipeline_transformer_apply
-
-GRADIENT_SHRINK_ALPHA = 0.1
 
 
 def _with_cond_scale(forward: Callable[..., torch.Tensor], x, *, cond_scale: float, text_mask,
@@ -101,9 +102,11 @@ class MaskGit(nn.Module):
                  dim_head: int = 64, depth: int = 6, dim_context: Optional[int] = None,
                  unconditional: bool = False, attn_dropout: float = 0.0,
                  ff_dropout: float = 0.0, dtype: Optional[torch.dtype] = None, seq_group=None,
-                 reference_attention_kv: bool = False):
+                 reference_attention_kv: bool = False, gradient_shrink_alpha: float = 0.1,
+                 remat: bool = False, ff_inner_dim: Optional[int] = None):
         super().__init__()
         self.num_tokens = num_tokens
+        self.gradient_shrink_alpha = gradient_shrink_alpha
         self.max_seq_len = max_seq_len
         self.unconditional = unconditional
         self.reference_attention_kv = reference_attention_kv
@@ -115,7 +118,7 @@ class MaskGit(nn.Module):
                                        heads=heads, peg=True, has_cross_attn=not unconditional,
                                        attn_dropout=attn_dropout, ff_dropout=ff_dropout,
                                        attn_reference_self_kv=reference_attention_kv,
-                                       seq_group=seq_group)
+                                       seq_group=seq_group, remat=remat, ff_inner_dim=ff_inner_dim)
         self.to_logits = nn.Linear(dim, num_tokens)
 
     @property
@@ -157,9 +160,10 @@ class MaskGit(nn.Module):
 
         dtype = self.compute_dtype
         h = self.token_emb(x).to(dtype) + self.pos_emb(torch.arange(n, device=x.device)).to(dtype)
-        # the training-time gradient shrink (alpha 0.1), kept as written: in
-        # bf16 the two products round, so it is not the identity
-        h = h * GRADIENT_SHRINK_ALPHA + h.detach() * (1 - GRADIENT_SHRINK_ALPHA)
+        # the training-time gradient shrink, kept as written: in bf16 the two
+        # products round, so it is not the identity
+        alpha = self.gradient_shrink_alpha
+        h = h * alpha + h.detach() * (1 - alpha)
 
         h = _trunk(self.transformer, h, pipeline_mesh, pipeline_microbatches, generator,
                    video_shape=(b, *video_patch_shape), attn_bias=rel_pos_bias, context=context,
@@ -194,7 +198,8 @@ class TokenCritic(nn.Module):
                  heads: int = 8, dim_head: int = 64, depth: int = 6,
                  dim_context: Optional[int] = None, attn_dropout: float = 0.0,
                  ff_dropout: float = 0.0, dtype: Optional[torch.dtype] = None,
-                 reference_attention_kv: bool = False):
+                 reference_attention_kv: bool = False, remat: bool = False,
+                 ff_inner_dim: Optional[int] = None):
         super().__init__()
         self.num_tokens = num_tokens
         self.max_seq_len = max_seq_len
@@ -206,7 +211,8 @@ class TokenCritic(nn.Module):
         self.transformer = Transformer(dim, depth, dim_context=dim_context, dim_head=dim_head,
                                        heads=heads, peg=True, has_cross_attn=has_cross_attn,
                                        attn_dropout=attn_dropout, ff_dropout=ff_dropout,
-                                       attn_reference_self_kv=reference_attention_kv)
+                                       attn_reference_self_kv=reference_attention_kv, remat=remat,
+                                       ff_inner_dim=ff_inner_dim)
         self.to_logits = nn.Linear(dim, 1)
 
     @property

@@ -42,7 +42,8 @@ class FeedForward(nn.Module):
     """LN (with beta) -> Linear(2*inner, no bias) -> GEGLU -> dropout ->
     Linear(dim, no bias).
 
-    `inner_dim` overrides the width (a tensor-parallel rank's columns);
+    `inner_dim` overrides the width `int(mult * 2/3 * dim)` (the TPU
+    package's field; a tensor-parallel rank's columns);
     `tp_group` makes the block tensor-parallel as `ops.attention.Attention`
     is: the normed input enters `proj_in` through `copy_to_group` and
     `proj_out`'s partial product is completed by one all-reduce."""

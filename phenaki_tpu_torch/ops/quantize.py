@@ -7,8 +7,9 @@ over (b, n, dim) and map indices back to code vectors for the decoder.
   dim != bits, sign codes over {-1, +1}^bits in f32, index = sum_b (z_b > 0)
   2^b, a straight-through output through `project_out`, and an aux loss:
   the entropy term (per-sample entropy minus `diversity_gamma` times the
-  codebook entropy; the exact softmax over all 2^bits codes up to
-  `FULL_ENTROPY_MAX_BITS`, the factorized per-bit form above, whose binary
+  codebook entropy of the codes' softmax at `inv_temperature`; the exact
+  softmax over all 2^bits codes up to `full_entropy_max_bits`, the
+  factorized per-bit form above, whose binary
   entropy clips p to [1e-6, 1 - 1e-6]) and the commitment term.
 * `VectorQuantize`: cosine-similarity argmax over an l2-normalised codebook,
   a mask-aware commitment loss, and the EMA codebook update, which changes
@@ -35,12 +36,6 @@ from torch import nn
 
 from phenaki_tpu_torch.ops.feedforward import linear
 from phenaki_tpu_torch.parallel import collectives
-
-FULL_ENTROPY_MAX_BITS = 13
-LFQ_INV_TEMPERATURE = 100.0
-VQ_DECAY = 0.8
-VQ_COMMITMENT_WEIGHT = 1.0
-VQ_EPS = 1e-5
 
 
 class QuantizerOutput(NamedTuple):
@@ -76,8 +71,11 @@ def _lfq_codebook(bits: int, device) -> torch.Tensor:
 
 class LFQ(nn.Module):
     def __init__(self, dim: int, codebook_size: int, *, entropy_loss_weight: float = 0.1,
-                 commitment_loss_weight: float = 0.25, diversity_gamma: float = 1.0):
+                 commitment_loss_weight: float = 0.25, diversity_gamma: float = 1.0,
+                 inv_temperature: float = 100.0, full_entropy_max_bits: int = 13):
         super().__init__()
+        self.inv_temperature = inv_temperature
+        self.full_entropy_max_bits = full_entropy_max_bits
         bits = int(math.log2(codebook_size))
         if 2**bits != codebook_size:
             raise ValueError("codebook_size must be a power of 2")
@@ -113,15 +111,15 @@ class LFQ(nn.Module):
         # the global batch's mean usage: the ranks' sums over their count
         usage_denom = denom * collectives.group_size(group)
 
-        if self.codebook_dim <= FULL_ENTROPY_MAX_BITS:
+        if self.codebook_dim <= self.full_entropy_max_bits:
             logits = torch.einsum("bnd,kd->bnk", z, _lfq_codebook(self.codebook_dim, z.device))
-            probs = torch.softmax(logits * LFQ_INV_TEMPERATURE, dim=-1)
+            probs = torch.softmax(logits * self.inv_temperature, dim=-1)
             per_sample_entropy = (_entropy(probs) * weights).sum() / denom
             avg_probs = collectives.sum_over_group((probs * weights[..., None]).sum(dim=(0, 1)),
                                                    group) / usage_denom
             codebook_entropy = _entropy(avg_probs)
         else:  # the softmax over sign codes factorizes per bit
-            p_bit = torch.sigmoid(2.0 * z * LFQ_INV_TEMPERATURE)
+            p_bit = torch.sigmoid(2.0 * z * self.inv_temperature)
             per_sample_entropy = (_binary_entropy(p_bit).sum(-1) * weights).sum() / denom
             avg_p_bit = collectives.sum_over_group((p_bit * weights[..., None]).sum(dim=(0, 1)),
                                                    group) / usage_denom
@@ -150,11 +148,15 @@ def _l2norm(t: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 class VectorQuantize(nn.Module):
     """Cosine-similarity VQ with EMA codebook updates; the codebook `embed`
-    (K, dim) and `cluster_size` (K,) are buffers, not parameters."""
+    (K, dim) and `cluster_size` (K,) are buffers, not parameters. `decay` is
+    the EMA's, `eps` the cluster sizes' Laplace smoothing, and
+    `commitment_weight` scales the aux loss."""
 
-    def __init__(self, dim: int, codebook_size: int):
+    def __init__(self, dim: int, codebook_size: int, *, decay: float = 0.8,
+                 commitment_weight: float = 1.0, eps: float = 1e-5):
         super().__init__()
         self.codebook_size = codebook_size
+        self.decay, self.commitment_weight, self.eps = decay, commitment_weight, eps
         self.register_buffer("embed", torch.randn(codebook_size, dim))
         self.register_buffer("cluster_size", torch.zeros(codebook_size))
         self.batch_group = None
@@ -169,7 +171,7 @@ class VectorQuantize(nn.Module):
         quantized = cb_n[indices]
         weights, denom = _weights(z_n, mask, self.batch_group)
         commit = (((z_n - quantized.detach()) ** 2).mean(-1) * weights).sum() / denom
-        aux_loss = commit * VQ_COMMITMENT_WEIGHT
+        aux_loss = commit * self.commitment_weight
         if update_codebook:
             self._ema_update(z_n.detach(), indices, weights)
         quantized_st = z_n + (quantized - z_n).detach()
@@ -180,11 +182,12 @@ class VectorQuantize(nn.Module):
         one_hot = torch.nn.functional.one_hot(indices, self.codebook_size).float() * weights[..., None]
         counts = collectives.all_reduce(one_hot.sum(dim=(0, 1)), self.batch_group)
         sums = collectives.all_reduce(torch.einsum("bnk,bnd->kd", one_hot, z_n), self.batch_group)
-        new_cluster = self.cluster_size * VQ_DECAY + counts * (1 - VQ_DECAY)
+        decay, eps = self.decay, self.eps
+        new_cluster = self.cluster_size * decay + counts * (1 - decay)
         n = new_cluster.sum()
-        smoothed = (new_cluster + VQ_EPS) / (n + self.codebook_size * VQ_EPS) * n
-        ema_embed = self.embed * VQ_DECAY + sums * (1 - VQ_DECAY)
-        new_embed = torch.where(counts[:, None] > 0, ema_embed / smoothed[:, None].clamp_min(VQ_EPS),
+        smoothed = (new_cluster + eps) / (n + self.codebook_size * eps) * n
+        ema_embed = self.embed * decay + sums * (1 - decay)
+        new_embed = torch.where(counts[:, None] > 0, ema_embed / smoothed[:, None].clamp_min(eps),
                                 self.embed)
         self.cluster_size.copy_(new_cluster)
         self.embed.copy_(new_embed)

@@ -1,5 +1,8 @@
-"""Flagship presets (counterpart of phenaki_tpu/presets.py, the reference's
-8 heads x 64 head shape).
+"""Flagship presets (counterpart of phenaki_tpu/presets.py): the reference's
+8 heads x 64 head shape, or with `tpu_native=True` the TPU package's 4 heads
+x 128 for the MaskGit and the TokenCritic (the same inner width 512, so
+every projection keeps its shape; only the CPB MLP, whose width follows
+d_head, and the QK-norm scales change). The C-ViViT keeps 8 x 64.
 
 C-ViViT: dim 512, 256x128 frames, patch 16, temporal patch 2, spatial and
 temporal depth 4, 8 heads x 64, LFQ with 65,536 codes: 17 frames decode from
@@ -58,23 +61,29 @@ def flagship_train_cvivit(seed: int = 0, *, device="cuda") -> CViViT:
     return cvivit.to(device)
 
 
-def flagship_maskgit(max_seq_len: int = 1152, **overrides) -> MaskGit:
+def _head_shape(tpu_native: bool) -> dict:
+    return dict(heads=4, dim_head=128) if tpu_native else dict(heads=8, dim_head=64)
+
+
+def flagship_maskgit(max_seq_len: int = 1152, *, tpu_native: bool = False, **overrides) -> MaskGit:
     cfg = dict(dim=512, num_tokens=65536, max_seq_len=max_seq_len, depth=6,
-               dim_context=FLAGSHIP_TEXT_DIM, heads=8, dim_head=64)
+               dim_context=FLAGSHIP_TEXT_DIM, **_head_shape(tpu_native))
     cfg.update(overrides)
     return MaskGit(**cfg)
 
 
-def flagship_token_critic(max_seq_len: int = 1152, **overrides) -> TokenCritic:
+def flagship_token_critic(max_seq_len: int = 1152, *, tpu_native: bool = False,
+                          **overrides) -> TokenCritic:
     cfg = dict(dim=512, num_tokens=65536, max_seq_len=max_seq_len, depth=6, has_cross_attn=True,
-               dim_context=FLAGSHIP_TEXT_DIM, heads=8, dim_head=64)
+               dim_context=FLAGSHIP_TEXT_DIM, **_head_shape(tpu_native))
     cfg.update(overrides)
     return TokenCritic(**cfg)
 
 
 def flagship_phenaki(seed: int = 0, *, device="cuda", dtype=torch.bfloat16,
                      num_frames: int = FLAGSHIP_NUM_FRAMES, steps: int = 18, critic: bool = False,
-                     self_token_critic: bool = False, seq_group=None, mesh=None) -> Phenaki:
+                     self_token_critic: bool = False, seq_group=None, mesh=None,
+                     tpu_native: bool = False) -> Phenaki:
     """The flagship Phenaki with seeded random weights on `device`.
 
     Weights are drawn in f32 on the CPU from `torch.Generator().manual_seed(seed)`
@@ -84,25 +93,29 @@ def flagship_phenaki(seed: int = 0, *, device="cuda", dtype=torch.bfloat16,
     model and runs the same calls). `mesh` (a `parallel.mesh.Mesh` with
     tp > 1) returns this rank's tensor-parallel Phenaki (`Phenaki.tp_shard`),
     for `sample(mesh=)` and `PhenakiServer(mesh=)`; the trainers take the
-    whole model and shard it themselves."""
+    whole model and shard it themselves. `tpu_native` builds the MaskGit and
+    the critic at 4 heads x 128 (module docstring)."""
     ph = _seeded_flagship(seed, device, dtype, num_frames, steps, None, critic, self_token_critic,
-                          seq_group, cvivit_dtype=dtype)
+                          seq_group, cvivit_dtype=dtype, tpu_native=tpu_native)
     return ph.tp_shard(mesh) if mesh is not None else ph
 
 
 def flagship_train_phenaki(seed: int = 0, *, device="cuda", num_frames: int = FLAGSHIP_NUM_FRAMES,
                            critic: bool = False, self_token_critic: bool = False,
-                           seq_group=None) -> Phenaki:
+                           seq_group=None, tpu_native: bool = False, remat: bool = False) -> Phenaki:
     """The flagship Phenaki for training: the same seeded weights as
     `flagship_phenaki`, the MaskGit's and the critic's kept in f32 and
-    computing in bf16, the frozen C-ViViT's in bf16; `seq_group` as for
-    `flagship_phenaki`."""
+    computing in bf16, the frozen C-ViViT's in bf16; `seq_group` and
+    `tpu_native` as for `flagship_phenaki`; `remat` recomputes the MaskGit's
+    and the critic's attention and FF blocks in the backward."""
     return _seeded_flagship(seed, device, torch.float32, num_frames, 18, torch.bfloat16, critic,
-                            self_token_critic, seq_group, cvivit_dtype=torch.bfloat16)
+                            self_token_critic, seq_group, cvivit_dtype=torch.bfloat16,
+                            tpu_native=tpu_native, remat=remat)
 
 
 def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype, critic,
-                     self_token_critic, seq_group, *, cvivit_dtype) -> Phenaki:
+                     self_token_critic, seq_group, *, cvivit_dtype, tpu_native=False,
+                     remat=False) -> Phenaki:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("flagship_phenaki(device='cuda'): torch.cuda.is_available() is False")
@@ -110,9 +123,10 @@ def _seeded_flagship(seed, device, dtype, num_frames, steps, compute_dtype, crit
     with torch.device("meta"):
         cvivit = flagship_cvivit()
         n = cvivit.num_tokens_per_frames(num_frames)
-        modules = [cvivit, flagship_maskgit(max_seq_len=n, dtype=compute_dtype, seq_group=seq_group)]
+        trunk = dict(dtype=compute_dtype, tpu_native=tpu_native, remat=remat)
+        modules = [cvivit, flagship_maskgit(max_seq_len=n, seq_group=seq_group, **trunk)]
         if critic:
-            modules.append(flagship_token_critic(max_seq_len=n, dtype=compute_dtype))
+            modules.append(flagship_token_critic(max_seq_len=n, **trunk))
         elif self_token_critic:
             modules.append(nn.Linear(512, 1))  # the SelfCritic's head, to_pred
     modules = [m.to_empty(device="cpu") for m in modules]

@@ -1,8 +1,10 @@
 """Optimizer factory (counterpart of phenaki_tpu/training/optimizer.py).
 
-Adam when wd == 0, else AdamW with the weight-decay split: parameters with
-ndim < 2 (biases, norm gains, per-dim scales) get no weight decay. eps is
-1e-8, the TPU package's default. With `max_grad_norm` the gradients are
+Adam when wd == 0, else AdamW with the weight-decay split
+(`group_wd_params`, the default): parameters with ndim < 2 (biases, norm
+gains, per-dim scales) get no weight decay; without the split every
+parameter decays. `eps` (default 1e-8) and `group_wd_params` are the TPU
+package's arguments of the same names. With `max_grad_norm` the gradients are
 clipped to that global norm before every step, as the TPU package's
 `optax.clip_by_global_norm` does (torch's clip divides by norm + 1e-6,
 optax by the norm). `grad_norm` replaces the norm's computation (a
@@ -53,29 +55,31 @@ def global_grad_norm(named_params: List[Tuple[str, torch.nn.Parameter]], mesh,
     return sums.sum().sqrt()
 
 
-def param_groups(params: Sequence[T], wd: float) -> List[List[T]]:
+def param_groups(params: Sequence[T], wd: float, group_wd_params: bool = True) -> List[List[T]]:
     """The optimizer's parameter groups (`params` are parameters, or any
-    items with an `ndim`): one, or with weight decay the matrices and then
-    the rest (no decay on biases, norm gains and per-dim scales)."""
-    if wd == 0:
+    items with an `ndim`): one, or with weight decay split by
+    `group_wd_params` the matrices and then the rest (no decay on biases,
+    norm gains and per-dim scales)."""
+    if wd == 0 or not group_wd_params:
         return [list(params)]
     return [[p for p in params if p.ndim >= 2], [p for p in params if p.ndim < 2]]
 
 
 def get_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4, wd: float = 1e-2,
-                  betas: Tuple[float, float] = (0.9, 0.99),
-                  max_grad_norm: Optional[float] = None,
+                  betas: Tuple[float, float] = (0.9, 0.99), eps: float = 1e-8,
+                  group_wd_params: bool = True, max_grad_norm: Optional[float] = None,
                   grad_norm: Optional[Callable[[], torch.Tensor]] = None) -> torch.optim.Optimizer:
     params = [p for p in params if p.requires_grad]
     # the multi-tensor kernels take a group of FSDP DTensors or of plain
     # tensors, not both (FSDP keeps its small parameters plain)
     foreach = False if len({hasattr(p, "placements") for p in params}) > 1 else None
     if wd == 0:
-        opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=1e-8, foreach=foreach)
+        opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, foreach=foreach)
     else:
-        decayed, plain = param_groups(params, wd)
-        groups = [{"params": decayed}, {"params": plain, "weight_decay": 0.0}]
-        opt = torch.optim.AdamW(groups, lr=lr, betas=betas, eps=1e-8, weight_decay=wd, foreach=foreach)
+        groups = [{"params": g} for g in param_groups(params, wd, group_wd_params)]
+        if len(groups) > 1:
+            groups[1]["weight_decay"] = 0.0
+        opt = torch.optim.AdamW(groups, lr=lr, betas=betas, eps=eps, weight_decay=wd, foreach=foreach)
 
     if max_grad_norm is not None:
         def clip(*_):

@@ -12,6 +12,11 @@ package's on bridged weights, fp32 on the CPU.
   equal, the commitment loss and the quantized output within atol 1e-5, one
   EMA update of `embed` and `cluster_size` within atol 1e-5 of JAX's
   mutable `vq_stats`, and `codebook_lookup`.
+* The constructor fields at values other than their defaults, each with the
+  same checks and tolerances: LFQ's `inv_temperature=10` at 64 and 2^14
+  codes with `full_entropy_max_bits` below and at or above the code's bits
+  (so each size runs both entropy forms), and the VQ's `decay=0.5`,
+  `commitment_weight=0.25` and `eps=1e-3`.
 """
 
 import numpy as np
@@ -46,13 +51,28 @@ def _inputs(seed, n=24):
 @pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "mask"])
 @pytest.mark.parametrize("codebook_size", [64, 2**14], ids=["full_entropy", "factorized"])
 def test_lfq_forward_matches_jax(codebook_size, masked):
+    _check_lfq(codebook_size, masked)
+
+
+# (codebook size, full_entropy_max_bits): 64 codes are 6 bits, 2^14 are 14
+LFQ_FIELD_CASES = {"64_factorized": (64, 5), "64_full": (64, 6), "16384_full": (2**14, 14),
+                   "16384_factorized": (2**14, 13)}
+
+
+@pytest.mark.parametrize("case", list(LFQ_FIELD_CASES))
+def test_lfq_fields_match_jax(case):
+    codebook_size, max_bits = LFQ_FIELD_CASES[case]
+    _check_lfq(codebook_size, True, inv_temperature=10.0, full_entropy_max_bits=max_bits)
+
+
+def _check_lfq(codebook_size, masked, **fields):
     x, mask = _inputs(seed=codebook_size % 7 + masked)
     mask = mask if masked else None
-    jmod = JLFQ(dim=DIM, codebook_size=codebook_size)
+    jmod = JLFQ(dim=DIM, codebook_size=codebook_size, **fields)
     variables = _numpy_tree(jax.jit(jmod.init)(jax.random.PRNGKey(1), jnp.asarray(x)))
     jmask = None if mask is None else jnp.asarray(mask)
     ref_q, ref_ids, ref_aux = jmod.apply(variables, jnp.asarray(x), mask=jmask)
-    mod = load_flax_params(LFQ(DIM, codebook_size), variables["params"])
+    mod = load_flax_params(LFQ(DIM, codebook_size, **fields), variables["params"])
     tmask = None if mask is None else torch.from_numpy(mask)
     with torch.no_grad():
         q, ids, aux = mod(torch.from_numpy(x), mask=tmask)
@@ -91,15 +111,23 @@ def test_lfq_codes_round_trip():
 
 @pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "mask"])
 def test_vector_quantize_matches_jax(masked):
+    _check_vq(masked)
+
+
+def test_vector_quantize_fields_match_jax():
+    _check_vq(True, decay=0.5, commitment_weight=0.25, eps=1e-3)
+
+
+def _check_vq(masked, **fields):
     x, mask = _inputs(seed=5 + masked)
     mask = mask if masked else None
-    jmod = JVQ(dim=DIM, codebook_size=64)
+    jmod = JVQ(dim=DIM, codebook_size=64, **fields)
     variables = _numpy_tree(jax.jit(jmod.init)(jax.random.PRNGKey(2), jnp.asarray(x)))
     jmask = None if mask is None else jnp.asarray(mask)
     (ref_q, ref_ids, ref_aux), new_state = jmod.apply(variables, jnp.asarray(x), mask=jmask,
                                                       mutable=["vq_stats"])
     stats = variables["vq_stats"]
-    mod = VectorQuantize(DIM, 64)
+    mod = VectorQuantize(DIM, 64, **fields)
     load_flax_params(mod, {"embed": stats["codebook"], "cluster_size": stats["cluster_size"]})
     tmask = None if mask is None else torch.from_numpy(mask)
     with torch.no_grad():

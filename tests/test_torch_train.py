@@ -15,7 +15,8 @@
   self-attention score, which the softmax cancels, so its true gradient is 0
   and both sides hold only rounding noise (~1e-9);
 * the optimizer against optax over 3 steps: atol 1e-6 (torch's global-norm
-  clip divides by norm + 1e-6, optax's by the norm);
+  clip divides by norm + 1e-6, optax's by the norm), also with `eps=1e-6`
+  and `group_wd_params=False` (every parameter decays);
 * gradient accumulation equals the mean of the micro-batch gradients, and
   a 3-step `PhenakiTrainer` run (its step-1 milestone samples and saves).
 """
@@ -277,8 +278,9 @@ def test_dropout_options(which):
 # optimizer and trainer
 
 
-@pytest.mark.parametrize("cfg", [dict(wd=0.0), dict(wd=0.1), dict(wd=0.0, max_grad_norm=0.5)],
-                         ids=["adam", "adamw_masked", "clip"])
+@pytest.mark.parametrize("cfg", [dict(wd=0.0), dict(wd=0.1), dict(wd=0.0, max_grad_norm=0.5),
+                                 dict(wd=0.1, eps=1e-6, group_wd_params=False)],
+                         ids=["adam", "adamw_masked", "clip", "adamw_unmasked_eps"])
 def test_optimizer_matches_optax(cfg):
     rng = np.random.RandomState(3)
     params = {"w": rng.randn(4, 3).astype(np.float32), "b": rng.randn(3).astype(np.float32),
