@@ -160,8 +160,8 @@ TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_d
 CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1)
 TRAIN_BATCH, TRAIN_STEPS, CRITIC_TRAIN_STEPS = 4, 5, 3
 # the 4 heads x 128 flagship (`tpu_native=True`) launches what the 8 x 64
-# one does, kernel 1 and kernels 4-6 at d = 128 (the backward on its f32
-# CUDA-core route); `remat=True` on the MaskGit recomputes each of its 12
+# one does, kernel 1 and kernels 4-6 at d = 128 (dK/dV and dBias on wgmma,
+# dQ on its f32 CUDA-core route); `remat=True` on the MaskGit recomputes each of its 12
 # attention calls once in the backward, so kernel 1 launches twice each
 TPU_NATIVE_TRAIN_STEPS = 3
 REMAT_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=2 * TRAIN_PER_STEP["fwd"])
@@ -383,7 +383,7 @@ BWD_TIMED_SHAPES = ("maskgit_self", "critic_self", "maskgit_cross", "cvivit_spat
                     "maskgit_cross_tp2", "maskgit_self_mb2", "maskgit_cross_mb2", "tpu_native_self",
                     "tpu_native_cross")
 BWD_YARDSTICK_SHAPES = ("maskgit_self", "cvivit_spatial_b4", "maskgit_self_tp2", "maskgit_self_mb2",
-                        "tpu_native_self")
+                        "tpu_native_self", "tpu_native_cross")
 # kernel 1's main-path shapes: each is timed beside its bound and one SDPA
 # call on the same inputs
 FLASH_MAIN_SHAPES = ("maskgit_self", "maskgit_cross", "cvivit_spatial", "critic_self",
@@ -496,13 +496,14 @@ def flash_cases(torch, dtype, gen):
 
 
 # the wgmma kernels and their instances: the forward at d = 64 and 128 for
-# kernels 1 and 3, the backward's dQ, dK/dV and dBias (kernels 4-6) at d =
-# 64, the projection sampler's bf16 kernel (kernel 2), the fused CE's bf16
+# kernels 1 and 3, the backward's dQ (kernel 4) at d = 64 and its dK/dV and
+# dBias (kernels 5 and 6) at d = 64 and 128, the projection sampler's bf16
+# kernel (kernel 2), the fused CE's bf16
 # forward (kernel 7: h resident up to d = 512, streamed past it) and its dh
 # and dW (kernels 8 and 9: whole tiles at d = 512, and the streamed ring
 # with 128-, 256-, 384- and 512-column output chunks at every other d)
-WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 4, "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 1,
-                 "flash_bwd_dbias_wgmma": 1, "proj_wgmma_kernel": 4, "ce_fwd_wgmma_kernel": 2,
+WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 4, "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 2,
+                 "flash_bwd_dbias_wgmma": 2, "proj_wgmma_kernel": 4, "ce_fwd_wgmma_kernel": 2,
                  "ce_dh_wgmma_kernel": 5, "ce_dw_wgmma_kernel": 5}
 
 
@@ -650,8 +651,9 @@ def flash_bwd_cases(torch, dtype, gen):
     kc2, vc2 = qk((2, 8, 130, 64), gen, dtype), rand(2, 8, 130, 64)
     cases["maskgit_cross_mb2"] = (q2, kc2, vc2, None, torch.where(keep[:2], 0.0, NEG_INF).float().cuda(), False)
     # the 4 heads x 128 flagship's train step (`tpu_native`): self-attention
-    # with the (4, 1152, 1152) bias and cross-attention; bf16 at d = 128 runs
-    # the f32 CUDA-core kernels
+    # with the (4, 1152, 1152) bias and cross-attention (with the batch row
+    # that sees no key); bf16 at d = 128 runs dK/dV and dBias on wgmma, dQ on
+    # the f32 CUDA cores
     qn, kn, vn = qk((4, 4, 1152, 128), gen, dtype), qk((4, 4, 1152, 128), gen, dtype), rand(4, 4, 1152, 128)
     cases["tpu_native_self"] = (qn, kn, vn, rand(4, 1152, 1152), torch.zeros(4, 1152, device="cuda"), False)
     kcn, vcn = qk((4, 4, 130, 128), gen, dtype), rand(4, 4, 130, 128)
@@ -694,7 +696,7 @@ def check_flash_bwd(torch):
                 abs_errs[key] = (g.float() - r).abs().max().item()
                 errs[key] = abs_errs[key] / max(r.abs().max().item(), 1e-30)
                 check(errs[key] <= tol[dtype], f"flash bwd {tag}: {key} rel err {errs[key]} > {tol[dtype]}")
-            if name.startswith("fully_masked_row"):
+            if name.startswith("fully_masked_row") or name == "tpu_native_cross":
                 for key in ("dq", "dk", "dv"):
                     check(got[key][2].abs().max().item() == 0.0, f"flash bwd {tag}: {key} of the masked row")
                 check(torch.isneginf(lse[2]).all().item(), f"flash bwd {tag}: lse of the masked row")
@@ -741,12 +743,19 @@ def check_flash_bwd(torch):
     # on a slice of the self-attention case; bf16 (the wgmma forward, dQ and
     # dK/dV and dBias) at the whole train shape with an f32 bias, as
     # the CPB gives it, so the Function's casts (bias to bf16 and back, dO to
-    # bf16) are on the path
+    # bf16) are on the path; and so at the 4 heads x 128 train shape (dK/dV
+    # and dBias on wgmma, dQ on the CUDA cores)
     q, k, v, bias, kmask, _ = flash_bwd_cases(torch, torch.float32, gen)["maskgit_self"]
     f32_leaves = [t[:1, :2].clone() for t in (q, k, v)] + [bias[:2].clone()]
-    q, k, v, _, _, _ = flash_bwd_cases(torch, torch.bfloat16, gen)["maskgit_self"]
+    bf16_cases = flash_bwd_cases(torch, torch.bfloat16, gen)
+    q, k, v, _, _, _ = bf16_cases["maskgit_self"]
     bf16_leaves = [q, k, v, torch.randn(8, 1152, 1152, generator=gen).cuda()]
-    for dtype, leaves, km in ((torch.float32, f32_leaves, kmask[:1]), (torch.bfloat16, bf16_leaves, kmask)):
+    q, k, v, _, native_kmask, _ = bf16_cases["tpu_native_self"]
+    native_leaves = [q, k, v, torch.randn(4, 1152, 1152, generator=gen).cuda()]
+    del bf16_cases
+    for label, dtype, leaves, km in (("float32", torch.float32, f32_leaves, kmask[:1]),
+                                     ("bfloat16", torch.bfloat16, bf16_leaves, kmask),
+                                     ("bfloat16 tpu_native_self", torch.bfloat16, native_leaves, native_kmask)):
         leaves = [t.clone().requires_grad_() for t in leaves]
         out = fa.flash_attention(*leaves, km, scale=8.0)
         check(out.grad_fn is not None, "flash_attention on the card records no grad_fn")
@@ -761,7 +770,7 @@ def check_flash_bwd(torch):
                   f"flash_attention on the card: no gradient of its dtype for {key}")
             errs[key] = ((t.grad.float() - r.float()).abs().max() / r.float().abs().max()).item()
             check(errs[key] <= tol[dtype], f"autograd on the card ({dtype}): d{key} rel err {errs[key]}")
-        phase(f"flash_attention autograd on the card {str(dtype).split('.')[-1]}", shape=list(out.shape),
+        phase(f"flash_attention autograd on the card {label}", shape=list(out.shape),
               grad_fn=type(out.grad_fn).__name__, rel_err=errs)
     return result
 
@@ -780,9 +789,12 @@ def bwd_bounds(q, k, v, bias, kmask, do, lse, delta, got):
 
 def bwd_yardsticks(torch, q, k, v, bias, kmask, do, lse, delta, got, name):
     """Bounds of kernels 4-6, and the yardstick: SDPA's whole backward (dq,
-    dk, dv and the bias's gradient in one autograd call) on the same inputs."""
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
-    out = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=8.0)
+    dk, dv and the bias's gradient in one autograd call) on the same inputs.
+    Without a bias the key mask is SDPA's float mask, (b, 1, 1, j) in q's
+    dtype, and gets no gradient."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias) if t is not None]
+    mask = leaves[3] if bias is not None else kmask[:, None, None, :].to(q.dtype)
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=mask, scale=8.0)
     library_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=10)
     bounds = bwd_bounds(q, k, v, bias, kmask, do, lse, delta, got)
     phase(f"flash_attention_bwd yardsticks {name}", bound_ms={key: b[0] for key, b in bounds.items()},
@@ -4233,7 +4245,8 @@ def main() -> int:
         kernels.append(dict(name=f"flash_attention_bwd_{name}", route="cuda", source=BWD_SRC,
                             replaces=BWD_TPU[name], launches=launches[name], **bwd_numbers(bwd, name, errs),
                             shapes={shape: bwd_numbers(bwd_all[f"{shape}_bfloat16"], name, errs)
-                                    for shape in BWD_YARDSTICK_SHAPES}))
+                                    for shape in BWD_YARDSTICK_SHAPES
+                                    if name in bwd_all[f"{shape}_bfloat16"]["ms"]}))
     for name, errs in (("ce_fwd", ["loss", "lse"]), ("ce_dh", ["dh"]), ("ce_dw", ["dw", "db"])):
         # matmul_ms: the bf16 torch.matmul products the kernel computes, a
         # yardstick (no one PyTorch call computes the fused function)

@@ -29,9 +29,9 @@
 // the forward's arithmetic against the same bytes, so the kernels are bound
 // by arithmetic, and between the products sits an exp per score.
 //
-// bf16 at d = 64 (every main-path backward), dQ, dK/dV and dBias
-// (flash_bwd_dq_wgmma, flash_bwd_dkv_wgmma, flash_bwd_dbias_wgmma), the
-// forward's design: one warpgroup a block, wgmma m64n64k16 for every
+// bf16 on wgmma: dQ at d = 64 (flash_bwd_dq_wgmma), dK/dV and dBias at
+// d = 64 and 128 (flash_bwd_dkv_wgmma<64|128>, flash_bwd_dbias_wgmma<64|128>).
+// The forward's design: one warpgroup a block, wgmma m64nNk16 for every
 // product, the scores never in shared memory.
 //  - dQ owns 64 query rows: Q and dO stay in shared memory; K, V, the
 //    (query x key) bias tile and the keys' mask terms stream through a
@@ -51,8 +51,19 @@
 //    lse and delta are read per column from shared memory. P^T and dS^T are
 //    packed in place as the A operands of dV += P^T dO and dK += dS^T Q (dO
 //    and Q read MN-major).
-//    Registers stay at or under 168 a thread and shared memory is 69 KB a
-//    block, so three blocks fit an SM.
+//    At d = 64 registers stay at or under 168 a thread and shared memory is
+//    69 KB a block, so three blocks fit an SM. At d = 128 registers bound
+//    it: dK and dV for 64 keys x 128 columns are two m64n128 f32
+//    accumulators, 128 registers a thread before S^T and dP^T (64 more);
+//    K, V and two stages of Q, dO and the bias take 117 KB. So one 128-thread
+//    block an SM (__launch_bounds__(128, 1): 255 registers, no spill), the
+//    same loop with 8 k-steps for S^T and dP^T and m64n128 products for dK
+//    and dV. A design with dV and dK on two warpgroups of one block (P^T
+//    handed from the first to the second through 16 KB of shared memory and
+//    a named barrier) needed fewer registers, with no spill either, but ran
+//    slower at both main-path shapes on the H100: its warpgroups wait on
+//    each other every tile, and one warpgroup issues all four products back
+//    to back.
 //  - dBias (flash_bwd_dbias_wgmma) owns a (64 query x 64 key) tile of one
 //    head and loops over the batch inside the block, in order: S and dP as
 //    in dQ, into registers; the bias tile, the same for every batch row, is
@@ -62,16 +73,22 @@
 //    cp.async (two stages) while row b computes. The f32 tile goes out
 //    through shared memory in whole rows, 16-byte stores where j % 4 == 0:
 //    the 42 MB output at the flagship train shape is half the bound's bytes.
-//    67 KB of shared memory, three blocks an SM.
-// f32 and other head sizes run the products on
-// the CUDA cores in f32 (bf16 inputs are widened as they land in shared
-// memory), one 16 x 16 thread grid per block with 4 x 4 score entries a
-// thread. Every kernel keeps the (i, j) score and probability matrices out
-// of device memory, and none needs float atomics: dQ owns a query tile and
-// loops over the key tiles, dK/dV owns a key tile and loops over the query
-// tiles, and dBias owns a (query tile, key tile) pair and loops over the
-// batch inside the block, as the TPU kernel's sequential batch axis does, so
-// every sum is taken in a fixed order.
+//    67 KB of shared memory, three blocks an SM. At d = 128 the two
+//    recompute products take 8 k-steps: each batch row streams as two
+//    64-column halves of d through the same ring (a stage of 64 x 128 tiles
+//    would take 64 KB and leave one block an SM), S and dP sum over the
+//    halves and the epilogue runs after the second; the register cap (three
+//    blocks an SM), the shared memory and the grid stay those of d = 64.
+// dQ at d = 128, f32 and other head sizes run the products on the CUDA
+// cores in f32 (bf16 inputs are widened as they land in shared memory), one
+// 16 x 16 thread grid per block with 4 x 4 score entries a thread: bound by
+// the f32 rate, far below the tensor cores' (dQ at d = 128 is the next to
+// move to wgmma). Every kernel keeps the (i, j) score and probability
+// matrices out of device memory, and none needs float atomics: dQ owns a
+// query tile and loops over the key tiles, dK/dV owns a key tile and loops
+// over the query tiles, and dBias owns a (query tile, key tile) pair and
+// loops over the batch inside the block, as the TPU kernel's sequential
+// batch axis does, so every sum is taken in a fixed order.
 
 #include "wgmma.cuh"
 
@@ -429,9 +446,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dbias_kernel(Bwd a, float* 
 
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64, kernels 4 and 5: wgmma with S and dP in registers (see
-// the note at the top; the accumulator layout and the helpers are in
-// wgmma.cuh). One warpgroup a block. Every tile is 64 x 64; the operand
+// bf16, kernels 4 (d = 64) and 5 (d = 64 and 128): wgmma with S and dP in
+// registers (see the note at the top; the accumulator layout and the helpers
+// are in wgmma.cuh). One warpgroup a block. Every tile is 64 rows; the operand
 // tiles sit in shared memory in the 128-byte swizzle, so each one is read
 // by wgmma K-major (as the B of a recompute product) or MN-major (as the B
 // of an accumulating product) through the same layout.
@@ -445,11 +462,13 @@ constexpr int WG_BIAS = BQ * BIAS_LD * 2;  // one 64 x 64 bias tile, padded rows
 // streamed operand pair, the bias tile and 64 f32 terms a column (dQ: each
 // key's mask term; dK/dV: each query row's lse, then its delta), each stage
 // rounded up to 1 KB so its tiles stay on the swizzle grid; 1 KB to align:
-// 69 KB
+// 69 KB at d = 64, 117 KB at d = 128
+template <int DP>
 struct WgSmem {
-  static constexpr int stats = 2 * WG_TILE + WG_BIAS;
+  static constexpr int tile = BK * DP * 2;  // 64 rows of DP bf16
+  static constexpr int stats = 2 * tile + WG_BIAS;
   static constexpr int stage = (stats + 2 * BQ * 4 + 1023) / 1024 * 1024;
-  static constexpr int total = 2 * WG_TILE + 2 * stage + 1024;
+  static constexpr int total = 2 * tile + 2 * stage + 1024;
 };
 
 // lse in log2 units for p = 2^(s log2(e) - lse log2(e)); +inf on a row past
@@ -487,13 +506,13 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
   // K, V, the bias and the key mask of key tile t into stage t & 1
   auto load_stage = [&](int t) {
     const int k0 = t * BK;
-    const uint32_t st = base + 2 * WG_TILE + (t & 1) * WgSmem::stage;
+    const uint32_t st = base + 2 * WG_TILE + (t & 1) * WgSmem<WD>::stage;
     load_sw128<WD>(st, kp, k0, J);
     load_sw128<WD>(st + WG_TILE, vp, k0, J);
     if (biasp) load_bias(st + 2 * WG_TILE, biasp, ldb, q0, k0, I, J);
     if (kmaskp && tid < BK) {
       const bool ok = k0 + tid < J;
-      cp_async4(st + WgSmem::stats + tid * 4, ok ? kmaskp + k0 + tid : kmaskp, ok ? 4 : 0);
+      cp_async4(st + WgSmem<WD>::stats + tid * 4, ok ? kmaskp + k0 + tid : kmaskp, ok ? 4 : 0);
     }
   };
 
@@ -512,8 +531,8 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
     // each key's additive term in log2 units, written by the thread that
     // copied its mask: -inf past J or where the key is hard-masked
     const int k0 = t * BK;
-    const int st_off = 2 * WG_TILE + (t & 1) * WgSmem::stage;
-    float* kadd_s = reinterpret_cast<float*>(gbase + st_off + WgSmem::stats);
+    const int st_off = 2 * WG_TILE + (t & 1) * WgSmem<WD>::stage;
+    float* kadd_s = reinterpret_cast<float*>(gbase + st_off + WgSmem<WD>::stats);
     if (tid < BK) {
       const float km = kmaskp ? kadd_s[tid] : 0.f;
       kadd_s[tid] = k0 + tid < J && km > MASKED ? km * LOG2E : -INFINITY;
@@ -615,19 +634,21 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
   }
 }
 
-__global__ void __launch_bounds__(WG_THREADS, 3)
+template <int DP>
+__global__ void __launch_bounds__(WG_THREADS, DP == WD ? 3 : 1)
 flash_bwd_dkv_wgmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
+  using L = WgSmem<DP>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_base_1k(smem_raw);
   unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));  // base, generic
-  const uint32_t sK = base, sV = base + WG_TILE;
+  const uint32_t sK = base, sV = base + L::tile;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
   const int bb = blockIdx.x, k0 = blockIdx.y * BK, hh = blockIdx.z;
   const int I = a.I, J = a.J, ldb = a.ldb;
   const size_t bh = (size_t)bb * a.H + hh;
-  const bf16* qp = (const bf16*)a.q + bh * I * WD;
-  const bf16* dop = (const bf16*)a.dout + bh * I * WD;
+  const bf16* qp = (const bf16*)a.q + bh * I * DP;
+  const bf16* dop = (const bf16*)a.dout + bh * I * DP;
   const float* lsep = a.lse + bh * I;
   const float* deltap = a.delta + bh * I;
   const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * ldb : nullptr;
@@ -648,51 +669,51 @@ flash_bwd_dkv_wgmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
     kadd[half] = ok ? km * LOG2E : -INFINITY;
   }
 
-  float dk_acc[32], dv_acc[32];  // dK / scale, dV
+  float dk_acc[DP / 2], dv_acc[DP / 2];  // dK / scale, dV
 #pragma unroll
-  for (int x = 0; x < 32; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+  for (int x = 0; x < DP / 2; ++x) dk_acc[x] = dv_acc[x] = 0.f;
 
   // Q, dO, the bias, lse and delta of query tile t into stage t & 1
   auto load_stage = [&](int t) {
     const int q0 = t * BQ;
-    const uint32_t st = base + 2 * WG_TILE + (t & 1) * WgSmem::stage;
-    load_sw128<WD>(st, qp, q0, I);
-    load_sw128<WD>(st + WG_TILE, dop, q0, I);
-    if (biasp) load_bias(st + 2 * WG_TILE, biasp, ldb, q0, k0, I, J);
+    const uint32_t st = base + 2 * L::tile + (t & 1) * L::stage;
+    load_sw128<DP>(st, qp, q0, I);
+    load_sw128<DP>(st + L::tile, dop, q0, I);
+    if (biasp) load_bias(st + 2 * L::tile, biasp, ldb, q0, k0, I, J);
     const int r = tid & (BQ - 1);
     const float* src = tid < BQ ? lsep : deltap;
     const bool ok = q0 + r < I;
-    cp_async4(st + WgSmem::stats + tid * 4, ok ? src + q0 + r : src, ok ? 4 : 0);
+    cp_async4(st + L::stats + tid * 4, ok ? src + q0 + r : src, ok ? 4 : 0);
   };
 
   const int first = first_query_tile(a, k0), n_tiles = (I + BQ - 1) / BQ;
   if (first < n_tiles) {
-    load_sw128<WD>(sK, (const bf16*)a.k + bh * J * WD, k0, J);
-    load_sw128<WD>(sV, (const bf16*)a.v + bh * J * WD, k0, J);
+    load_sw128<DP>(sK, (const bf16*)a.k + bh * J * DP, k0, J);
+    load_sw128<DP>(sV, (const bf16*)a.v + bh * J * DP, k0, J);
     load_stage(first);
     cp_async_commit();
   }
   for (int t = first; t < n_tiles; ++t) {
     const int q0 = t * BQ;
-    const int st_off = 2 * WG_TILE + (t & 1) * WgSmem::stage;
+    const int st_off = 2 * L::tile + (t & 1) * L::stage;
     if (t + 1 < n_tiles) load_stage(t + 1);
     cp_async_commit();
     cp_async_wait<1>();
     // the thread that copied a row's lse turns it into lse_log2 for all
-    float* lse_s = reinterpret_cast<float*>(gbase + st_off + WgSmem::stats);
+    float* lse_s = reinterpret_cast<float*>(gbase + st_off + L::stats);
     const float* delta_s = lse_s + BQ;
     if (tid < BQ) lse_s[tid] = lse_log2(lse_s[tid], q0 + tid < I);
     fence_proxy_async();
     __syncthreads();
 
     // S^T = K Q^T and dP^T = V dO^T (keys x queries), Q and dO read K-major
-    const uint32_t sQ = base + st_off, sdO = sQ + WG_TILE;
+    const uint32_t sQ = base + st_off, sdO = sQ + L::tile;
     float s[32], dp[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sK, kk), kmajor_desc(sQ, kk), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sK, kk), kmajor_desc(sQ, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sV, kk), kmajor_desc(sdO, kk), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sV, kk), kmajor_desc(sdO, kk), kk > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
@@ -701,7 +722,7 @@ flash_bwd_dkv_wgmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
     // scores in log2 units: the bias tile (query rows x keys) arrives
     // transposed, in the accumulator layout, by ldmatrix.trans
     if (biasp) {
-      const uint32_t sb = sQ + 2 * WG_TILE;
+      const uint32_t sb = sQ + 2 * L::tile;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -779,10 +800,10 @@ flash_bwd_dkv_wgmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
   for (int half = 0; half < 2; ++half) {
     const int key = half ? key1 : key0;
     if (key >= J) continue;
-    bf16* dko = dk + (bh * J + key) * WD;
-    bf16* dvo = dv + (bh * J + key) * WD;
+    bf16* dko = dk + (bh * J + key) * DP;
+    bf16* dvo = dv + (bh * J + key) * DP;
 #pragma unroll
-    for (int n = 0; n < WD / 8; ++n) {
+    for (int n = 0; n < DP / 8; ++n) {
       const float* kx = dk_acc + 4 * n + 2 * half;
       const float* vx = dv_acc + 4 * n + 2 * half;
       *reinterpret_cast<__nv_bfloat162*>(dko + 8 * n + 2 * c) =
@@ -793,15 +814,16 @@ flash_bwd_dkv_wgmma(Bwd a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64, kernel 6 (dBias): B4's products and epilogue with one
-// warpgroup a block and the batch loop inside it (see the note at the top)
+// bf16 at d = 64 and 128, kernel 6 (dBias): B4's products and epilogue with
+// one warpgroup a block and the batch loop inside it (see the note at the
+// top); at d = 128 each batch row streams as two 64-column halves of d
 // ---------------------------------------------------------------------------
 
 // two stages of a batch row's Q, dO (the block's query tile), K, V (its key
-// tile), then 64 f32 terms each of the keys' mask, the rows' lse and their
-// delta, each stage rounded up to 1 KB; 1 KB to align: 67 KB, three blocks
-// an SM. The bias tile passes through stage 1 before the loop, the f32
-// output tile through stage 0 after it.
+// tile), 64 columns of d each, then 64 f32 terms each of the keys' mask, the
+// rows' lse and their delta, each stage rounded up to 1 KB; 1 KB to align:
+// 67 KB, three blocks an SM, at d = 64 and 128. The bias tile passes through
+// stage 1 before the loop, the f32 output tile through stage 0 after it.
 struct DbSmem {
   static constexpr int stats = 4 * WG_TILE;
   static constexpr int stage = (stats + 3 * BQ * 4 + 1023) / 1024 * 1024;
@@ -810,8 +832,10 @@ struct DbSmem {
   static_assert(BQ * out_ld * 4 <= stage && BQ * BIAS_LD * 2 <= stage, "a stage holds the bias and the output");
 };
 
+template <int DP>
 __global__ void __launch_bounds__(WG_THREADS, 3)
 flash_bwd_dbias_wgmma(Bwd a, float* __restrict__ dbias) {
+  constexpr int NH = DP / WD;  // the 64-column parts of d a batch row streams in
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_base_1k(smem_raw);
   unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));  // base, generic
@@ -832,14 +856,17 @@ flash_bwd_dbias_wgmma(Bwd a, float* __restrict__ dbias) {
 #pragma unroll
   for (int x = 0; x < 32; ++x) acc[x] = 0.f;
 
-  // batch row b's Q, dO, K, V, key mask, lse and delta into stage b & 1
-  auto load_stage = [&](int bb) {
+  // step u = NH b + h: columns [64 h, 64 h + 64) of batch row b's Q, dO, K
+  // and V into stage u & 1, with the last part its key mask, lse and delta
+  auto load_stage = [&](int u) {
+    const int bb = u / NH, dc = (u % NH) * WD;
     const size_t bh = (size_t)bb * a.H + hh;
-    const uint32_t st = base + (bb & 1) * DbSmem::stage;
-    load_sw128<WD>(st, (const bf16*)a.q + bh * I * WD, q0, I);
-    load_sw128<WD>(st + WG_TILE, (const bf16*)a.dout + bh * I * WD, q0, I);
-    load_sw128<WD>(st + 2 * WG_TILE, (const bf16*)a.k + bh * J * WD, k0, J);
-    load_sw128<WD>(st + 3 * WG_TILE, (const bf16*)a.v + bh * J * WD, k0, J);
+    const uint32_t st = base + (u & 1) * DbSmem::stage;
+    load_sw128<WD>(st, (const bf16*)a.q + bh * I * DP + dc, q0, I, DP);
+    load_sw128<WD>(st + WG_TILE, (const bf16*)a.dout + bh * I * DP + dc, q0, I, DP);
+    load_sw128<WD>(st + 2 * WG_TILE, (const bf16*)a.k + bh * J * DP + dc, k0, J, DP);
+    load_sw128<WD>(st + 3 * WG_TILE, (const bf16*)a.v + bh * J * DP + dc, k0, J, DP);
+    if (u % NH != NH - 1) return;
     const uint32_t stats = st + DbSmem::stats;
     if (tid < BK) {
       const bool ok = a.kmask && k0 + tid < J;
@@ -868,19 +895,22 @@ flash_bwd_dbias_wgmma(Bwd a, float* __restrict__ dbias) {
                                       ((warp * 16 + half * 8 + (lane & 7)) * BIAS_LD + (nq * 4 + (lane >> 3)) * 8) * 2);
     __syncthreads();  // every thread has its bias before stage 1 is refilled
 
-    // batch row b + 1's copies run under row b's products
-    for (int bb = 0; bb < a.B; ++bb) {
-      if (bb + 1 < a.B) load_stage(bb + 1);
+    // step u + 1's copies run under step u's products; S and dP sum over the
+    // NH parts of a batch row, and the epilogue runs after its last
+    float s[32], dp[32];
+    for (int u = 0; u < NH * a.B; ++u) {
+      const bool last = u % NH == NH - 1;
+      if (u + 1 < NH * a.B) load_stage(u + 1);
       cp_async_commit();
-      cp_async_wait<1>();  // this thread's copies of row b have landed
+      cp_async_wait<1>();  // this thread's copies of step u have landed
       // the thread that copied them turns key tid's mask into its additive
       // term in log2 units (-inf past J or where the key is hard-masked) and
       // row tid's lse into lse_log2
-      const int st_off = (bb & 1) * DbSmem::stage;
+      const int st_off = (u & 1) * DbSmem::stage;
       float* kadd_s = reinterpret_cast<float*>(gbase + st_off + DbSmem::stats);
       float* lse_s = kadd_s + BK;
       const float* delta_s = lse_s + BQ;
-      if (tid < BK) {
+      if (last && tid < BK) {
         const float km = a.kmask ? kadd_s[tid] : 0.f;
         kadd_s[tid] = k0 + tid < J && km > MASKED ? km * LOG2E : -INFINITY;
         lse_s[tid] = lse_log2(lse_s[tid], q0 + tid < I);
@@ -890,16 +920,20 @@ flash_bwd_dbias_wgmma(Bwd a, float* __restrict__ dbias) {
 
       // S = Q K^T and dP = dO V^T, K and V read K-major
       const uint32_t sQ = base + st_off, sdO = sQ + WG_TILE, sK = sQ + 2 * WG_TILE, sV = sQ + 3 * WG_TILE;
-      float s[32], dp[32];
+      const bool sum = u % NH > 0;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
+      for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), sum || kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sdO, kk), kmajor_desc(sV, kk), kk > 0);
+      for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sdO, kk), kmajor_desc(sV, kk), sum || kk > 0);
       wg_commit();
       wg_wait<0>();
       fence_regs(s);
       fence_regs(dp);
+      if (!last) {
+        __syncthreads();  // every thread is done with stage u & 1 before it is refilled
+        continue;
+      }
 
       // p = 2^(s scale log2(e) + (bias + kmask) log2(e) - lse log2(e)), 0
       // where masked; acc += p (dP - delta)
@@ -920,7 +954,7 @@ flash_bwd_dbias_wgmma(Bwd a, float* __restrict__ dbias) {
           }
         }
       }
-      __syncthreads();  // every thread is done with stage b & 1 before it is refilled
+      __syncthreads();  // every thread is done with stage u & 1 before it is refilled
     }
   }
   cp_async_wait<0>();
@@ -967,34 +1001,34 @@ constexpr size_t dbias_smem() {
 
 enum Which { kDQ, kDKV, kDBias };
 
-// bf16 at d = 64, all three on wgmma. The dQ and dK/dV grids run the batch
-// fastest, so the blocks that share a bias tile run together (as the
-// forward's); dBias loops over the batch inside the block, its grid (key
-// tiles, query tiles, heads).
+template <typename... Out>
+cudaError_t launch_wgmma(void (*kernel)(Bwd, Out...), dim3 grid, int threads, int smem, cudaStream_t stream,
+                         const Bwd& a, Out... out) {
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(a, out...);
+  return cudaGetLastError();
+}
+
+// bf16 on wgmma: dQ at d = 64, dK/dV and dBias at d = 64 and 128. The dQ
+// and dK/dV grids run the batch fastest, so the blocks that share a bias
+// tile run together (as the forward's); dBias loops over the batch inside
+// the block, its grid (key tiles, query tiles, heads).
 cudaError_t launch_tensor_cores(Which which, const Bwd& a, void* o1, void* o2, cudaStream_t stream) {
   const int qt = (a.I + BQ - 1) / BQ, kt = (a.J + BK - 1) / BK;
-  cudaError_t err;
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout) ||
       (a.bias && (!aligned16(a.bias) || a.ldb % 8 != 0)) || (which == kDBias && !aligned16(o1)))
     return cudaErrorMisalignedAddress;
-  if (which == kDBias) {
-    err = cudaFuncSetAttribute(flash_bwd_dbias_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DbSmem::total);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dbias_wgmma<<<dim3(kt, qt, a.H), WG_THREADS, DbSmem::total, stream>>>(a, (float*)o1);
-  } else if (which == kDQ) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               WgSmem::total);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_wgmma<<<dim3(a.B, qt, a.H), WG_THREADS, WgSmem::total, stream>>>(a, (bf16*)o1);
-  } else {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               WgSmem::total);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_wgmma<<<dim3(a.B, kt, a.H), WG_THREADS, WgSmem::total, stream>>>(a, (bf16*)o1,
-                                                                                  (bf16*)o2);
-  }
-  return cudaGetLastError();
+  const bool d64 = a.D == WD;
+  if (which == kDBias)
+    return launch_wgmma(d64 ? flash_bwd_dbias_wgmma<WD> : flash_bwd_dbias_wgmma<128>, dim3(kt, qt, a.H),
+                        WG_THREADS, DbSmem::total, stream, a, (float*)o1);
+  if (which == kDQ)
+    return launch_wgmma(flash_bwd_dq_wgmma, dim3(a.B, qt, a.H), WG_THREADS, WgSmem<WD>::total, stream, a,
+                        (bf16*)o1);
+  return launch_wgmma(d64 ? flash_bwd_dkv_wgmma<WD> : flash_bwd_dkv_wgmma<128>, dim3(a.B, kt, a.H),
+                      WG_THREADS, d64 ? WgSmem<WD>::total : WgSmem<128>::total, stream, a, (bf16*)o1,
+                      (bf16*)o2);
 }
 
 template <typename T, int DP>
@@ -1041,7 +1075,10 @@ int run(Which which, const void* q, const void* k, const void* v, const void* bi
               B, H, I, J, D, ldb, scale, causal, q_off, k_off};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32) return dispatch_d<float>(which, a, o1, o2, s);
-  if (dtype == kBF16 && D == WD) return launch_tensor_cores(which, a, o1, o2, s);
+  // bf16: dQ at d = 64, dK/dV and dBias at d = 64 and 128 on wgmma; the
+  // rest on the CUDA cores
+  if (dtype == kBF16 && (D == WD || (D == 128 && which != kDQ)))
+    return launch_tensor_cores(which, a, o1, o2, s);
   if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(which, a, o1, o2, s);
   return cudaErrorInvalidValue;
 }

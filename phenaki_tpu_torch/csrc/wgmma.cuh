@@ -81,20 +81,23 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// rows [r0, r0 + 64) of a row-major (nrows, DP) bf16 array into shared
-// memory as DP / 64 blocks of 64 rows x 128 bytes, each 16-byte chunk of a
-// row at chunk index (chunk ^ row % 8): the layout of a TMA copy with
-// 128-byte swizzle, which wgmma reads through a SW128 descriptor. Rows past
-// nrows are zeros.
+// rows [r0, r0 + 64) of a row-major bf16 array of nrows rows, DP columns
+// of each (ld apart), into shared memory as DP / 64 blocks of 64 rows x 128
+// bytes, each 16-byte chunk of a row at chunk index (chunk ^ row % 8): the
+// layout of a TMA copy with 128-byte swizzle, which wgmma reads through a
+// SW128 descriptor. Rows past nrows are zeros. The copies are spread over
+// the 128 threads of the calling warpgroup (the index taken modulo 128 also
+// bounds it for ptxas: the d = 128 backward kernels build without spills).
 template <int DP>
-__device__ __forceinline__ void load_sw128(uint32_t dst, const bf16* src, int r0, int nrows) {
+__device__ __forceinline__ void load_sw128(uint32_t dst, const bf16* src, int r0, int nrows,
+                                           int ld = DP) {
   constexpr int CH = DP / 8;  // 16-byte chunks a row
 #pragma unroll
   for (int it = 0; it < BK * CH / WG_THREADS; ++it) {
-    const int e = threadIdx.x + it * WG_THREADS;
+    const int e = threadIdx.x % WG_THREADS + it * WG_THREADS;
     const int r = e / CH, ch = e % CH;
     const bool ok = r0 + r < nrows;
-    const bf16* g = src + (size_t)(ok ? r0 + r : 0) * DP + ch * 8;
+    const bf16* g = src + (size_t)(ok ? r0 + r : 0) * ld + ch * 8;
     cp_async16(dst + (ch / 8) * SW_BLOCK + r * 128 + (((ch & 7) ^ (r & 7)) << 4), g, ok ? 16 : 0);
   }
 }
@@ -105,7 +108,7 @@ __device__ __forceinline__ void load_bias(uint32_t dst, const bf16* biasp, int l
                                           int k0, int I, int J) {
 #pragma unroll
   for (int it = 0; it < BQ * 8 / WG_THREADS; ++it) {
-    const int e = threadIdx.x + it * WG_THREADS;
+    const int e = threadIdx.x % WG_THREADS + it * WG_THREADS;
     const int r = e / 8, ch = e % 8;
     const int row = q0 + r, col = k0 + ch * 8;
     const int bytes = (row < I && col < J) ? 2 * min(8, J - col) : 0;

@@ -60,17 +60,17 @@ def _qk(rng, *shape):
 
 def _case(name):
     """(q, k, v, bias, kmask, causal, dout) made with numpy from a seed."""
-    rng = np.random.RandomState({"bias": 0, "kmask": 1, "causal_alibi": 2, "ragged": 3}[name])
-    b, h, d = 2, 2, 32
+    rng = np.random.RandomState({"bias": 0, "kmask": 1, "causal_alibi": 2, "ragged": 3, "d128": 4}[name])
+    b, h, d = 2, 2, 128 if name == "d128" else 32
     i, j = {"bias": (128, 128), "kmask": (128, 130), "causal_alibi": (128, 192),
-            "ragged": (120, 130)}[name]
+            "ragged": (120, 130), "d128": (128, 130)}[name]
     q, k = _qk(rng, b, h, i, d), _qk(rng, b, h, j, d)
     v = rng.randn(b, h, j, d).astype(np.float32)
     bias = kmask = None
     causal = name == "causal_alibi"
-    if name in ("bias", "ragged"):
+    if name in ("bias", "ragged", "d128"):
         bias = rng.randn(h, i, j).astype(np.float32)
-    if name in ("kmask", "ragged"):
+    if name in ("kmask", "ragged", "d128"):
         keep = rng.rand(b, j) > 0.3
         keep[:, :2] = True  # the null-KV columns are always attended
         kmask = np.where(keep, 0.0, NEG_INF).astype(np.float32)
@@ -92,8 +92,11 @@ def _no_plain(*args, **kwargs):
     raise AssertionError("an operand on the card's route reached the plain version")
 
 
-@pytest.mark.parametrize("name", ["bias", "kmask", "causal_alibi", "ragged"])
+@pytest.mark.parametrize("name", ["bias", "kmask", "causal_alibi", "ragged", "d128"])
 def test_plain_backward_matches_pallas_kernels(name):
+    """The plain backward against the Pallas kernels; "d128" is the 4 heads x
+    128 head size (a bias, a key mask, ragged keys), at which the card holds
+    its dK/dV and dBias kernels against these plain versions."""
     q, k, v, bias, kmask, causal, dout = _case(name)
     jargs = list(map(_j, (q, k, v, bias, kmask)))
     jout, jlse = pa._flash_forward(*jargs, scale=SCALE, causal=causal, return_lse=True)
@@ -223,14 +226,15 @@ def test_bf16_backward_reaches_the_kernels_aligned_and_contiguous(monkeypatch, d
     assert dq.dtype == torch.bfloat16 and dk.shape == k.shape and dbias.dtype == torch.float32
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dacc_dtype", [torch.float32, torch.bfloat16])
-def test_ring_chunk_backward_reads_its_bias_slice_in_place(monkeypatch, dacc_dtype):
-    """A ring chunk's backward: the bias slice at column 64 of (h, i, 192)
-    rows is read in place with ldb 192, at the chunk's global offsets; its
-    d(acc) (f32, or a misaligned bf16 view) reaches dq and dkv as an
-    aligned, contiguous bf16 dO; lse = c2 ln 2."""
+def test_ring_chunk_backward_reads_its_bias_slice_in_place(monkeypatch, dacc_dtype, d):
+    """A ring chunk's backward (d = 64 and 128): the bias slice at column 64
+    of (h, i, 192) rows is read in place with ldb 192, at the chunk's global
+    offsets; its d(acc) (f32, or a misaligned bf16 view) reaches dq and dkv
+    as an aligned, contiguous bf16 dO; lse = c2 ln 2."""
     monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
-    q, k, v, _, _ = _bf16_case(64, 64, 64, seed=1)
+    q, k, v, _, _ = _bf16_case(d, 64, 64, seed=1)
     rows = torch.randn(2, 64, 192).bfloat16()
     dacc = torch.randn(q.shape)
     dacc_in = dacc if dacc_dtype == torch.float32 else _misaligned(dacc.bfloat16())
@@ -241,21 +245,22 @@ def test_ring_chunk_backward_reads_its_bias_slice_in_place(monkeypatch, dacc_dty
     assert [name for name, _ in lib.calls] == ["dq", "dkv", "dbias"]
     for name, call in lib.calls:
         assert call["bias"] == rows[..., 64:128].data_ptr() and call["ldb"] == 192, name
-        assert (call["q_off"], call["k_off"], call["causal"]) == (64, 0, 1)
+        assert (call["q_off"], call["k_off"], call["causal"], call["d"]) == (64, 0, 1, d)
         assert call["do"] % 16 == 0 and torch.equal(call["data"]["do"], dacc.bfloat16())
         assert torch.equal(call["data"]["bias"], rows[..., 64:128])
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("row_width", [192, 190])
-def test_bf16_dbias_reaches_its_kernel_aligned(monkeypatch, row_width):
-    """The wgmma dBias entry through a ring chunk as its Function prepares
-    it: q, k, v one element past a 16-byte boundary arrive aligned; the
-    bias slice at column 64 of (h, i, row_width) rows is read in place when
-    its row stride is a multiple of 8 (192: ldb 192), and copied into rows
-    padded to a multiple of 8 otherwise (190: ldb 64). Either way the kernel
-    reads the slice, at the chunk's global offsets."""
+def test_bf16_dbias_reaches_its_kernel_aligned(monkeypatch, row_width, d):
+    """The wgmma dBias entry (d = 64 and 128) through a ring chunk as its
+    Function prepares it: q, k, v one element past a 16-byte boundary arrive
+    aligned; the bias slice at column 64 of (h, i, row_width) rows is read
+    in place when its row stride is a multiple of 8 (192: ldb 192), and
+    copied into rows padded to a multiple of 8 otherwise (190: ldb 64).
+    Either way the kernel reads the slice, at the chunk's global offsets."""
     monkeypatch.setattr(fa, "flash_attention_backward_plain", _no_plain)
-    q, k, v, _, _ = _bf16_case(64, 64, 64, seed=6)
+    q, k, v, _, _ = _bf16_case(d, 64, 64, seed=6)
     rows = torch.randn(2, 64, row_width).bfloat16()
     lib = StubLibrary()
     ops = _on_stub(lib, fa._chunk_operands, *(_misaligned(t) for t in (q, k, v)), rows[..., 64:128],
@@ -268,7 +273,7 @@ def test_bf16_dbias_reaches_its_kernel_aligned(monkeypatch, row_width):
     in_place = row_width % 8 == 0
     assert call["ldb"] == (row_width if in_place else 64) and call["ldb"] % 8 == 0
     assert (call["bias"] == rows[..., 64:128].data_ptr()) == in_place
-    assert (call["q_off"], call["k_off"], call["causal"], call["dtype"]) == (64, 0, 1, 1)
+    assert (call["q_off"], call["k_off"], call["causal"], call["dtype"], call["d"]) == (64, 0, 1, 1, d)
     for key, want in (("q", q), ("k", k), ("v", v), ("bias", rows[..., 64:128])):
         assert torch.equal(call["data"][key], want), key
 
