@@ -402,8 +402,9 @@ def flash_cases(torch, dtype, gen):
     and cross-attention at bucket 8, the primed self-attention at bucket 2);
     the cross-attention with every key of one batch row hard-masked (out = 0,
     lse = -inf), a causal case, ragged tiles (i = j = 1000 with a bias),
-    d = 128 with ragged tiles, and the 4 heads x 128 flagship's (`tpu_native`)
-    sample and train shapes."""
+    d = 128 with ragged tiles, the 4 heads x 128 flagship's (`tpu_native`)
+    sample and train shapes, and d = 128 on a grid large enough for the
+    one-stage ring with ragged tiles, a bias, a key mask and causal."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
     from phenaki_tpu_torch.ops.positional import alibi_bias
 
@@ -492,17 +493,26 @@ def flash_cases(torch, dtype, gen):
     vt = torch.randn(4, 4, 1152, 128, generator=gen).to("cuda", dtype)
     cases["tpu_native_train_self"] = (qt, kt, vt, torch.randn(4, 1152, 1152, generator=gen).to("cuda", dtype),
                                       torch.zeros(4, 1152, device="cuda"), False)
+    # d = 128 on a grid of 288 blocks, which takes the one-stage ring (the
+    # train shape's): ragged tiles, a bias, a key mask and causal at once
+    qw, kw = qk((18, 4, 200, 128), gen, dtype), qk((18, 4, 200, 128), gen, dtype)
+    vw = torch.randn(18, 4, 200, 128, generator=gen).to("cuda", dtype)
+    keep_w = torch.rand(18, 200, generator=gen) > 0.3
+    keep_w[:, 0] = True  # every causal row sees a key
+    cases["dim_head_128_one_stage"] = (qw, kw, vw, torch.randn(4, 200, 200, generator=gen).to("cuda", dtype),
+                                       torch.where(keep_w, 0.0, NEG_INF).float().cuda(), True)
     return cases
 
 
-# the wgmma kernels and their instances: the forward at d = 64 and 128 for
-# kernels 1 and 3, the backward's dQ (kernel 4) at d = 64 and its dK/dV and
-# dBias (kernels 5 and 6) at d = 64 and 128, the projection sampler's bf16
+# the wgmma kernels and their instances: the forward for kernels 1 and 3 at
+# d = 64, and at d = 128 with a ring of one or two stages, the backward's dQ,
+# dK/dV and dBias (kernels 4-6) at d = 64 and 128, the projection sampler's bf16
 # kernel (kernel 2), the fused CE's bf16
 # forward (kernel 7: h resident up to d = 512, streamed past it) and its dh
 # and dW (kernels 8 and 9: whole tiles at d = 512, and the streamed ring
 # with 128-, 256-, 384- and 512-column output chunks at every other d)
-WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 4, "flash_bwd_dq_wgmma": 1, "flash_bwd_dkv_wgmma": 2,
+WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 2, "flash_fwd_wgmma_d128": 4, "flash_bwd_dq_wgmma": 2,
+                 "flash_bwd_dkv_wgmma": 2,
                  "flash_bwd_dbias_wgmma": 2, "proj_wgmma_kernel": 4, "ce_fwd_wgmma_kernel": 2,
                  "ce_dh_wgmma_kernel": 5, "ce_dw_wgmma_kernel": 5}
 
@@ -652,8 +662,7 @@ def flash_bwd_cases(torch, dtype, gen):
     cases["maskgit_cross_mb2"] = (q2, kc2, vc2, None, torch.where(keep[:2], 0.0, NEG_INF).float().cuda(), False)
     # the 4 heads x 128 flagship's train step (`tpu_native`): self-attention
     # with the (4, 1152, 1152) bias and cross-attention (with the batch row
-    # that sees no key); bf16 at d = 128 runs dK/dV and dBias on wgmma, dQ on
-    # the f32 CUDA cores
+    # that sees no key); bf16 at d = 128 runs dQ, dK/dV and dBias on wgmma
     qn, kn, vn = qk((4, 4, 1152, 128), gen, dtype), qk((4, 4, 1152, 128), gen, dtype), rand(4, 4, 1152, 128)
     cases["tpu_native_self"] = (qn, kn, vn, rand(4, 1152, 1152), torch.zeros(4, 1152, device="cuda"), False)
     kcn, vcn = qk((4, 4, 130, 128), gen, dtype), rand(4, 4, 130, 128)
@@ -743,8 +752,8 @@ def check_flash_bwd(torch):
     # on a slice of the self-attention case; bf16 (the wgmma forward, dQ and
     # dK/dV and dBias) at the whole train shape with an f32 bias, as
     # the CPB gives it, so the Function's casts (bias to bf16 and back, dO to
-    # bf16) are on the path; and so at the 4 heads x 128 train shape (dK/dV
-    # and dBias on wgmma, dQ on the CUDA cores)
+    # bf16) are on the path; and so at the 4 heads x 128 train shape (the
+    # d = 128 forward, dQ, dK/dV and dBias, all on wgmma)
     q, k, v, bias, kmask, _ = flash_bwd_cases(torch, torch.float32, gen)["maskgit_self"]
     f32_leaves = [t[:1, :2].clone() for t in (q, k, v)] + [bias[:2].clone()]
     bf16_cases = flash_bwd_cases(torch, torch.bfloat16, gen)
@@ -810,7 +819,8 @@ def chunk_cases(torch, dtype, gen, b):
     (0, 0) (the diagonal), (576, 0) (wholly visible) and (0, 576) (wholly
     masked: acc = l = 0); and d = 128 with ragged tiles (200 rows and keys),
     its bias slice read in place from (4, 200, 400) rows and a causal mask at
-    offsets (37, 0) that cuts through tiles. Each bias is a slice of rows
+    offsets (37, 0) that cuts through tiles, also on 9 b rows (a grid that
+    takes the d = 128 forward's one-stage ring). Each bias is a slice of rows
     twice its width. Each: (q, k, v, bias, kmask, causal, offsets)."""
     from phenaki_tpu_torch.ops.attention import NEG_INF
 
@@ -822,12 +832,16 @@ def chunk_cases(torch, dtype, gen, b):
     qd, kd = qk((b, 4, 200, 128), gen, dtype), qk((b, 4, 200, 128), gen, dtype)
     vd = torch.randn(b, 4, 200, 128, generator=gen).to("cuda", dtype)
     rows_d = torch.randn(4, 200, 400, generator=gen).to("cuda", dtype)
+    # d = 128 on 9 b rows: a grid of at least 288 blocks, the one-stage ring
+    qw, kw = qk((9 * b, 4, 200, 128), gen, dtype), qk((9 * b, 4, 200, 128), gen, dtype)
+    vw = torch.randn(9 * b, 4, 200, 128, generator=gen).to("cuda", dtype)
     return {"flagship_other_shard": (q, k, v, rows_bias[..., 576:], None, False, None),
             "kmask_own_shard": (q, k, v, rows_bias[..., :576], kmask, False, None),
             "causal_diagonal": (q, k, v, rows_bias[..., :576], None, True, (0, 0)),
             "causal_below": (q, k, v, rows_bias[..., :576], None, True, (576, 0)),
             "causal_above": (q, k, v, rows_bias[..., 576:], None, True, (0, 576)),
-            "dim_head_128_causal": (qd, kd, vd, rows_d[..., 200:], None, True, (37, 0))}
+            "dim_head_128_causal": (qd, kd, vd, rows_d[..., 200:], None, True, (37, 0)),
+            "dim_head_128_one_stage": (qw, kw, vw, rows_d[..., 200:], None, True, (37, 0))}
 
 
 def ring_bound(torch, q, k):

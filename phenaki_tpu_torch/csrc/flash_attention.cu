@@ -30,7 +30,7 @@
 // (16 a clock an SM) and a handful of ALU instructions per score, which at
 // d = 64 cost more issue slots than the products.
 //
-// The design (bf16, d = 64 or 128: flash_fwd_wgmma_kernel): one warpgroup
+// The design (bf16, d = 64: flash_fwd_wgmma_kernel): one warpgroup
 // (128 threads) owns 64 query rows of one (b, h) and walks the key tiles.
 //  - S = Q K^T is one wgmma m64n64k16 chain per 64-key tile, Q and K read by
 //    the tensor cores from shared memory in the 128-byte-swizzled K-major
@@ -49,14 +49,14 @@
 //  - K, V and the bias tile stream through a two-stage ring in shared
 //    memory, filled with 16-byte cp.async (zero-filled past the ragged
 //    edges, which the masks then hide): tile t + 1's copies are in flight
-//    while tile t computes. Shared memory is 59 KB a block at d = 64 (Q 8
-//    KB, two stages of K 8 KB + V 8 KB + bias 9 KB, 1 KB alignment slack),
-//    and the registers stay under 168 (__launch_bounds__), so three blocks
-//    (twelve warps) fit on an SM and the flagship grid of 288 blocks runs in
-//    one wave on 132 SMs (396 slots). d = 128 takes 99 KB: two blocks an SM.
-//    Overlapping tile t's softmax with tile t - 1's P V inside the
-//    warpgroup (a software pipeline) measured no faster on the card at the
-//    flagship shapes, with more registers, and was left out.
+//    while tile t computes. Shared memory is 59 KB a block (Q 8 KB, two
+//    stages of K 8 KB + V 8 KB + bias 9 KB, 1 KB alignment slack), and the
+//    registers stay under 168 (__launch_bounds__), so three blocks (twelve
+//    warps) fit on an SM and the flagship grid of 288 blocks runs in one
+//    wave on 132 SMs (396 slots). Overlapping tile t's softmax with tile
+//    t - 1's P V inside the warpgroup (a software pipeline) measured no
+//    faster on the card at the flagship shapes, with more registers, and
+//    was left out.
 //  - The bias, the largest operand, moves from HBM once per (h, query
 //    tile): the batch is the fastest grid index (blockIdx.x), so the blocks
 //    of one (h, query tile) run side by side and L2 serves every batch row
@@ -64,12 +64,38 @@
 //    tile was the other choice; it would put the batch rows in series inside
 //    a block and cut the grid (and the blocks that hide each other's
 //    softmax) by the batch size.
+// At d = 128 (flash_fwd_wgmma_d128, the 4 heads x 128 flagship) the same
+// loop, with O an m64n128 accumulator (64 registers a thread), was bound by
+// two things at the train step's (4, 4, 1152, 128) with the bias and an
+// all-zero key mask, which a probe of that kernel on the H100 separated
+// (examples/flash_d128_probe.py): the key mask, read column by column from
+// global memory inside the softmax's chain, nearly doubled its time; and at
+// 99 KB a block (two stages of 64 x 128 K and V) two blocks fit an SM, so
+// the grid's 288 blocks ran 264 at once and then a second wave of 24. The
+// d = 128 kernel therefore
+//  - copies each key tile's mask terms (kmask log2(e), or -inf past J or
+//    where the key is hard-masked) into shared memory with the tile and
+//    folds them into the bias's FMA, on the tiles a key mask or the ragged
+//    edge reaches (the other tiles run the d = 64 kernel's epilogue);
+//  - runs a ring of one stage or two, picked at launch: two (101 KB, two
+//    blocks an SM) while the grid fits one wave of two blocks an SM, as the
+//    sample's 144 blocks do; one (59 KB, 168 registers, three blocks an SM)
+//    past that, so that the train step's 288 blocks run in one wave. With one
+//    stage tile t + 1's K and bias are copied under tile t's softmax and P V,
+//    and its V under tile t + 1's S and softmax; a block alone waits longer
+//    for its copies, which is why a grid that fits keeps two.
+// FlashAttention-3's shape, 128 query rows a block in two warpgroups that
+// share each K, V and bias tile, needs about 133 KB: one block an SM, and the
+// train grid's 144 blocks would again run a second wave on 132 SMs. It was
+// not built.
 // The wrapper guarantees what the 16-byte copies need: q, k, v, out and the
 // bias 16-byte aligned, and the bias row stride a multiple of 8 (it copies
 // an operand that is not); the entry points return cudaErrorMisalignedAddress
 // otherwise. f32 and other head sizes run both products on the CUDA cores in
 // f32 (flash_fwd_kernel, 64 x 64 tiles in shared memory), also with the RAW
 // flag; no main path runs it.
+
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -270,8 +296,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Fwd a) {
 
 
 // ---------------------------------------------------------------------------
-// bf16 at d = 64 or 128: wgmma with register-resident scores (see the note
-// at the top; the accumulator layout and the helpers are in wgmma.cuh).
+// bf16 at d = 64: wgmma with register-resident scores (see the note at the
+// top; the accumulator layout and the helpers are in wgmma.cuh).
 // ---------------------------------------------------------------------------
 
 template <int DP>
@@ -483,17 +509,294 @@ __global__ void __launch_bounds__(WG_THREADS, DP == 64 ? 3 : 2) flash_fwd_wgmma_
   }
 }
 
-template <int DP, bool RAW>
+// ---------------------------------------------------------------------------
+// bf16 at d = 128 (flash_fwd_wgmma_d128): the products and softmax of
+// flash_fwd_wgmma_kernel with the key terms staged in shared memory, and a
+// ring of one or two stages (see the note at the top).
+// ---------------------------------------------------------------------------
+
+// Q, then STAGES stages of K, V (64 x 128 each, two swizzled 64-column
+// blocks), the bias tile and the 64 key terms (f32), each stage rounded up to
+// 1 KB; 1 KB to align: 59 KB with one stage (three blocks an SM), 101 KB
+// with two (two blocks an SM)
+template <int STAGES>
+struct D128Smem {
+  static constexpr int tile = BK * 128 * 2;
+  static constexpr int bias = 2 * tile, kadd = bias + BQ * BIAS_LD * 2;
+  static constexpr int stage = (kadd + BK * 4 + 1023) / 1024 * 1024;
+  static constexpr int total = tile + STAGES * stage + 1024;
+};
+
+template <bool RAW, int STAGES>
+__global__ void __launch_bounds__(WG_THREADS, STAGES == 1 ? 3 : 2) flash_fwd_wgmma_d128(Fwd a) {
+  using L = D128Smem<STAGES>;
+  constexpr int DP = 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_base_1k(smem_raw);
+  unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));  // base, generic
+  const uint32_t sQ = base;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int bb = blockIdx.x, q0 = blockIdx.y * BQ, hh = blockIdx.z;
+  const int I = a.I, J = a.J, ldb = a.ldb;
+  const size_t bh = (size_t)bb * a.H + hh;
+  const bf16* qp = (const bf16*)a.q + bh * I * DP;
+  const bf16* kp = (const bf16*)a.k + bh * J * DP;
+  const bf16* vp = (const bf16*)a.v + bh * J * DP;
+  const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * ldb : nullptr;
+  const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
+  const float scale2 = a.scale * LOG2E;
+  const float c2 = RAW ? *a.c2 : 0.f;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this thread's two query rows
+
+  float o[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
+  // running max (log2 units; c2 in RAW mode) and this thread's share of the row sums
+  float m0 = RAW ? c2 : -INFINITY, m1 = m0, l0 = 0.f, l1 = 0.f;
+
+  // K, the bias and the key mask of tile t into its stage, V with them
+  // (two stages) or as a group of its own (one)
+  auto stage_of = [&](int t) { return base + L::tile + (STAGES == 1 ? 0 : (t & 1) * L::stage); };
+  auto load_v = [&](int t) { load_sw128<DP>(stage_of(t) + L::tile, vp, t * BK, J); };
+  auto load_k = [&](int t) {
+    const uint32_t st = stage_of(t);
+    load_sw128<DP>(st, kp, t * BK, J);
+    if (STAGES == 2) load_v(t);
+    if (biasp) load_bias(st + L::bias, biasp, ldb, q0, t * BK, I, J);
+    if (kmaskp && tid < BK) {
+      const bool ok = t * BK + tid < J;
+      cp_async4(st + L::kadd + tid * 4, ok ? kmaskp + t * BK + tid : kmaskp, ok ? 4 : 0);
+    }
+  };
+
+  // Two stages: tile t + 1's copies run under tile t's products and
+  // softmax, as in flash_fwd_wgmma_kernel. One stage: tile t + 1's K and
+  // bias are copied while tile t's softmax and P V run, its V while tile
+  // t + 1's S and softmax run. cp.async groups complete in order, so waiting
+  // for all but the newest group waits for the operand needed next.
+  const int n_tiles = key_tiles(a, q0);
+  if (n_tiles > 0) {
+    load_sw128<DP>(sQ, qp, q0, I);
+    load_k(0);
+    cp_async_commit();
+    if (STAGES == 1) {
+      load_v(0);
+      cp_async_commit();
+    }
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    const uint32_t sK = stage_of(t), sV = sK + L::tile, sb = sK + L::bias;
+    float* const kadd_s = reinterpret_cast<float*>(gbase + (sK - base) + L::kadd);
+    if (STAGES == 2) {
+      if (t + 1 < n_tiles) load_k(t + 1);
+      cp_async_commit();
+    }
+    cp_async_wait<1>();  // this thread's copies of Q, K and the bias of tile t have landed
+    // a tile that a key mask or the ragged edge reaches takes each key's
+    // additive term in log2 units, written by the thread that copied its
+    // mask: -inf past J or where the key is hard-masked
+    const bool key_terms = kmaskp || k0 + BK > J;
+    if (key_terms && tid < BK) {
+      const float km = kmaskp ? kadd_s[tid] : 0.f;
+      kadd_s[tid] = k0 + tid < J && km > MASKED ? km * LOG2E : -INFINITY;
+    }
+    fence_proxy_async();  // visible to wgmma
+    __syncthreads();
+
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss<64, 0>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(s);
+
+    // scores in log2 units: s * scale * log2(e) + (bias + kmask) * log2(e),
+    // -inf where masked; the causal mask only on a tile it reaches. KEYS
+    // says whether the tile takes the key terms: one branch a tile
+    auto scores = [&](auto keys) {
+      constexpr bool KEYS = decltype(keys)::value;
+      if (biasp) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int nq = 0; nq < 2; ++nq) {
+            uint32_t bv[4];  // column blocks 4 nq .. 4 nq + 3 of this thread's row (half)
+            ldmatrix_x4(bv, sb + ((warp * 16 + half * 8 + (lane & 7)) * BIAS_LD + (nq * 4 + (lane >> 3)) * 8) * 2);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float2 b = bf16x2_to_float2(bv[j]);
+              float* sp = s + 4 * (nq * 4 + j) + 2 * half;
+              if constexpr (KEYS) {
+                const float2 ka = *reinterpret_cast<const float2*>(kadd_s + 8 * (nq * 4 + j) + 2 * c);
+                sp[0] = fmaf(sp[0], scale2, fmaf(b.x, LOG2E, ka.x));
+                sp[1] = fmaf(sp[1], scale2, fmaf(b.y, LOG2E, ka.y));
+              } else {
+                sp[0] = fmaf(sp[0], scale2, b.x * LOG2E);
+                sp[1] = fmaf(sp[1], scale2, b.y * LOG2E);
+              }
+            }
+          }
+        }
+      } else if constexpr (KEYS) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 ka = *reinterpret_cast<const float2*>(kadd_s + 8 * n + 2 * c);
+          s[4 * n] = fmaf(s[4 * n], scale2, ka.x);
+          s[4 * n + 1] = fmaf(s[4 * n + 1], scale2, ka.y);
+          s[4 * n + 2] = fmaf(s[4 * n + 2], scale2, ka.x);
+          s[4 * n + 3] = fmaf(s[4 * n + 3], scale2, ka.y);
+        }
+      } else {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) s[x] *= scale2;
+      }
+    };
+    if (key_terms) scores(std::true_type{});
+    else scores(std::false_type{});
+    if (a.causal && k0 + BK - 1 + a.k_off > q0 + a.q_off) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * n + 2 * c + e;
+          if (col + a.k_off > row0 + a.q_off) s[4 * n + e] = -INFINITY;
+          if (col + a.k_off > row1 + a.q_off) s[4 * n + 2 + e] = -INFINITY;
+        }
+      }
+    }
+    if (STAGES == 1) {
+      __syncthreads();  // every thread is done with K, the bias and the key terms of tile t
+      if (t + 1 < n_tiles) load_k(t + 1);
+      cp_async_commit();
+    }
+
+    float tmax0 = -INFINITY, tmax1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      tmax0 = fmaxf(tmax0, fmaxf(s[4 * n], s[4 * n + 1]));
+      tmax1 = fmaxf(tmax1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+    // the shift: the running row max (a row with no key yet shifts by 0),
+    // or the ring's c2; O and the row sums are rescaled by alpha
+    float sh0 = c2, sh1 = c2, al0 = 1.f, al1 = 1.f;
+    if (!RAW) {
+      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 1));
+      tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, 2));
+      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 1));
+      tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, 2));
+      const float mn0 = fmaxf(m0, tmax0), mn1 = fmaxf(m1, tmax1);
+      sh0 = mn0 == -INFINITY ? 0.f : mn0;
+      sh1 = mn1 == -INFINITY ? 0.f : mn1;
+      al0 = ex2(m0 - sh0);
+      al1 = ex2(m1 - sh1);
+      m0 = mn0;
+      m1 = mn1;
+    }
+    l0 *= al0;
+    l1 *= al1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * n + e] = ex2(s[4 * n + e] - sh0);
+        s[4 * n + 2 + e] = ex2(s[4 * n + 2 + e] - sh1);
+        l0 += s[4 * n + e];
+        l1 += s[4 * n + 2 + e];
+      }
+    }
+    if (!RAW) {
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[4 * n] *= al0;
+        o[4 * n + 1] *= al0;
+        o[4 * n + 2] *= al1;
+        o[4 * n + 3] *= al1;
+      }
+    }
+
+    if (STAGES == 1) {
+      cp_async_wait<1>();  // this thread's copies of V of tile t have landed
+      fence_proxy_async();
+      __syncthreads();
+    }
+    // O += P V: P (bf16) packed in place as the A operand, V (keys x d) read
+    // MN-major, the second 64 d-columns one swizzled block further
+    fence_regs(o);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      pack_a(pa, s, kk);
+      wgmma_rs(o, pa, mnmajor_desc(sV, kk));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // every thread is done with V (and, two stages, all) of tile t
+    if (STAGES == 1) {
+      if (t + 1 < n_tiles) load_v(t + 1);
+      cp_async_commit();
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    if (row >= I) continue;
+    const float l = half ? l1 : l0;
+    if (RAW) {
+      float* op = (float*)a.out + (bh * I + row) * DP;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        *reinterpret_cast<float2*>(op + 8 * n + 2 * c) = make_float2(o[4 * n + 2 * half], o[4 * n + 2 * half + 1]);
+      if (c == 0) a.lse[bh * I + row] = l;
+    } else {
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      bf16* op = (bf16*)a.out + (bh * I + row) * DP;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(op + 8 * n + 2 * c) =
+            __floats2bfloat162_rn(o[4 * n + 2 * half] * inv, o[4 * n + 2 * half + 1] * inv);
+      if (a.lse && c == 0)
+        a.lse[bh * I + row] = l > 0.f ? ((half ? m1 : m0) + log2f(l)) * LN2 : -INFINITY;
+    }
+  }
+}
+
+template <bool RAW>
 cudaError_t launch_wgmma(const Fwd& a, cudaStream_t stream) {
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.out) ||
       (a.bias && (!aligned16(a.bias) || a.ldb % 8 != 0)))
     return cudaErrorMisalignedAddress;
-  const int smem = WgSmem<DP>::total;
-  auto kern = flash_fwd_wgmma_kernel<DP, RAW>;
+  // the batch fastest: the blocks that share a bias tile run together
+  const dim3 grid(a.B, (a.I + BQ - 1) / BQ, a.H);
+  void (*kern)(Fwd) = flash_fwd_wgmma_kernel<64, RAW>;
+  int smem = WgSmem<64>::total;
+  if (a.D == 128) {
+    // two stages while the grid fits one wave of two blocks an SM; past
+    // that, one stage and three blocks an SM, so that no second wave runs
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return err;
+    }
+    const bool one_stage = (long)grid.x * grid.y * grid.z > 2L * sms;
+    kern = one_stage ? flash_fwd_wgmma_d128<RAW, 1> : flash_fwd_wgmma_d128<RAW, 2>;
+    smem = one_stage ? D128Smem<1>::total : D128Smem<2>::total;
+  }
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  // the batch fastest: the blocks that share a bias tile run together
-  dim3 grid(a.B, (a.I + BQ - 1) / BQ, a.H);
   kern<<<grid, WG_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -525,8 +828,7 @@ int run(const Fwd& a, int dtype, void* stream) {
     return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32) return dispatch_d<float, RAW>(a, s);
-  if (dtype == kBF16 && a.D == 64) return launch_wgmma<64, RAW>(a, s);
-  if (dtype == kBF16 && a.D == 128) return launch_wgmma<128, RAW>(a, s);
+  if (dtype == kBF16 && (a.D == 64 || a.D == 128)) return launch_wgmma<RAW>(a, s);
   if (dtype == kBF16) return dispatch_d<__nv_bfloat16, RAW>(a, s);
   return cudaErrorInvalidValue;
 }

@@ -29,8 +29,9 @@
 // the forward's arithmetic against the same bytes, so the kernels are bound
 // by arithmetic, and between the products sits an exp per score.
 //
-// bf16 on wgmma: dQ at d = 64 (flash_bwd_dq_wgmma), dK/dV and dBias at
-// d = 64 and 128 (flash_bwd_dkv_wgmma<64|128>, flash_bwd_dbias_wgmma<64|128>).
+// bf16 on wgmma: dQ, dK/dV and dBias at d = 64 and 128
+// (flash_bwd_dq_wgmma<64|128>, flash_bwd_dkv_wgmma<64|128>,
+// flash_bwd_dbias_wgmma<64|128>).
 // The forward's design: one warpgroup a block, wgmma m64nNk16 for every
 // product, the scores never in shared memory.
 //  - dQ owns 64 query rows: Q and dO stay in shared memory; K, V, the
@@ -43,7 +44,15 @@
 //    memory, the causal mask only on tiles it reaches, ex2 against the
 //    row's lse); dS = p (dP - delta) is packed to bf16 in place as the
 //    register A operand of dQ += dS K, with K read MN-major from the same
-//    swizzled tile that was S's K-major B.
+//    swizzled tile that was S's K-major B. At d = 128 the same loop takes 8
+//    k-steps for S and dP, Q and dO stay as 64 x 128 tiles (two swizzled
+//    64-column blocks), and dQ is one m64n128 accumulator (64 registers a
+//    thread; 254 in all, no spill). Q, dO and two stages of K, V and the
+//    bias would take 117 KB, one block an SM, and the train shape's 288
+//    blocks would run in three waves; with one bias buffer, refilled once
+//    every thread has read it (one more barrier a tile), they take 108 KB,
+//    two blocks an SM, and it measured faster at the self and the cross
+//    shape on the H100.
 //  - dK/dV owns 64 keys: K and V stay in shared memory; Q, dO, the bias
 //    tile, lse and delta stream through the ring. S^T = K Q^T and dP^T = V
 //    dO^T put the keys on the accumulator rows, so the key mask is one
@@ -79,16 +88,18 @@
 //    would take 64 KB and leave one block an SM), S and dP sum over the
 //    halves and the epilogue runs after the second; the register cap (three
 //    blocks an SM), the shared memory and the grid stay those of d = 64.
-// dQ at d = 128, f32 and other head sizes run the products on the CUDA
-// cores in f32 (bf16 inputs are widened as they land in shared memory), one
-// 16 x 16 thread grid per block with 4 x 4 score entries a thread: bound by
-// the f32 rate, far below the tensor cores' (dQ at d = 128 is the next to
-// move to wgmma). Every kernel keeps the (i, j) score and probability
+// f32, and bf16 at head sizes other than 64 and 128, run the products on the
+// CUDA cores in f32 (bf16 inputs are widened as they land in shared memory),
+// one 16 x 16 thread grid per block with 4 x 4 score entries a thread: bound
+// by the f32 rate, far below the tensor cores'; no main path runs them.
+// Every kernel keeps the (i, j) score and probability
 // matrices out of device memory, and none needs float atomics: dQ owns a
 // query tile and loops over the key tiles, dK/dV owns a key tile and loops
 // over the query tiles, and dBias owns a (query tile, key tile) pair and
 // loops over the batch inside the block, as the TPU kernel's sequential
 // batch axis does, so every sum is taken in a fixed order.
+
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -446,7 +457,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dbias_kernel(Bwd a, float* 
 
 
 // ---------------------------------------------------------------------------
-// bf16, kernels 4 (d = 64) and 5 (d = 64 and 128): wgmma with S and dP in
+// bf16, kernels 4 and 5 (d = 64 and 128): wgmma with S and dP in
 // registers (see the note at the top; the accumulator layout and the helpers
 // are in wgmma.cuh). One warpgroup a block. Every tile is 64 rows; the operand
 // tiles sit in shared memory in the 128-byte swizzle, so each one is read
@@ -458,11 +469,11 @@ constexpr int WD = 64;                     // the head dim of the tensor-core ke
 constexpr int WG_TILE = BK * WD * 2;       // one 64 x 64 bf16 tile: 8 KB
 constexpr int WG_BIAS = BQ * BIAS_LD * 2;  // one 64 x 64 bias tile, padded rows: 9 KB
 
-// Q and dO (dQ), or K and V (dK/dV), resident, then two stages of the
-// streamed operand pair, the bias tile and 64 f32 terms a column (dQ: each
-// key's mask term; dK/dV: each query row's lse, then its delta), each stage
-// rounded up to 1 KB so its tiles stay on the swizzle grid; 1 KB to align:
-// 69 KB at d = 64, 117 KB at d = 128
+// Q and dO (dQ at d = 64), or K and V (dK/dV), resident, then two stages of
+// the streamed operand pair, the bias tile and 64 f32 terms a column (dQ:
+// each key's mask term; dK/dV: each query row's lse, then its delta), each
+// stage rounded up to 1 KB so its tiles stay on the swizzle grid; 1 KB to
+// align: 69 KB at d = 64, 117 KB at d = 128
 template <int DP>
 struct WgSmem {
   static constexpr int tile = BK * DP * 2;  // 64 rows of DP bf16
@@ -477,17 +488,32 @@ __device__ __forceinline__ float lse_log2(float lse, bool row_ok) {
   return row_ok && lse != -INFINITY ? lse * LOG2E : INFINITY;
 }
 
-__global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16* __restrict__ dq) {
+// dQ at d = 128: Q and dO, two stages of K, V and the key terms, then one
+// bias tile, refilled once every thread has read it; 1 KB to align: 108 KB,
+// two blocks an SM
+struct DqSmem128 {
+  static constexpr int tile = BK * 128 * 2;
+  static constexpr int stats = 2 * tile;
+  static constexpr int stage = (stats + BK * 4 + 1023) / 1024 * 1024;
+  static constexpr int bias = 2 * tile + 2 * stage;
+  static constexpr int total = bias + WG_BIAS + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(WG_THREADS, DP == WD ? 3 : 2)
+flash_bwd_dq_wgmma(Bwd a, bf16* __restrict__ dq) {
+  constexpr bool ONE_BIAS = DP == 128;  // one bias buffer (DqSmem128), or one a stage (WgSmem)
+  using L = std::conditional_t<ONE_BIAS, DqSmem128, WgSmem<DP>>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = smem_base_1k(smem_raw);
-  const uint32_t sQ = base, sdO = base + WG_TILE;
+  const uint32_t sQ = base, sdO = base + L::tile;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
   const int bb = blockIdx.x, q0 = blockIdx.y * BQ, hh = blockIdx.z;
   const int I = a.I, J = a.J, ldb = a.ldb;
   const size_t bh = (size_t)bb * a.H + hh;
-  const bf16* kp = (const bf16*)a.k + bh * J * WD;
-  const bf16* vp = (const bf16*)a.v + bh * J * WD;
+  const bf16* kp = (const bf16*)a.k + bh * J * DP;
+  const bf16* vp = (const bf16*)a.v + bh * J * DP;
   const bf16* biasp = a.bias ? (const bf16*)a.bias + (size_t)hh * I * ldb : nullptr;
   const float* kmaskp = a.kmask ? a.kmask + (size_t)bb * J : nullptr;
   unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));  // base, generic
@@ -499,29 +525,35 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
   const float dl0 = row0 < I ? a.delta[bh * I + row0] : 0.f;
   const float dl1 = row1 < I ? a.delta[bh * I + row1] : 0.f;
 
-  float acc[32];  // dQ / scale
+  float acc[DP / 2];  // dQ / scale
 #pragma unroll
-  for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+  for (int x = 0; x < DP / 2; ++x) acc[x] = 0.f;
 
-  // K, V, the bias and the key mask of key tile t into stage t & 1
+  // K, V, the key mask and (one bias tile a stage) the bias of key tile t
+  // into stage t & 1
   auto load_stage = [&](int t) {
     const int k0 = t * BK;
-    const uint32_t st = base + 2 * WG_TILE + (t & 1) * WgSmem<WD>::stage;
-    load_sw128<WD>(st, kp, k0, J);
-    load_sw128<WD>(st + WG_TILE, vp, k0, J);
-    if (biasp) load_bias(st + 2 * WG_TILE, biasp, ldb, q0, k0, I, J);
+    const uint32_t st = base + 2 * L::tile + (t & 1) * L::stage;
+    load_sw128<DP>(st, kp, k0, J);
+    load_sw128<DP>(st + L::tile, vp, k0, J);
+    if (biasp && !ONE_BIAS) load_bias(st + 2 * L::tile, biasp, ldb, q0, k0, I, J);
     if (kmaskp && tid < BK) {
       const bool ok = k0 + tid < J;
-      cp_async4(st + WgSmem<WD>::stats + tid * 4, ok ? kmaskp + k0 + tid : kmaskp, ok ? 4 : 0);
+      cp_async4(st + L::stats + tid * 4, ok ? kmaskp + k0 + tid : kmaskp, ok ? 4 : 0);
     }
   };
 
-  // tile t + 1's copies run under tile t's products, as in the forward
+  // tile t + 1's copies run under tile t's products, as in the forward; with
+  // one bias buffer tile t + 1's bias is copied, a group of its own, once
+  // tile t's has been read, and lands under tile t's dQ product
   const int n_tiles = key_tiles(a, q0);
   if (n_tiles > 0) {
-    load_sw128<WD>(sQ, (const bf16*)a.q + bh * I * WD, q0, I);
-    load_sw128<WD>(sdO, (const bf16*)a.dout + bh * I * WD, q0, I);
+    load_sw128<DP>(sQ, (const bf16*)a.q + bh * I * DP, q0, I);
+    load_sw128<DP>(sdO, (const bf16*)a.dout + bh * I * DP, q0, I);
     load_stage(0);
+    if constexpr (ONE_BIAS) {
+      if (biasp) load_bias(base + L::bias, biasp, ldb, q0, 0, I, J);
+    }
     cp_async_commit();
   }
   for (int t = 0; t < n_tiles; ++t) {
@@ -531,8 +563,8 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
     // each key's additive term in log2 units, written by the thread that
     // copied its mask: -inf past J or where the key is hard-masked
     const int k0 = t * BK;
-    const int st_off = 2 * WG_TILE + (t & 1) * WgSmem<WD>::stage;
-    float* kadd_s = reinterpret_cast<float*>(gbase + st_off + WgSmem<WD>::stats);
+    const int st_off = 2 * L::tile + (t & 1) * L::stage;
+    float* kadd_s = reinterpret_cast<float*>(gbase + st_off + L::stats);
     if (tid < BK) {
       const float km = kmaskp ? kadd_s[tid] : 0.f;
       kadd_s[tid] = k0 + tid < J && km > MASKED ? km * LOG2E : -INFINITY;
@@ -541,13 +573,13 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T, K and V read K-major
-    const uint32_t sK = base + st_off, sV = sK + WG_TILE;
+    const uint32_t sK = base + st_off, sV = sK + L::tile;
     float s[32], dp[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss<64, 0>(s, kmajor_desc(sQ, kk), kmajor_desc(sK, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sdO, kk), kmajor_desc(sV, kk), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss<64, 0>(dp, kmajor_desc(sdO, kk), kmajor_desc(sV, kk), kk > 0);
     wg_commit();
     wg_wait<0>();
     fence_regs(s);
@@ -559,7 +591,9 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
 #pragma unroll
     for (int n = 0; n < 8; ++n) ka[n] = *reinterpret_cast<const float2*>(kadd_s + 8 * n + 2 * c);
     if (biasp) {
-      const uint32_t sb = sK + 2 * WG_TILE;
+      uint32_t sb;
+      if constexpr (ONE_BIAS) sb = base + L::bias;
+      else sb = sK + 2 * L::tile;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -596,6 +630,11 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
         }
       }
     }
+    if constexpr (ONE_BIAS) {
+      __syncthreads();  // every thread has read the bias tile
+      if (biasp && t + 1 < n_tiles) load_bias(base + L::bias, biasp, ldb, q0, k0 + BK, I, J);
+      cp_async_commit();
+    }
     // dS = p (dP - delta), in place of dP
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -626,9 +665,9 @@ __global__ void __launch_bounds__(WG_THREADS, 3) flash_bwd_dq_wgmma(Bwd a, bf16*
   for (int half = 0; half < 2; ++half) {
     const int row = half ? row1 : row0;
     if (row >= I) continue;
-    bf16* op = dq + (bh * I + row) * WD;
+    bf16* op = dq + (bh * I + row) * DP;
 #pragma unroll
-    for (int n = 0; n < WD / 8; ++n)
+    for (int n = 0; n < DP / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * n + 2 * c) =
           __floats2bfloat162_rn(acc[4 * n + 2 * half] * a.scale, acc[4 * n + 2 * half + 1] * a.scale);
   }
@@ -1010,10 +1049,10 @@ cudaError_t launch_wgmma(void (*kernel)(Bwd, Out...), dim3 grid, int threads, in
   return cudaGetLastError();
 }
 
-// bf16 on wgmma: dQ at d = 64, dK/dV and dBias at d = 64 and 128. The dQ
-// and dK/dV grids run the batch fastest, so the blocks that share a bias
-// tile run together (as the forward's); dBias loops over the batch inside
-// the block, its grid (key tiles, query tiles, heads).
+// bf16 on wgmma: dQ, dK/dV and dBias at d = 64 and 128. The dQ and dK/dV
+// grids run the batch fastest, so the blocks that share a bias tile run
+// together (as the forward's); dBias loops over the batch inside the block,
+// its grid (key tiles, query tiles, heads).
 cudaError_t launch_tensor_cores(Which which, const Bwd& a, void* o1, void* o2, cudaStream_t stream) {
   const int qt = (a.I + BQ - 1) / BQ, kt = (a.J + BK - 1) / BK;
   if (!aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) || !aligned16(a.dout) ||
@@ -1024,8 +1063,8 @@ cudaError_t launch_tensor_cores(Which which, const Bwd& a, void* o1, void* o2, c
     return launch_wgmma(d64 ? flash_bwd_dbias_wgmma<WD> : flash_bwd_dbias_wgmma<128>, dim3(kt, qt, a.H),
                         WG_THREADS, DbSmem::total, stream, a, (float*)o1);
   if (which == kDQ)
-    return launch_wgmma(flash_bwd_dq_wgmma, dim3(a.B, qt, a.H), WG_THREADS, WgSmem<WD>::total, stream, a,
-                        (bf16*)o1);
+    return launch_wgmma(d64 ? flash_bwd_dq_wgmma<WD> : flash_bwd_dq_wgmma<128>, dim3(a.B, qt, a.H), WG_THREADS,
+                        d64 ? WgSmem<WD>::total : DqSmem128::total, stream, a, (bf16*)o1);
   return launch_wgmma(d64 ? flash_bwd_dkv_wgmma<WD> : flash_bwd_dkv_wgmma<128>, dim3(a.B, kt, a.H),
                       WG_THREADS, d64 ? WgSmem<WD>::total : WgSmem<128>::total, stream, a, (bf16*)o1,
                       (bf16*)o2);
@@ -1075,9 +1114,8 @@ int run(Which which, const void* q, const void* k, const void* v, const void* bi
               B, H, I, J, D, ldb, scale, causal, q_off, k_off};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == kF32) return dispatch_d<float>(which, a, o1, o2, s);
-  // bf16: dQ at d = 64, dK/dV and dBias at d = 64 and 128 on wgmma; the
-  // rest on the CUDA cores
-  if (dtype == kBF16 && (D == WD || (D == 128 && which != kDQ)))
+  // bf16 at d = 64 and 128 on wgmma; other head sizes on the CUDA cores
+  if (dtype == kBF16 && (D == WD || D == 128))
     return launch_tensor_cores(which, a, o1, o2, s);
   if (dtype == kBF16) return dispatch_d<__nv_bfloat16>(which, a, o1, o2, s);
   return cudaErrorInvalidValue;
@@ -1092,9 +1130,9 @@ int run(Which which, const void* q, const void* k, const void* v, const void* bi
 // stride, scale, causal and the causal offsets (q_off, k_off): key c is seen
 // by row r iff c + k_off <= r + q_off. Attention over one whole sequence
 // passes (j - i, 0); a ring chunk passes its global positions. In bf16 at
-// d = 64 each entry returns cudaErrorMisalignedAddress unless q, k, v, dO,
-// the bias (and dbias) start on a 16-byte boundary and ldb is a multiple
-// of 8.
+// d = 64 and 128 each entry returns cudaErrorMisalignedAddress unless q, k,
+// v, dO, the bias (and dbias) start on a 16-byte boundary and ldb is a
+// multiple of 8.
 #define PHENAKI_BWD_ARGS                                                                     \
   const void *q, const void *k, const void *v, const void *bias, const void *kmask,          \
       const void *dout, const void *lse, const void *delta

@@ -189,8 +189,7 @@ def _kernel_operands(q, k, v, bias, kmask):
 def _wgmma_route(q) -> bool:
     """True where the call goes to the bf16 wgmma forward (d = 64 or 128 on a
     card), which moves q, k, v and the bias in 16-byte copies, as the wgmma
-    dK/dV and dBias kernels (d = 64 and 128) and dQ kernel (d = 64) move
-    them and dO."""
+    dQ, dK/dV and dBias kernels (d = 64 and 128) move them and dO."""
     return q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128) and _on_card(q)
 
 

@@ -53,16 +53,19 @@ def _qk(rng, *shape):
 
 
 def _case(name):
+    """"d128" is the 4 x 128 flagship's head size (the wgmma forward's d =
+    128 kernel on the card) with a bias and a key mask at once, as its train
+    step calls it."""
     rng = np.random.RandomState(0)
-    b, h, d = 1, 2, 32
-    i, j = {"bias": (128, 128), "kmask": (128, 130), "causal_alibi": (128, 192)}[name]
+    b, h, d = (2, 2, 128) if name == "d128" else (1, 2, 32)
+    i, j = {"bias": (128, 128), "kmask": (128, 130), "causal_alibi": (128, 192), "d128": (128, 130)}[name]
     q, k = _qk(rng, b, h, i, d), _qk(rng, b, h, j, d)
     v = rng.randn(b, h, j, d).astype(np.float32)
     bias = kmask = None
     causal = name == "causal_alibi"
-    if name == "bias":
+    if name in ("bias", "d128"):
         bias = rng.randn(h, i, j).astype(np.float32)
-    if name == "kmask":
+    if name in ("kmask", "d128"):
         keep = rng.rand(b, j) > 0.3
         keep[:, :2] = True  # the null-KV columns are always attended
         kmask = np.where(keep, 0.0, NEG_INF).astype(np.float32)
@@ -79,7 +82,7 @@ def _j(x):
     return None if x is None else jnp.asarray(x)
 
 
-@pytest.mark.parametrize("name", ["bias", "kmask", "causal_alibi"])
+@pytest.mark.parametrize("name", ["bias", "kmask", "causal_alibi", "d128"])
 def test_matches_pallas_kernel_and_reference(name):
     q, k, v, bias, kmask, causal = _case(name)
     out = flash_attention(*map(_t, (q, k, v, bias, kmask)), scale=8.0, causal=causal)
@@ -89,8 +92,9 @@ def test_matches_pallas_kernel_and_reference(name):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref_plain), **TOL)
 
 
-def test_lse_matches_pallas_forward():
-    q, k, v, bias, kmask, causal = _case("kmask")
+@pytest.mark.parametrize("name", ["kmask", "d128"])
+def test_lse_matches_pallas_forward(name):
+    q, k, v, bias, kmask, causal = _case(name)
     _, lse = flash_attention(*map(_t, (q, k, v, bias, kmask)), scale=8.0, return_lse=True)
     _, ref = pa._flash_forward(*map(_j, (q, k, v, bias, kmask)), scale=8.0, causal=False,
                                return_lse=True)

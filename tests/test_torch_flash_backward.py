@@ -96,7 +96,7 @@ def _no_plain(*args, **kwargs):
 def test_plain_backward_matches_pallas_kernels(name):
     """The plain backward against the Pallas kernels; "d128" is the 4 heads x
     128 head size (a bias, a key mask, ragged keys), at which the card holds
-    its dK/dV and dBias kernels against these plain versions."""
+    its dQ, dK/dV and dBias kernels against these plain versions."""
     q, k, v, bias, kmask, causal, dout = _case(name)
     jargs = list(map(_j, (q, k, v, bias, kmask)))
     jout, jlse = pa._flash_forward(*jargs, scale=SCALE, causal=causal, return_lse=True)
@@ -112,10 +112,12 @@ def test_plain_backward_matches_pallas_kernels(name):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL, err_msg=name_)
 
 
-def test_each_kernels_plain_version_matches_the_plain_backward():
+@pytest.mark.parametrize("name", ["ragged", "d128"])
+def test_each_kernels_plain_version_matches_the_plain_backward(name):
     """The plain version of each backward kernel alone (the card's timing
-    reference) gives that kernel's share of the plain backward, exactly."""
-    q, k, v, bias, kmask, causal, dout = _case("ragged")
+    reference and yardstick) gives that kernel's share of the plain
+    backward, exactly: at d = 32 and at the 4 heads x 128 head size."""
+    q, k, v, bias, kmask, causal, dout = _case(name)
     targs = list(map(_t, (q, k, v, bias, kmask)))
     out, lse = flash_attention(*targs, scale=SCALE, causal=causal, return_lse=True)
     args = (*targs, out, lse, _t(dout))
