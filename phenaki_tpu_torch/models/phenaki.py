@@ -84,6 +84,7 @@ from phenaki_tpu_torch.parallel.pipeline import pipeline_stage_module
 from phenaki_tpu_torch.parallel.tp_inference import VocabShardedHead, clone_module, tp_local_module
 from phenaki_tpu_torch.text.t5 import DEFAULT_T5_NAME, get_encoded_dim, t5_encode_text
 from phenaki_tpu_torch.training.checkpoint import load_pytree, save_pytree
+from phenaki_tpu_torch.utils.logging import span
 
 
 def dp_generator(generator: Optional[torch.Generator], shard: int, group=None) -> torch.Generator:
@@ -268,21 +269,33 @@ class Phenaki:
         seeds the sampling noise; `noise_K` scales the critic's score noise.
         `mesh` (every rank of it calls with the same arguments) shards the
         batch, which must divide by its data axes, and runs the trunks
-        tensor-parallel over its tp axis (see the module docstring)."""
-        text_embeds, batch_size = self._text_batch(texts, text_embeds, batch_size)
-        if mesh is not None and mesh.size > 1:
-            return self._sample_on_mesh(mesh, num_frames=num_frames, text_embeds=text_embeds,
-                                        prime_frames=prime_frames, batch_size=batch_size,
-                                        cond_scale=cond_scale, starting_temperature=starting_temperature,
-                                        noise_K=noise_K, generator=generator)
-        prime_ids = self.tokenize_prime(prime_frames) if prime_frames is not None else None
+        tensor-parallel over its tp axis (see the module docstring). A
+        profiler sees the call as the span `phenaki.sample`."""
+        with span("phenaki.sample"):
+            text_embeds, batch_size = self._text_batch(texts, text_embeds, batch_size)
+            if mesh is not None and mesh.size > 1:
+                return self._sample_on_mesh(mesh, num_frames=num_frames, text_embeds=text_embeds,
+                                            prime_frames=prime_frames, batch_size=batch_size,
+                                            cond_scale=cond_scale, starting_temperature=starting_temperature,
+                                            noise_K=noise_K, generator=generator)
+            return self._sample(num_frames=num_frames, text_embeds=text_embeds, prime_frames=prime_frames,
+                                batch_size=batch_size, cond_scale=cond_scale,
+                                starting_temperature=starting_temperature, noise_K=noise_K, generator=generator)
+
+    def _sample(self, *, num_frames: int, text_embeds: Optional[torch.Tensor],
+                prime_frames: Optional[torch.Tensor], batch_size: int, generator: Optional[torch.Generator],
+                **kwargs) -> torch.Tensor:
+        """`sample` on this process's model and rows, inside its span."""
+        prime_ids = None
+        if prime_frames is not None:
+            with span("phenaki.tokenize_prime"):
+                prime_ids = self.tokenize_prime(prime_frames)
         ids = self.sample_ids(num_frames=num_frames, text_embeds=text_embeds, prime_ids=prime_ids,
-                              batch_size=batch_size, cond_scale=cond_scale,
-                              starting_temperature=starting_temperature, noise_K=noise_K,
-                              generator=generator)
-        if prime_ids is None:
-            return self.cvivit.decode_from_codebook_indices(ids)
-        video = self.cvivit.decode_from_codebook_indices(torch.cat([prime_ids, ids], dim=-1))
+                              batch_size=batch_size, generator=generator, **kwargs)
+        with span("phenaki.cvivit_decode"):
+            if prime_ids is None:
+                return self.cvivit.decode_from_codebook_indices(ids)
+            video = self.cvivit.decode_from_codebook_indices(torch.cat([prime_ids, ids], dim=-1))
         return video[:, prime_frames.shape[1]:]
 
     def _sample_on_mesh(self, mesh, *, text_embeds, prime_frames, batch_size: int,
@@ -295,7 +308,7 @@ class Phenaki:
         elif generator is None:
             generator = torch.Generator().manual_seed(collectives.shared_seed(None, mesh.world_group))
         rows = slice(shard * batch_size // n, (shard + 1) * batch_size // n)
-        video = self._sampling_view(mesh).sample(
+        video = self._sampling_view(mesh)._sample(
             text_embeds=text_embeds[rows] if text_embeds is not None else None,
             prime_frames=prime_frames[rows] if prime_frames is not None else None,
             batch_size=batch_size // n, generator=generator, **kwargs)
@@ -323,21 +336,23 @@ class Phenaki:
         dtype = self.maskgit.compute_dtype
         weight = self.maskgit.to_logits.weight
         device = weight.device
-        context = text_mask = None
-        if text_embeds is not None:
-            text_embeds = self.pad_text_embeds(text_embeds.to(device))
-            batch_size = text_embeds.shape[0]
-            text_mask = (text_embeds != 0).any(dim=-1)
-            context = text_embeds.to(dtype)
+        with span("phenaki.prepare"):
+            context = text_mask = None
+            if text_embeds is not None:
+                text_embeds = self.pad_text_embeds(text_embeds.to(device))
+                batch_size = text_embeds.shape[0]
+                text_mask = (text_embeds != 0).any(dim=-1)
+                context = text_embeds.to(dtype)
 
-        prime_num_frames = 0
-        if prime_ids is not None:
-            if prime_ids.shape[0] != batch_size:
-                raise ValueError(f"prime frames of batch {prime_ids.shape[0]} for a batch of {batch_size}")
-            prime_num_frames = self.cvivit.frames_per_num_tokens(prime_ids.shape[1])
-        num_tokens = self.cvivit.num_tokens_per_frames(num_frames, include_first_frame=not prime_num_frames)
-        patch_shape = self.cvivit.get_video_patch_shape(num_frames + prime_num_frames)
-        rel_pos_bias = self.maskgit.rel_pos_bias(patch_shape)
+            prime_num_frames = 0
+            if prime_ids is not None:
+                if prime_ids.shape[0] != batch_size:
+                    raise ValueError(f"prime frames of batch {prime_ids.shape[0]} for a batch of {batch_size}")
+                prime_num_frames = self.cvivit.frames_per_num_tokens(prime_ids.shape[1])
+            num_tokens = self.cvivit.num_tokens_per_frames(num_frames, include_first_frame=not prime_num_frames)
+            patch_shape = self.cvivit.get_video_patch_shape(num_frames + prime_num_frames)
+            rel_pos_bias = self.maskgit.rel_pos_bias(patch_shape)
+            vocab_proj = (weight.to(dtype), self.maskgit.to_logits.bias)
 
         def embeds_fn(ids):
             return self.maskgit.embeds_with_cond_scale(
@@ -370,7 +385,7 @@ class Phenaki:
             noise_K=noise_K,
             critic_noise_anneal_schedule=self.critic_noise_anneal_schedule,
             embeds_fn=embeds_fn,
-            vocab_proj=(weight.to(dtype), self.maskgit.to_logits.bias),
+            vocab_proj=vocab_proj,
             prime_ids=prime_ids,
         )
 

@@ -40,6 +40,7 @@ import torch
 
 from phenaki_tpu_torch.ops.fused_sampling import gumbel_sample_with_score, project_sample
 from phenaki_tpu_torch.ops.sampling import cosine_schedule, topk_mask, uniform
+from phenaki_tpu_torch.utils.logging import span
 
 NEG_SCORE = -1e4
 ANNEAL_SCHEDULES = ("fixed", "decay", "increase")
@@ -109,25 +110,32 @@ def maskgit_sample_loop(
     ids = torch.full((batch, n), mask_id, dtype=torch.long, device=device)
     scores = torch.zeros((batch, n), dtype=torch.float32, device=device)
     for step in range(steps):
-        remask = topk_mask(scores, remask_count(step, steps, n))
-        if step == 0:
-            remask = torch.ones_like(remask)
-        ids = torch.where(remask, mask_id, ids)
-        temperature = starting_temperature * (steps - step - 1) / steps
-        if embeds_fn is not None:
-            weight, bias = vocab_proj
-            pred_ids, pred_scores = project_sample(primed(embeds_fn, ids), weight, bias, temperature,
-                                                   generator=generator)
-        else:
-            pred_ids, pred_scores = gumbel_sample_with_score(
-                primed(logits_fn, ids), temperature, cond_scale=stacked_cfg_scale, generator=generator)
-        ids = torch.where(remask, pred_ids, ids)
-        if critic_fn is None:
-            scores = torch.where(remask, pred_scores, NEG_SCORE)
-        elif step < steps - 1:
-            critic = primed(critic_fn, ids).float()
-            mult = float(critic_noise_multiplier(critic_noise_anneal_schedule, step, steps))
-            scores = critic + noise_K * (uniform(critic.shape, generator, device) - 0.5) * mult
-        else:
-            scores = torch.zeros((batch, n), dtype=torch.float32, device=device)
+        with span("phenaki.decode_step"):
+            with span("phenaki.remask"):
+                remask = topk_mask(scores, remask_count(step, steps, n))
+                if step == 0:
+                    remask = torch.ones_like(remask)
+                ids = torch.where(remask, mask_id, ids)
+            temperature = starting_temperature * (steps - step - 1) / steps
+            with span("phenaki.maskgit_forward"):
+                out = primed(embeds_fn if embeds_fn is not None else logits_fn, ids)
+            with span("phenaki.pick_tokens"):
+                if embeds_fn is not None:
+                    weight, bias = vocab_proj
+                    pred_ids, pred_scores = project_sample(out, weight, bias, temperature, generator=generator)
+                else:
+                    pred_ids, pred_scores = gumbel_sample_with_score(
+                        out, temperature, cond_scale=stacked_cfg_scale, generator=generator)
+                del out  # the embeddings or logits go before the next forward
+                ids = torch.where(remask, pred_ids, ids)
+                if critic_fn is None:
+                    scores = torch.where(remask, pred_scores, NEG_SCORE)
+            if critic_fn is not None and step < steps - 1:
+                with span("phenaki.critic_forward"):
+                    critic = primed(critic_fn, ids).float()
+                mult = float(critic_noise_multiplier(critic_noise_anneal_schedule, step, steps))
+                with span("phenaki.critic_noise"):
+                    scores = critic + noise_K * (uniform(critic.shape, generator, device) - 0.5) * mult
+            elif critic_fn is not None:
+                scores = torch.zeros((batch, n), dtype=torch.float32, device=device)
     return ids

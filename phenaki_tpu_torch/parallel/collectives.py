@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from phenaki_tpu_torch.parallel.ring_attention import _host_transport
+from phenaki_tpu_torch.utils.logging import span
 
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
@@ -47,7 +48,7 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     sees it as the range "collectives.all_reduce"."""
     if group_size(group) == 1:
         return x
-    with torch.profiler.record_function("collectives.all_reduce"):
+    with span("collectives.all_reduce"):
         return _all_reduce(x.detach(), group, op)
 
 

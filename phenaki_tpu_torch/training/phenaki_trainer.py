@@ -38,7 +38,11 @@ generator's state and the step count, all a resume needs to continue
 bit-identically (gradients are accumulated within a step, so no
 accumulation state outlives it; as in the TPU package, the data order is
 not saved). `profile_dir` captures steps [profile_steps) with
-`torch.profiler` into a Chrome trace there.
+`torch.profiler` into a Chrome trace there; a step shows as the spans
+`phenaki.train_data` (the loader's batch onto the device),
+`phenaki.train_loss_backward`, `phenaki.train_optimizer` (the gradients
+completed and averaged, Adam, zeroing) and, when due,
+`phenaki.train_milestone`.
 
 On a mesh (`mesh=`, a `parallel.mesh.Mesh`; JAX `phenaki_trainer.py:128-131,
 172-264`) every rank of it builds the trainer with the same arguments and
@@ -114,7 +118,7 @@ from phenaki_tpu_torch.training.checkpoint import (
 )
 from phenaki_tpu_torch.training.optimizer import get_optimizer, global_grad_norm, param_groups
 from phenaki_tpu_torch.utils.image_grid import save_image_grid
-from phenaki_tpu_torch.utils.logging import start_trace, stop_trace
+from phenaki_tpu_torch.utils.logging import span, start_trace, stop_trace
 from phenaki_tpu_torch.utils.results_folder import prepare_results_folder
 
 VALID_FIELDS = {"videos", "texts", "video_codebook_ids", "video_frame_mask", "text_embeds"}
@@ -416,29 +420,33 @@ class PhenakiTrainer:
         self._maybe_profile(self.step)
         total = 0.0
         for _ in range(self.grad_accum_every):
-            batch = self._device_batch(next(self.dl))
-            loss, _ = self.model.loss(**batch, only_train_generator=only_train_generator,
-                                      only_train_critic=only_train_critic, generator=self.generator,
-                                      dp_group=self.dp_group)
-            (loss / self.grad_accum_every).backward()
-            total = total + loss.detach() / self.grad_accum_every
-        if self.fsdp and self.mesh.pp > 1:  # the stages' layers were kept gathered through the backward
-            for part in (self.model.maskgit, self.model.critic):
-                if part is not None:
-                    reshard(part, (TransformerLayer,))
-        self._complete_grads(only_train_generator, only_train_critic)
-        if self.dp_group is not None:
-            # FSDP averaged its shards' gradients; the rest are averaged here
-            collectives.all_reduce_grads(self.fsdp_ignored if self.fsdp else self.model.parameters(),
-                                         self.dp_group)
-            total = collectives.all_reduce(total, self.dp_group) / collectives.group_size(self.dp_group)
-        self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
+            with span("phenaki.train_data"):
+                batch = self._device_batch(next(self.dl))
+            with span("phenaki.train_loss_backward"):
+                loss, _ = self.model.loss(**batch, only_train_generator=only_train_generator,
+                                          only_train_critic=only_train_critic, generator=self.generator,
+                                          dp_group=self.dp_group)
+                (loss / self.grad_accum_every).backward()
+                total = total + loss.detach() / self.grad_accum_every
+        with span("phenaki.train_optimizer"):
+            if self.fsdp and self.mesh.pp > 1:  # the stages' layers were kept gathered through the backward
+                for part in (self.model.maskgit, self.model.critic):
+                    if part is not None:
+                        reshard(part, (TransformerLayer,))
+            self._complete_grads(only_train_generator, only_train_critic)
+            if self.dp_group is not None:
+                # FSDP averaged its shards' gradients; the rest are averaged here
+                collectives.all_reduce_grads(self.fsdp_ignored if self.fsdp else self.model.parameters(),
+                                             self.dp_group)
+                total = collectives.all_reduce(total, self.dp_group) / collectives.group_size(self.dp_group)
+            self.opt.step()
+            self.opt.zero_grad(set_to_none=True)
         self.step += 1
         if self.step % self.log_every == 0 and self.is_main:
             print(f"{self.step}: loss: {float(total):.4f}")
         if (self.step - 1) % self.save_and_sample_every == 0:
-            self._sample_and_save((self.step - 1) // self.save_and_sample_every)
+            with span("phenaki.train_milestone"):
+                self._sample_and_save((self.step - 1) // self.save_and_sample_every)
         return total
 
     def _sample_and_save(self, milestone: int) -> None:

@@ -1,7 +1,18 @@
 """Metric logging and trace capture (counterpart of
 phenaki_tpu/utils/logging.py): `accum_log`, a rank-0 JSONL `MetricLogger`,
-and `profile_trace`, a `torch.profiler` capture of a region written as a
-Chrome trace (`chrome://tracing`, Perfetto) in place of `jax.profiler`'s.
+`profile_trace`, a `torch.profiler` capture of a region written as a
+Chrome trace (`chrome://tracing`, Perfetto) in place of `jax.profiler`'s,
+and `span`, the program's named ranges inside such a capture.
+
+The spans, each a fixed name under `phenaki.` (no name a prefix of
+another): `phenaki.sample` (a whole `Phenaki.sample` call) holds
+`phenaki.tokenize_prime`, `phenaki.prepare` (the text, the position bias,
+the head's cast), one `phenaki.decode_step` a decoding step and
+`phenaki.cvivit_decode`; a step holds `phenaki.remask`,
+`phenaki.maskgit_forward`, `phenaki.pick_tokens` and, with a critic,
+`phenaki.critic_forward` and `phenaki.critic_noise`. A trainer step holds
+`phenaki.train_data`, `phenaki.train_loss_backward`,
+`phenaki.train_optimizer` and, when due, `phenaki.train_milestone`.
 """
 
 from __future__ import annotations
@@ -42,6 +53,18 @@ class MetricLogger:
         record = {"step": step, "t": time.time() - self._t0, **{k: float(v) for k, v in metrics.items()}}
         with self.path.open("a") as f:
             f.write(json.dumps(record) + "\n")
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context naming the region under it `name` in a running
+    `torch.profiler` capture, on the clock of the device's kernels; with no
+    capture running, one shared context that does nothing (no profiler call)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def start_trace() -> profile:

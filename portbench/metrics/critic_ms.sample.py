@@ -1,0 +1,13 @@
+"""critic_ms.sample: device milliseconds a clip of the kernels launched
+inside the program's `phenaki.critic_forward` spans (the critic's guided
+forward, every decoding step but the last), over the profiled clips. None
+where the program has no such span."""
+
+SPAN = "phenaki.critic_forward"
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.get("clips"):
+        return None
+    seconds = ctx.trace.launched_under_s(SPAN)
+    return seconds * 1e3 / ctx.clips if seconds > 0 else None
