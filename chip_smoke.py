@@ -28,7 +28,8 @@ kernel against its plain PyTorch version at the flagship shapes (the
 flash-attention forward and its three backward kernels (these also at the
 C-ViViT's spatial shape in a GAN train step), the projection
 sampler, the fused cross-entropy forward and its two backward kernels, the
-logits-path sampler; the attention forward also at the C-ViViT encoder's
+logits-path sampler, PEG's stencil (`check_peg`: the MaskGit's and the
+C-ViViT decoder's shapes); the attention forward also at the C-ViViT encoder's
 tokenize shape, the primed MaskGit's and the served batches', the
 projection sampler also on the strided scene rows of primed embeddings and
 at a served bucket 8), checks small fp32 models sampled and trained on the
@@ -135,6 +136,8 @@ CE_TPU = {"ce_fwd": "phenaki_tpu/ops/pallas_ce.py:123",  # _fwd_kernel
 
 GUMBEL_SRC = "phenaki_tpu_torch/csrc/gumbel_sample.cu"
 GUMBEL_TPU = "phenaki_tpu/ops/pallas_sampling.py:33"  # _kernel
+PEG_SRC = "phenaki_tpu_torch/csrc/peg_stencil.cu"
+PEG_TPU = None  # no TPU kernel: XLA's 27-tap loop, phenaki_tpu/ops/positional.py:24 depthwise3x3x3
 CHUNK_TPU = "phenaki_tpu/ops/pallas_attention.py:812"  # flash_attend_chunk (_flash_kernel, offs_ref)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet; dense tensor-core rates)
@@ -147,17 +150,20 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # projection-sampling call a step. A critic (TokenCritic, or SelfCritic on
 # the MaskGit trunk) adds 6 x 2 attention calls on every step but the last;
 # the logits path samples with the logits-path kernel instead of the
-# projection sampler
-SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18}
-CRITIC_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 6 * 2 * 17 + 4, "proj": 18}
-LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18}
+# projection sampler. PEG's stencil: one launch a MaskGit (and critic) layer
+# a forward, one a C-ViViT temporal layer (4 in the decoder, 4 in the
+# encoder); its backward is PyTorch's, and `remat` does not recompute it
+PEG_SAMPLE = 6 * 18 + 4
+SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE}
+CRITIC_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 6 * 2 * 17 + 4, "proj": 18, "peg": PEG_SAMPLE + 6 * 17}
+LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18, "peg": PEG_SAMPLE}
 # kernel launches per flagship train step (grad_accum_every = 1): 6 MaskGit
 # layers x (self + cross attention) forward, dQ and dK/dV; dBias for the
 # self-attention's CPB bias only; one fused CE forward, dh and dW. A
 # TokenCritic adds its 6 x 2 attention calls each way (no position bias, so
 # no dBias) and one projection sample of the generator's tokens
-TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
-CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1)
+TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6}
+CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1, peg=12)
 TRAIN_BATCH, TRAIN_STEPS, CRITIC_TRAIN_STEPS = 4, 5, 3
 # the 4 heads x 128 flagship (`tpu_native=True`) launches what the 8 x 64
 # one does, kernel 1 and kernels 4-6 at d = 128 (dK/dV and dBias on wgmma,
@@ -176,7 +182,7 @@ PATH_NUMBERS = {}
 # call launches kernel 1 once for each of the encoder's 4 spatial layers
 # (its temporal attention, over 9 latent frames, takes the plain path)
 TOKENIZE_BATCH, TOKENIZE_CALLS = 32, 5
-TOKENIZE_LAUNCHES = {"fwd": 4}
+TOKENIZE_LAUNCHES = {"fwd": 4, "peg": 4}
 # the long video: 17 scenes, the first of 17 frames, each later one 16 new
 # frames primed with the previous scene's last 5 (3 latent frames, 384
 # tokens, in front of the scene's 1024). Scene 1 launches what a 17-frame
@@ -184,20 +190,21 @@ TOKENIZE_LAUNCHES = {"fwd": 4}
 # layers), and its decode of 11 latent frames is one call a spatial layer
 LONG_VIDEO_FRAMES = (17,) + (16,) * 16
 LONG_VIDEO_PRIME = 5
-PRIMED_SCENE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4 + 4, "proj": 18}
+PRIMED_SCENE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4 + 4, "proj": 18, "peg": PEG_SAMPLE + 4}
 # sample_images: one latent frame of 128 tokens, decoded by one frame
-IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18}
+IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE}
 # the sequence-sharded flagship over SP ranks (1152 / 2 = 576 rows a rank):
 # a sample launches, on each rank, 2 ring chunks (kernel 3) for each of the 6
 # MaskGit self-attention layers on each of the 18 steps; cross-attention (6 x
 # 18) and the C-ViViT spatial layers (4) stay on kernel 1; the C-ViViT
 # temporal attention (9 frames, indivisible by 2) takes the dense path. A
 # train step: 12 chunks forward, each chunk's dq, dkv and dbias backward,
-# and the cross-attention's kernel 1 forward, dq and dkv
+# and the cross-attention's kernel 1 forward, dq and dkv. Every rank runs
+# the whole forward outside attention, PEG's stencil among it
 SP = 2
-SEQ_SAMPLE_LAUNCHES = {"chunk": 18 * 6 * SP, "fwd": 18 * 6 + 4, "proj": 18}
+SEQ_SAMPLE_LAUNCHES = {"chunk": 18 * 6 * SP, "fwd": 18 * 6 + 4, "proj": 18, "peg": PEG_SAMPLE}
 SEQ_TRAIN_PER_STEP = {"chunk": 6 * SP, "fwd": 6, "dq": 6 + 6 * SP, "dkv": 6 + 6 * SP, "dbias": 6 * SP,
-                      "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+                      "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6}
 SEQ_TRAIN_STEPS = 3
 RANK_TIMEOUT_S = 600  # the spawned ranks' join timeout
 # the mesh paths (data, fully sharded and tensor parallelism) on MESH
@@ -223,7 +230,8 @@ PIPE_STAGES, PIPE_MICROBATCHES, PIPE_TRAIN_STEPS = 2, 4, 2
 PIPE_STAGE_LAYERS = 6 // PIPE_STAGES
 PIPE_ATTENTION_CALLS = PIPE_STAGE_LAYERS * 2 * PIPE_MICROBATCHES  # self + cross, each microbatch
 PIPE_TRAIN_PER_STEP = {"fwd": PIPE_ATTENTION_CALLS, "dq": PIPE_ATTENTION_CALLS, "dkv": PIPE_ATTENTION_CALLS,
-                       "dbias": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+                       "dbias": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1,
+                       "peg": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES}
 # the FSDP x pipeline train path on FSDP_PIPE_RANKS spawned ranks (gloo, all
 # on the one card when it is alone): `PhenakiTrainer(mesh=make_mesh(dp=2,
 # pp=2), fsdp=True, pipeline_microbatches=4)` on the flagship at the mesh
@@ -237,7 +245,7 @@ FSDP_PIPE_MB_LOCAL = PIPE_MICROBATCHES // FSDP_PIPE_DP
 FSDP_PIPE_TRAIN_PER_STEP = {
     "fwd": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL, "dq": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL,
     "dkv": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL, "dbias": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL,
-    "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1}
+    "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL}
 # the C-ViViT overfit check: tests/test_learning.py's C-ViViT, recon-only,
 # 30 Adam steps at lr 3e-3 on one batch, f32 on the card; the last recon loss
 # must be below 0.7 of the first and the reconstruction PSNR must rise
@@ -260,7 +268,8 @@ SAMPLE_TEXT = "a red ball rolls across a green field"
 # spatial layers). Then the resume check: 2 steps on a fixed dataset
 RAW_VIDEOS, RAW_TRAIN_STEPS, RAW_SAMPLES, RESUME_STEPS = 8, 5, 4, 2
 RAW_CAPTIONS = [f"clip {k}: a ball bounces {k + 1} times on a wooden floor" for k in range(RAW_VIDEOS)]
-RAW_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=TRAIN_PER_STEP["fwd"] + TOKENIZE_LAUNCHES["fwd"])
+RAW_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=TRAIN_PER_STEP["fwd"] + TOKENIZE_LAUNCHES["fwd"],
+                          peg=TRAIN_PER_STEP["peg"] + TOKENIZE_LAUNCHES["peg"])
 MILESTONE_LAUNCHES = SAMPLE_LAUNCHES
 
 
@@ -276,10 +285,11 @@ MILESTONE_LAUNCHES = SAMPLE_LAUNCHES
 # attention (9 latent frames) and the discriminator's attention take the
 # plain path; the adaptive weight's gradients stop at the pixel heads. Step
 # 0 also reconstructs a batch with the EMA and the raw parameters (8
-# forward launches each) and checkpoints
+# forward launches each) and checkpoints. PEG's stencil runs once in each of
+# the 4 encoder and 4 decoder temporal layers of each forward
 GAN_BATCH, GAN_STEPS, GAN_PENALTY_EVERY = 4, 8, 4
-GAN_PER_STEP = {"fwd": 16, "dq": 8, "dkv": 8, "dbias": 8}
-GAN_RECON_LAUNCHES = {"fwd": 8}
+GAN_PER_STEP = {"fwd": 16, "dq": 8, "dkv": 8, "dbias": 8, "peg": 16}
+GAN_RECON_LAUNCHES = {"fwd": 8, "peg": 8}
 
 # serving (`PhenakiServer`): the plain flagship served as the TPU package's
 # bench.py serves it, buckets (1, 8), a 40 ms coalescing window, seed 0:
@@ -1321,6 +1331,67 @@ def check_gumbel_kernel(torch):
     return result
 
 
+def check_peg(torch):
+    """`peg_stencil` (PEG with the layer's residual, csrc/peg_stencil.cu)
+    against its plain version at its two main-path shapes: the MaskGit's
+    (and the TokenCritic's) guided forward, 128 rows of a 9 x 8 x 4 grid at
+    d = 512, and the C-ViViT decoder's causal temporal layers at b = 64,
+    read in their (b h w) t d layout. The bf16 output within half a bf16 ulp
+    (rtol 2^-8) and 1e-4 of the plain version in f32 on the same bf16
+    values. `ms` back to back and `graph_ms` by graph replay, each cycling
+    over four inputs (300 MB, beyond the 50 MB L2, so each call reads x
+    from device memory); `plain_ms` the plain version (the windowed
+    multiply-and-sum, its padded copy and the residual add); the bound
+    reads x and writes the output once. `residual_add_graph_ms` is what the
+    layer's residual would cost as its own add after the kernel (graph
+    replay of `out + x` over the same four inputs): the kernel adds it on
+    its centre tap."""
+    import itertools
+
+    from phenaki_tpu_torch.ops.positional import peg_stencil, peg_stencil_plain
+
+    gen = torch.Generator().manual_seed(23)
+    cases = {"maskgit": (128, 9, 8, 4, 512, False, "thw"), "decoder_bhw_t": (64, 9, 8, 4, 512, True, "bhw_t")}
+    result = {}
+    for tag, (b, t, h, w, d, causal, layout) in cases.items():
+        xs = []
+        for _ in range(4):
+            if layout == "thw":
+                xs.append(torch.randn(b, t, h, w, d, generator=gen).to("cuda", torch.bfloat16))
+            else:
+                flat = torch.randn(b * h * w, t, d, generator=gen).to("cuda", torch.bfloat16)
+                xs.append(flat.reshape(b, h, w, t, d).permute(0, 3, 1, 2, 4))
+        weight = ((torch.rand(d, 1, 3, 3, 3, generator=gen) * 2 - 1) / 27**0.5).to("cuda", torch.bfloat16)
+        bias = ((torch.rand(d, generator=gen) * 2 - 1) / 27**0.5).to("cuda", torch.bfloat16)
+        x = xs[0]
+        got = peg_stencil(x, weight, bias, causal)
+        ref = peg_stencil_plain(x.float(), weight.float(), bias.float(), causal)
+        plain = peg_stencil_plain(x, weight, bias, causal)
+        torch.cuda.synchronize()
+        err = (got.float() - ref).abs().max().item()
+        excess = ((got.float() - ref).abs() - 2.0**-8 * ref.abs() - 1e-4).max().item()
+        plain_err = (plain.float() - ref).abs().max().item()
+        cycle = itertools.cycle(xs)
+        ms = cuda_ms(lambda: peg_stencil(next(cycle), weight, bias, causal), reps=20)
+        g_ms = graph_ms(lambda: peg_stencil(next(cycle), weight, bias, causal), reps=20)
+        plain_ms = cuda_ms(lambda: peg_stencil_plain(next(cycle), weight, bias, causal), reps=8)
+        pairs = itertools.cycle([(peg_stencil(xi, weight, bias, causal), xi) for xi in xs])
+        add_ms = graph_ms(lambda: torch.add(*next(pairs)), reps=20)
+        bound_ms, bound_by = bound(2 * nbytes(x) + nbytes(weight, bias), 54 * x.numel(), "f32")
+        phase(f"peg_stencil {tag}", shape=[b, t, h, w, d], causal=causal, layout=layout,
+              strides=list(x.stride()), max_abs_err=err, plain_bf16_max_abs_err=plain_err, ms=ms,
+              graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              graph_roofline_pct=100.0 * bound_ms / g_ms, residual_add_graph_ms=add_ms)
+        check(got.stride() == x.stride(), f"peg_stencil {tag}: output not in x's layout")
+        check(excess <= 0.0, f"peg_stencil {tag}: off the f32 plain version by {excess} beyond its tolerance")
+        # library_ms: no one PyTorch call (a grouped conv3d runs a cuDNN launch a channel)
+        result[tag] = dict(max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None, residual_add_graph_ms=add_ms)
+        del xs, x, got, ref, plain, pairs
+    torch.cuda.empty_cache()
+    return result
+
+
 def check_small_model(torch, reference_layout=False):
     """A small fp32 model whose shapes pass both kernel gates, sampled greedy
     on the card and on the CPU (plain versions): ids equal, video atol 1e-4.
@@ -2058,15 +2129,16 @@ def run_serving_paths(torch, card, profile_path=None):
 def all_kernels():
     """Every kernel's wrapper by key: the attention forward, the ring chunk,
     their three backward kernels, the fused CE's forward and two backward kernels, the
-    projection sampler and the logits-path sampler."""
+    projection sampler, the logits-path sampler and PEG's stencil."""
     import phenaki_tpu_torch.ops.flash_attention as fa
     import phenaki_tpu_torch.ops.fused_ce as ce
     import phenaki_tpu_torch.ops.fused_sampling as fs
+    import phenaki_tpu_torch.ops.positional as pos
 
     return {"fwd": fa.flash_attention, "chunk": fa.flash_attend_chunk, "dq": fa.flash_attention_bwd_dq,
             "dkv": fa.flash_attention_bwd_dkv, "dbias": fa.flash_attention_bwd_dbias,
             "ce_fwd": ce.fused_ce_fwd, "ce_dh": ce.fused_ce_bwd_dh, "ce_dw": ce.fused_ce_bwd_dw,
-            "proj": fs.project_sample, "gumbel": fs.gumbel_sample_with_score}
+            "proj": fs.project_sample, "gumbel": fs.gumbel_sample_with_score, "peg": pos.peg_stencil}
 
 
 def kernel_counts():
@@ -2853,7 +2925,7 @@ def run_cvivit_gan_path(torch, card, profile_path=None):
         torch.cuda.reset_peak_memory_stats()
         seconds, logs = [], []
         launched = gan_step(torch, trainer, seconds, logs)
-        expected = dict(GAN_PER_STEP, fwd=GAN_PER_STEP["fwd"] + 2 * GAN_RECON_LAUNCHES["fwd"])
+        expected = {k: v + 2 * GAN_RECON_LAUNCHES.get(k, 0) for k, v in GAN_PER_STEP.items()}
         check(launched == exact(expected), f"gan step 0: launches {nonzero(launched)} != {expected}")
         for step in range(1, GAN_STEPS + 1):
             launched = gan_step(torch, trainer, seconds, logs)
@@ -2868,7 +2940,7 @@ def run_cvivit_gan_path(torch, card, profile_path=None):
             gifs = sorted((tmp / "results" / f"samples.{label}").glob("*.gif"))
             check(len(gifs) == GAN_BATCH and all(gif_to_tensor(str(g)).shape == (17, *FLAGSHIP_IMAGE_SIZE, 3)
                                                   for g in gifs), f"gan train: reconstructions {gifs}")
-        check(probe.results[0]["launches"] == exact({"fwd": 2 * GAN_RECON_LAUNCHES["fwd"]}),
+        check(probe.results[0]["launches"] == exact(scaled(GAN_RECON_LAUNCHES, 2)),
               f"gan reconstructions: launches {nonzero(probe.results[0]['launches'])}")
         timed_s = seconds[1:]
         with_gp = [s for s, gp in zip(timed_s, penalty[1:]) if gp]
@@ -4181,6 +4253,7 @@ def main() -> int:
     proj_slice = check_proj_primed_slice(torch)
     ce = check_fused_ce(torch)["train_bfloat16"]
     gumbel = check_gumbel_kernel(torch)["stacked_bfloat16"]
+    peg_all = check_peg(torch)
     check_small_model(torch)
     check_small_model(torch, reference_layout=True)
     check_small_train(torch)
@@ -4269,6 +4342,9 @@ def main() -> int:
                             ms=ce["ms"][name], graph_ms=ce["graph_ms"][name], plain_ms=ce["plain_ms"][name],
                             bound_ms=ce["bounds"][name][0], bound_by=ce["bounds"][name][1], library_ms=None,
                             matmul_ms=ce["matmul_ms"][name]))
+    kernels.append(dict(name="peg_stencil", route="cuda", source=PEG_SRC, replaces=PEG_TPU,
+                        launches=launches["peg"], **peg_all["maskgit"],
+                        shapes={tag: peg_all[tag] for tag in peg_all}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

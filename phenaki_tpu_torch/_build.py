@@ -48,6 +48,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
+_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes. Every entry point returns the
 # cudaError_t of its launches (0 = success).
@@ -119,6 +120,13 @@ _SIGNATURES = {
         _I, _I,  # rows, V
         _F, _I, _F,  # 1 / max(temperature, 1e-10), has_cfg, cond_scale
         _U64, _I,  # seed, dtype (0 = f32, 1 = bf16)
+        _P,  # stream
+    ],
+    "peg_stencil": [
+        _P, _P, _P, _P,  # x (b, t, h, w, d), weight (d, 1, 3, 3, 3), bias (d,), out like x
+        _I, _I, _I, _I, _I,  # b, t, h, w, d
+        _L, _L, _L, _L, _L, _L, _L, _L,  # x's and out's strides of (b, t, h, w), in elements
+        _I, _I, _I,  # causal, dtype, the weight's and bias's dtype (0 = f32, 1 = bf16)
         _P,  # stream
     ],
 }
@@ -224,6 +232,20 @@ def ptxas_report(kernel: str) -> list:
         elif current is not None and line.strip() and "Function properties" not in line:
             current.append(line.replace("ptxas info    :", "").strip())
     return [" | ".join(r) for r in report]
+
+
+def on_card(what: str, x: torch.Tensor, *others) -> bool:
+    """Which route a kernel's wrapper takes: False for a CPU tensor (the
+    plain version), True for CUDA tensors on one device; raises for any
+    other device, or operands (None aside) on two. `what` names the kernel
+    in the error."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what}: unsupported device {x.device}")
+    if any(t is not None and t.device != x.device for t in others):
+        raise ValueError(f"{what}: all operands must be on one device")
+    return True
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

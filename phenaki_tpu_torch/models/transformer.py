@@ -64,7 +64,7 @@ class TransformerLayer(nn.Module):
     def forward(self, x, attn_bias=None, context=None, self_attn_mask=None,
                 cross_attn_context_mask=None, video_shape=None):
         if self.peg is not None:
-            x = self.peg(x, shape=video_shape) + x
+            x = self.peg(x, shape=video_shape)  # the residual is PEG's
         x = self._block(self.self_attn, x, self_attn_mask, None, attn_bias) + x
         if self.cross_attn is not None and context is not None:
             x = self._block(self.cross_attn, x, cross_attn_context_mask, context) + x

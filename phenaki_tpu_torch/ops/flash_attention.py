@@ -36,6 +36,7 @@ depend on it).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -215,17 +216,7 @@ def _bias_operand(bias, dtype, wgmma: bool):
     return padded[..., :j]
 
 
-def _on_card(q, *others) -> bool:
-    """False for CPU tensors (the plain versions); True for CUDA tensors on
-    one device; raises for anything else."""
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash attention: unsupported device {q.device}")
-    for t in others:
-        if t is not None and t.device != q.device:
-            raise ValueError("flash attention: all operands must be on one device")
-    return True
+_on_card = functools.partial(_build.on_card, "flash attention")
 
 
 def _forward(q, k, v, bias, kmask, scale, causal, return_lse):

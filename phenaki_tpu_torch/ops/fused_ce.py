@@ -108,17 +108,7 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _on_card(h, *others) -> bool:
-    """False for CPU tensors (the plain versions); True for CUDA tensors on
-    one device that the kernels take; raises for anything else."""
-    if h.device.type == "cpu":
-        return False
-    if h.device.type != "cuda":
-        raise RuntimeError(f"fused cross-entropy: unsupported device {h.device}")
-    for t in others:
-        if t is not None and t.device != h.device:
-            raise ValueError("fused cross-entropy: all operands must be on one device")
-    return True
+_on_card = functools.partial(_build.on_card, "fused cross-entropy")
 
 
 def _check_kernel_shape(h, weight):

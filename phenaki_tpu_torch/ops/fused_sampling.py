@@ -76,14 +76,7 @@ def _seed(generator: Optional[torch.Generator]) -> int:
     return int(torch.randint(0, 2**63 - 1, (1,), generator=gen).item())
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    """False for a CPU tensor (the plain versions); True for a CUDA tensor;
-    raises for any other device."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise RuntimeError(f"sampling kernels: unsupported device {t.device}")
-    return True
+_on_card = functools.partial(_build.on_card, "sampling kernels")
 
 
 def _same_device(ref: torch.Tensor, *others) -> None:

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -11,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from phenaki_tpu_torch import _build
 from phenaki_tpu_torch.parallel.collectives import copy_to_group
 
 
@@ -102,30 +104,82 @@ def _pad(x: torch.Tensor, frame_pad) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 1, 1, 1, *frame_pad))
 
 
+def _taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The depthwise weight (d, 1, 3, 3, 3) as taps (3, 3, 3, d) of `dtype`."""
+    return weight.to(dtype)[:, 0].permute(1, 2, 3, 0)
+
+
+def peg_stencil_plain(x, weight, bias, causal: bool) -> torch.Tensor:
+    """Plain version of `peg_stencil`: x + (the stencil + bias), in x's dtype."""
+    frame_pad = (2, 0) if causal else (1, 1)
+    return _stencil(_pad(x, frame_pad), _taps(weight, x.dtype), x.shape[:4]) + bias.to(x.dtype) + x
+
+
+_on_card = functools.partial(_build.on_card, "PEG kernel")
+
+
+def peg_stencil(x, weight, bias, causal: bool) -> torch.Tensor:
+    """PEG with the layer's residual in one pass: x + bias + the depthwise
+    3x3x3 stencil of x over its (t, h, w) grid, with zero padding (frames
+    (2, 0) if causal, else (1, 1); rows and columns (1, 1)).
+
+    x (b, t, h, w, d) in f32 or bf16, with d and the strides of (b, t, h, w)
+    multiples of 16 bytes (every model's d is a multiple of 8); weight
+    (d, 1, 3, 3, 3) and bias (d,), f32 or bf16, of one dtype, rounded to x's
+    as the plain version casts them. The output has x's layout. A CPU tensor
+    takes the plain version; a CUDA tensor launches csrc/peg_stencil.cu's
+    kernel (f32 sums, one rounding) or raises."""
+    if not _on_card(x, weight, bias):
+        return peg_stencil_plain(x, weight, bias, causal)
+    if x.ndim != 5 or weight.shape != (x.shape[-1], 1, 3, 3, 3) or bias.shape != (x.shape[-1],):
+        raise ValueError(f"PEG kernel: x (b, t, h, w, d) {tuple(x.shape)}, weight (d, 1, 3, 3, 3) "
+                         f"{tuple(weight.shape)} and bias (d,) {tuple(bias.shape)} disagree")
+    if x.dtype not in _build.DTYPES or weight.dtype not in _build.DTYPES or bias.dtype != weight.dtype:
+        raise ValueError(f"PEG kernel takes x in {list(_build.DTYPES)} and weight and bias of one such "
+                         f"dtype, not {x.dtype}, {weight.dtype}, {bias.dtype}")
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    vec = 16 // x.element_size()  # the kernel copies 16 bytes at a time
+    if x.shape[-1] % vec or any(s % vec for s in x.stride()[:4]) or x.data_ptr() % 16:
+        raise ValueError(f"PEG kernel: d ({x.shape[-1]}), x's strides {x.stride()[:4]} and its address "
+                         f"must be multiples of 16 bytes ({vec} {x.dtype} values)")
+    weight, bias = weight.contiguous(), bias.contiguous()
+    out = torch.empty_like(x)  # x's layout where x is dense, else contiguous
+    b, t, h, w, d = x.shape
+    p = _build.ptr
+    err = _build.load_library().peg_stencil(
+        p(x), p(weight), p(bias), p(out), b, t, h, w, d, *x.stride()[:4],
+        *out.stride()[:4], int(causal), _build.DTYPES[x.dtype], _build.DTYPES[weight.dtype],
+        _build.stream(x.device))
+    _build.check(err, "peg_stencil")
+    peg_stencil.launches += 1
+    return out
+
+
+peg_stencil.launches = 0
+
+
 class _Depthwise3x3x3(torch.autograd.Function):
-    """PEG's stencil with an explicit backward, as the TPU package's
+    """`peg_stencil` with an explicit backward, as the TPU package's
     `depthwise3x3x3` VJP: autograd of the overlapping strided view takes
     PyTorch's generic `as_strided` backward, which scatters the (27 x larger)
-    window gradient back with index_add. Here dx is the same stencil over the
-    cotangent with the taps flipped (frame padding swapped), and the tap and
-    bias gradients are f32 reductions."""
+    window gradient back with index_add. Here dx is dy (the residual) plus the
+    same stencil over dy with the taps flipped (frame padding swapped), and
+    the tap and bias gradients are f32 reductions."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, causal):
-        frame_pad = (2, 0) if causal else (1, 1)
-        taps = weight.to(x.dtype)[:, 0].permute(1, 2, 3, 0)  # (3, 3, 3, d)
         ctx.save_for_backward(x, weight, bias)
-        ctx.frame_pad = frame_pad
-        return _stencil(_pad(x, frame_pad), taps, x.shape[:4]) + bias.to(x.dtype)
+        ctx.frame_pad = (2, 0) if causal else (1, 1)
+        return peg_stencil(x, weight, bias, causal)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight, bias = ctx.saved_tensors
         lo, hi = ctx.frame_pad
         grid = x.shape[:4]
-        taps = weight.to(x.dtype)[:, 0].permute(1, 2, 3, 0)
-        # dx[t] = sum_dt dy[t + lo - dt] * k[dt]
-        dx = _stencil(_pad(dy, (hi, lo)), taps.flip(0, 1, 2), grid)
+        # dx[t] = dy[t] + sum_dt dy[t + lo - dt] * k[dt]
+        dx = _stencil(_pad(dy, (hi, lo)), _taps(weight, x.dtype).flip(0, 1, 2), grid) + dy
         dy32 = dy.float()[:, :, :, :, None, None, None, :]
         dtaps = (_windows(_pad(x, (lo, hi)), grid).float() * dy32).sum(dim=(0, 1, 2, 3))
         dweight = dtaps.permute(3, 0, 1, 2)[:, None].to(weight.dtype)
@@ -134,7 +188,8 @@ class _Depthwise3x3x3(torch.autograd.Function):
 
 
 class PEG(nn.Module):
-    """Positional encoding generator: depthwise 3x3x3 conv over the token grid.
+    """Positional encoding generator with the layer's residual: x + a
+    depthwise 3x3x3 conv of x over the token grid (`peg_stencil`).
 
     Causal mode pads (2, 0) on the frame axis, otherwise (1, 1); the spatial
     axes pad (1, 1). `layout` maps a flat (rows, seq, d) input on the grid:
@@ -151,7 +206,8 @@ class PEG(nn.Module):
         self.bias = nn.Parameter(torch.empty(dim))
 
     def forward(self, x: torch.Tensor, shape: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
-        """x: (b, t, h, w, d), or flat (rows, seq, d) with `shape` = (b, t, h, w)."""
+        """x: (b, t, h, w, d), or flat (rows, seq, d) with `shape` = (b, t, h, w).
+        Returns x + PEG(x) in x's shape."""
         orig_shape = x.shape
         d = x.shape[-1]
         if x.ndim == 3:

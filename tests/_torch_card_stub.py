@@ -2,18 +2,23 @@
 card: CPU tensors are sent down the card's route (`stub_card`) into a
 `StubLibrary`, which records each C call of the attention kernels with the
 inputs' addresses and the tensors the kernel would read there (through the
-bias row stride it is given), and writes zeros to the outputs."""
+bias row stride it is given), and writes zeros to the outputs; a call of
+PEG's stencil is recorded with x's address and strides, and gets the plain
+version's result written through the output's strides."""
 
 import ctypes
 
+import numpy as np
 import torch
 
 import phenaki_tpu_torch.ops.flash_attention as fa
 from phenaki_tpu_torch import _build
+from phenaki_tpu_torch.ops.positional import peg_stencil_plain
 
 
 class StubLibrary:
-    """Records each C call of the attention kernels; writes zeros."""
+    """Records each C call of the attention kernels (writes zeros) and of
+    PEG's stencil (writes the plain version's result)."""
 
     def __init__(self, fail: bool = False):
         self.calls, self.fail = [], fail
@@ -90,6 +95,27 @@ class StubLibrary:
                                   ldb, scale, causal, q_off, k_off, dtype, stream):
         return self._bwd("dbias", [(dbias, 4 * h * i * j)], q, k, v, bias, do, b, h, i, j, d, ldb,
                          causal, q_off, k_off, dtype)
+
+    @staticmethod
+    def _view(ptr, shape, strides, dtype):
+        """A tensor over the memory at `ptr` (no copy) with these strides."""
+        span = 1 + sum((n - 1) * s for n, s in zip(shape, strides))
+        ctype = ctypes.c_uint16 if dtype == torch.bfloat16 else ctypes.c_float
+        flat = torch.from_numpy(np.ctypeslib.as_array(ctypes.cast(ptr.value, ctypes.POINTER(ctype)), (span,)))
+        return (flat.view(torch.bfloat16) if dtype == torch.bfloat16 else flat).as_strided(shape, strides)
+
+    def peg_stencil(self, x, weight, bias, out, b, t, h, w, d, xs0, xs1, xs2, xs3, os0, os1, os2, os3,
+                    causal, dtype, weight_dtype, stream):
+        tdtype = next(k for k, v in _build.DTYPES.items() if v == dtype)
+        wdtype = next(k for k, v in _build.DTYPES.items() if v == weight_dtype)
+        shape = (b, t, h, w, d)
+        xv = self._view(x, shape, (xs0, xs1, xs2, xs3, 1), tdtype)
+        wv = self._view(weight, (d, 1, 3, 3, 3), (27, 27, 9, 3, 1), wdtype)
+        bv = self._view(bias, (d,), (1,), wdtype)
+        self.calls.append(("peg", dict(x=x.value, strides=(xs0, xs1, xs2, xs3), out_strides=(os0, os1, os2, os3),
+                                       causal=causal, dtype=dtype, weight_dtype=weight_dtype)))
+        self._view(out, shape, (os0, os1, os2, os3, 1), tdtype).copy_(peg_stencil_plain(xv, wv, bv, bool(causal)))
+        return int(self.fail)
 
 
 def stub_card(lib):

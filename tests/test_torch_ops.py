@@ -1,7 +1,8 @@
 """The port's primitives against the flax modules on bridged weights, fp32 on
 the CPU: LayerNorm (gamma only) and StandardLayerNorm, l2norm_scaled, the
-GEGLU FeedForward, the 2-D and 3-D continuous position bias, PEG in both
-layouts, and LFQ.indices_to_codes. Tolerance atol 1e-5 (1e-4 for the
+GEGLU FeedForward, the 2-D and 3-D continuous position bias, PEG (with the
+layer's residual, forward and gradients) in both layouts, and
+LFQ.indices_to_codes. Tolerance atol 1e-5 (1e-4 for the
 multi-layer blocks).
 """
 
@@ -78,12 +79,32 @@ def test_continuous_position_bias(dims):
 
 @pytest.mark.parametrize("causal, layout", [(False, "thw"), (True, "bhw_t")])
 def test_peg(causal, layout):
+    """PEG carries the layer's residual: the port's PEG(x) is JAX's PEG(x) + x,
+    forward and every gradient (dx, the taps, the bias) at 1e-5."""
     b, t, h, w, d = 2, 3, 4, 2, 8
     rows, seq = (b, t * h * w) if layout == "thw" else (b * h * w, t)
-    x = np.random.RandomState(4).randn(rows, seq, d).astype(np.float32)
+    rng = np.random.RandomState(4)
+    x = rng.randn(rows, seq, d).astype(np.float32)
+    dy = rng.randn(rows, seq, d).astype(np.float32)
     jmod = JPEG(d, causal=causal, layout=layout)
-    _compare(jmod, PEG(d, causal=causal, layout=layout), [jnp.asarray(x)],
-             [torch.from_numpy(x), (b, t, h, w)], 1e-5, jkw=dict(shape=(b, t, h, w)))
+    params = _perturbed(jit_init(jmod, jax.random.PRNGKey(0), jnp.asarray(x), shape=(b, t, h, w)), 0)
+
+    def jax_peg(p, x_):
+        return jmod.apply({"params": p}, x_, shape=(b, t, h, w)) + x_
+
+    ref, vjp = jax.vjp(jax_peg, params, jnp.asarray(x))
+    dparams, dx_ref = vjp(jnp.asarray(dy))
+
+    tmod = load_flax_params(PEG(d, causal=causal, layout=layout), params)
+    xx = torch.from_numpy(x).requires_grad_()
+    out = tmod(xx, (b, t, h, w))
+    (out * torch.from_numpy(dy)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(xx.grad.numpy(), np.asarray(dx_ref), atol=1e-5, rtol=0)
+    # JAX's parameter gradients in the port's layout, through the same bridge
+    want = load_flax_params(PEG(d, causal=causal, layout=layout), _numpy_tree(dparams))
+    np.testing.assert_allclose(tmod.weight.grad.numpy(), want.weight.detach().numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tmod.bias.grad.numpy(), want.bias.detach().numpy(), atol=1e-5, rtol=0)
 
 
 def test_lfq_indices_to_codes():

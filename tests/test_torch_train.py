@@ -112,10 +112,10 @@ def test_peg_grads_match_jax_vjp(causal):
         peg.weight.copy_(torch.from_numpy(np.transpose(kernel, (4, 3, 0, 1, 2)).copy()))
         peg.bias.copy_(torch.from_numpy(bias))
     xx = torch.from_numpy(x).requires_grad_()
-    y = peg(xx)
+    y = peg(xx)  # PEG carries the layer's residual: x + depthwise3x3x3(x)
     (y * torch.from_numpy(dy)).sum().backward()
-    np.testing.assert_allclose(y.detach().numpy(), np.asarray(out), atol=1e-5)
-    np.testing.assert_allclose(xx.grad.numpy(), np.asarray(dx_ref), atol=1e-5)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(out) + x, atol=1e-5)
+    np.testing.assert_allclose(xx.grad.numpy(), np.asarray(dx_ref) + dy, atol=1e-5)
     np.testing.assert_allclose(peg.weight.grad.numpy(),
                                np.transpose(np.asarray(dk_ref), (4, 3, 0, 1, 2)), atol=1e-4)
     np.testing.assert_allclose(peg.bias.grad.numpy(), np.asarray(db_ref), atol=1e-4)
