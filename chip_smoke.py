@@ -138,6 +138,8 @@ GUMBEL_SRC = "phenaki_tpu_torch/csrc/gumbel_sample.cu"
 GUMBEL_TPU = "phenaki_tpu/ops/pallas_sampling.py:33"  # _kernel
 PEG_SRC = "phenaki_tpu_torch/csrc/peg_stencil.cu"
 PEG_TPU = None  # no TPU kernel: XLA's 27-tap loop, phenaki_tpu/ops/positional.py:24 depthwise3x3x3
+NORMS_SRC = "phenaki_tpu_torch/csrc/norms.cu"
+NORMS_TPU = None  # no TPU kernel: XLA fuses phenaki_tpu/ops/norms.py and the head split
 CHUNK_TPU = "phenaki_tpu/ops/pallas_attention.py:812"  # flash_attend_chunk (_flash_kernel, offs_ref)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet; dense tensor-core rates)
@@ -152,25 +154,42 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # the logits path samples with the logits-path kernel instead of the
 # projection sampler. PEG's stencil: one launch a MaskGit (and critic) layer
 # a forward, one a C-ViViT temporal layer (4 in the decoder, 4 in the
-# encoder); its backward is PyTorch's, and `remat` does not recompute it
+# encoder); its backward is PyTorch's, and `remat` does not recompute it.
+# The norm kernels: a MaskGit or critic forward runs 6 layers x 4
+# LayerNorms (the attention's, the cross-attention's and its text context's,
+# the feedforward's) and the stack's final norm ("ln"), and 6 x 2 head splits
+# ("qk"); a C-ViViT decoder or encoder 8 layers x 2 LayerNorms and its two
+# stacks' final norms, and 8 head splits; the encoder also its four patch
+# norms (at patch 16: 768 and 1536 wide, then 512). A forward autograd
+# records launches them all the same (their backward is the plain version's
+# derivative in PyTorch, and launches nothing)
 PEG_SAMPLE = 6 * 18 + 4
-SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE}
-CRITIC_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 6 * 2 * 17 + 4, "proj": 18, "peg": PEG_SAMPLE + 6 * 17}
-LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18, "peg": PEG_SAMPLE}
+NORM_FORWARD = {"ln": 6 * 4 + 1, "qk": 6 * 2}
+NORM_DECODE = {"ln": 8 * 2 + 2, "qk": 8}
+NORM_ENCODE = {"ln": NORM_DECODE["ln"] + 4, "qk": NORM_DECODE["qk"]}
+NORM_SAMPLE = {k: 18 * NORM_FORWARD[k] + NORM_DECODE[k] for k in NORM_FORWARD}
+SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE}
+CRITIC_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 6 * 2 * 17 + 4, "proj": 18, "peg": PEG_SAMPLE + 6 * 17,
+                          **{k: NORM_SAMPLE[k] + 17 * NORM_FORWARD[k] for k in NORM_FORWARD}}
+LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE}
 # kernel launches per flagship train step (grad_accum_every = 1): 6 MaskGit
 # layers x (self + cross attention) forward, dQ and dK/dV; dBias for the
 # self-attention's CPB bias only; one fused CE forward, dh and dW. A
 # TokenCritic adds its 6 x 2 attention calls each way (no position bias, so
 # no dBias) and one projection sample of the generator's tokens
-TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6}
-CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1, peg=12)
+TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6,
+                  **NORM_FORWARD}
+CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1, peg=12,
+                             **{k: 2 * NORM_FORWARD[k] for k in NORM_FORWARD})
 TRAIN_BATCH, TRAIN_STEPS, CRITIC_TRAIN_STEPS = 4, 5, 3
 # the 4 heads x 128 flagship (`tpu_native=True`) launches what the 8 x 64
 # one does, kernel 1 and kernels 4-6 at d = 128 (dK/dV and dBias on wgmma,
 # dQ on its f32 CUDA-core route); `remat=True` on the MaskGit recomputes each of its 12
-# attention calls once in the backward, so kernel 1 launches twice each
+# attention calls once in the backward, so kernel 1 launches twice each, and
+# so do the layers' norm kernels (not the stack's final norm)
 TPU_NATIVE_TRAIN_STEPS = 3
-REMAT_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=2 * TRAIN_PER_STEP["fwd"])
+REMAT_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=2 * TRAIN_PER_STEP["fwd"], ln=2 * NORM_FORWARD["ln"] - 1,
+                            qk=2 * NORM_FORWARD["qk"])
 # a train path's losses beside "train path"'s: bit-equal is expected (the
 # kernels are deterministic); the check allows this relative difference, and
 # the phase prints the largest one seen
@@ -182,7 +201,7 @@ PATH_NUMBERS = {}
 # call launches kernel 1 once for each of the encoder's 4 spatial layers
 # (its temporal attention, over 9 latent frames, takes the plain path)
 TOKENIZE_BATCH, TOKENIZE_CALLS = 32, 5
-TOKENIZE_LAUNCHES = {"fwd": 4, "peg": 4}
+TOKENIZE_LAUNCHES = {"fwd": 4, "peg": 4, **NORM_ENCODE}
 # the long video: 17 scenes, the first of 17 frames, each later one 16 new
 # frames primed with the previous scene's last 5 (3 latent frames, 384
 # tokens, in front of the scene's 1024). Scene 1 launches what a 17-frame
@@ -190,9 +209,10 @@ TOKENIZE_LAUNCHES = {"fwd": 4, "peg": 4}
 # layers), and its decode of 11 latent frames is one call a spatial layer
 LONG_VIDEO_FRAMES = (17,) + (16,) * 16
 LONG_VIDEO_PRIME = 5
-PRIMED_SCENE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4 + 4, "proj": 18, "peg": PEG_SAMPLE + 4}
+PRIMED_SCENE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4 + 4, "proj": 18, "peg": PEG_SAMPLE + 4,
+                         **{k: NORM_SAMPLE[k] + NORM_ENCODE[k] for k in NORM_FORWARD}}
 # sample_images: one latent frame of 128 tokens, decoded by one frame
-IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE}
+IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE}
 # the sequence-sharded flagship over SP ranks (1152 / 2 = 576 rows a rank):
 # a sample launches, on each rank, 2 ring chunks (kernel 3) for each of the 6
 # MaskGit self-attention layers on each of the 18 steps; cross-attention (6 x
@@ -202,9 +222,9 @@ IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE}
 # and the cross-attention's kernel 1 forward, dq and dkv. Every rank runs
 # the whole forward outside attention, PEG's stencil among it
 SP = 2
-SEQ_SAMPLE_LAUNCHES = {"chunk": 18 * 6 * SP, "fwd": 18 * 6 + 4, "proj": 18, "peg": PEG_SAMPLE}
+SEQ_SAMPLE_LAUNCHES = {"chunk": 18 * 6 * SP, "fwd": 18 * 6 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE}
 SEQ_TRAIN_PER_STEP = {"chunk": 6 * SP, "fwd": 6, "dq": 6 + 6 * SP, "dkv": 6 + 6 * SP, "dbias": 6 * SP,
-                      "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6}
+                      "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6, **NORM_FORWARD}
 SEQ_TRAIN_STEPS = 3
 RANK_TIMEOUT_S = 600  # the spawned ranks' join timeout
 # the mesh paths (data, fully sharded and tensor parallelism) on MESH
@@ -225,13 +245,15 @@ MESH_SERVE_REQUESTS = 2
 # runs them on all 4 microbatches: kernel 1 (self + cross attention), dQ and
 # dK/dV 3 x 2 x 4 times a step, dBias (the self-attention's CPB bias) 3 x 4
 # times; the loss runs on every rank's replicated output, as in the JAX
-# package, so each rank launches the fused CE's three kernels once a step
+# package, so each rank launches the fused CE's three kernels once a step,
+# and the stack's final norm after its layers' 4 LayerNorms and 2 head splits
 PIPE_STAGES, PIPE_MICROBATCHES, PIPE_TRAIN_STEPS = 2, 4, 2
 PIPE_STAGE_LAYERS = 6 // PIPE_STAGES
 PIPE_ATTENTION_CALLS = PIPE_STAGE_LAYERS * 2 * PIPE_MICROBATCHES  # self + cross, each microbatch
 PIPE_TRAIN_PER_STEP = {"fwd": PIPE_ATTENTION_CALLS, "dq": PIPE_ATTENTION_CALLS, "dkv": PIPE_ATTENTION_CALLS,
                        "dbias": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1,
-                       "peg": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES}
+                       "peg": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES, "ln": PIPE_STAGE_LAYERS * 4 * PIPE_MICROBATCHES + 1,
+                       "qk": PIPE_ATTENTION_CALLS}
 # the FSDP x pipeline train path on FSDP_PIPE_RANKS spawned ranks (gloo, all
 # on the one card when it is alone): `PhenakiTrainer(mesh=make_mesh(dp=2,
 # pp=2), fsdp=True, pipeline_microbatches=4)` on the flagship at the mesh
@@ -245,7 +267,8 @@ FSDP_PIPE_MB_LOCAL = PIPE_MICROBATCHES // FSDP_PIPE_DP
 FSDP_PIPE_TRAIN_PER_STEP = {
     "fwd": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL, "dq": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL,
     "dkv": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL, "dbias": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL,
-    "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL}
+    "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL,
+    "ln": PIPE_STAGE_LAYERS * 4 * FSDP_PIPE_MB_LOCAL + 1, "qk": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL}
 # the C-ViViT overfit check: tests/test_learning.py's C-ViViT, recon-only,
 # 30 Adam steps at lr 3e-3 on one batch, f32 on the card; the last recon loss
 # must be below 0.7 of the first and the reconstruction PSNR must rise
@@ -269,7 +292,8 @@ SAMPLE_TEXT = "a red ball rolls across a green field"
 RAW_VIDEOS, RAW_TRAIN_STEPS, RAW_SAMPLES, RESUME_STEPS = 8, 5, 4, 2
 RAW_CAPTIONS = [f"clip {k}: a ball bounces {k + 1} times on a wooden floor" for k in range(RAW_VIDEOS)]
 RAW_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=TRAIN_PER_STEP["fwd"] + TOKENIZE_LAUNCHES["fwd"],
-                          peg=TRAIN_PER_STEP["peg"] + TOKENIZE_LAUNCHES["peg"])
+                          peg=TRAIN_PER_STEP["peg"] + TOKENIZE_LAUNCHES["peg"],
+                          **{k: TRAIN_PER_STEP[k] + NORM_ENCODE[k] for k in NORM_FORWARD})
 MILESTONE_LAUNCHES = SAMPLE_LAUNCHES
 
 
@@ -286,10 +310,26 @@ MILESTONE_LAUNCHES = SAMPLE_LAUNCHES
 # plain path; the adaptive weight's gradients stop at the pixel heads. Step
 # 0 also reconstructs a batch with the EMA and the raw parameters (8
 # forward launches each) and checkpoints. PEG's stencil runs once in each of
-# the 4 encoder and 4 decoder temporal layers of each forward
+# the 4 encoder and 4 decoder temporal layers of each forward. The norm
+# kernels run in every C-ViViT forward (the generator phase's and the
+# reconstructions), and once in each of the discriminator's calls on its one
+# attention block: the generator phase's perceptual features of the real
+# frame (without a gradient) and of the reconstructed one, and its logits of
+# the reconstructed one; the discriminator phase's logits of the fake and of
+# the real frame; on a penalty step once more, the R1 penalty's logits
 GAN_BATCH, GAN_STEPS, GAN_PENALTY_EVERY = 4, 8, 4
-GAN_PER_STEP = {"fwd": 16, "dq": 8, "dkv": 8, "dbias": 8, "peg": 16}
-GAN_RECON_LAUNCHES = {"fwd": 8, "peg": 8}
+GAN_RECON_LAUNCHES = {"fwd": 8, "peg": 8, **{k: NORM_ENCODE[k] + NORM_DECODE[k] for k in NORM_FORWARD}}
+GAN_PER_STEP = {"fwd": 16, "dq": 8, "dkv": 8, "dbias": 8, "peg": 16,
+                **{k: 2 * GAN_RECON_LAUNCHES[k] + 5 for k in NORM_FORWARD}}
+GAN_PENALTY_LAUNCHES = {"ln": 1, "qk": 1}
+
+
+def gan_step_launches(step):
+    """A GAN step's launches: GAN_PER_STEP, and the R1 penalty's on every
+    GAN_PENALTY_EVERY-th step."""
+    extra = GAN_PENALTY_LAUNCHES if step % GAN_PENALTY_EVERY == 0 else {}
+    return {k: v + extra.get(k, 0) for k, v in GAN_PER_STEP.items()}
+
 
 # serving (`PhenakiServer`): the plain flagship served as the TPU package's
 # bench.py serves it, buckets (1, 8), a 40 ms coalescing window, seed 0:
@@ -1392,6 +1432,119 @@ def check_peg(torch):
     return result
 
 
+def _within_one_ulp(torch, got, want):
+    """How far the bf16 `got` lies beyond one bf16 ulp of the larger
+    magnitude (1e-6 at least) from `want`: <= 0 where it is within."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() - (2.0**-7 * torch.maximum(g.abs(), w.abs())).clamp_min(1e-6)).max().item()
+
+
+def check_norms(torch):
+    """The trunk's norm kernels (csrc/norms.cu) against their plain versions
+    at the sampling path's shapes, bf16: `layer_norm` (`layernorm_kernel`) on
+    the MaskGit's and the TokenCritic's guided forward (128 rows of 288 tokens
+    at d = 512, the attention's norm and the feedforward's with beta), the
+    text context (128 x 128 at 768), the C-ViViT decoder's temporal and
+    spatial layers and the encoder's patch norms at patch 32 (3072 and 6144
+    wide, a block a row); `qk_norm_split` (`qk_norm_split_kernel`) on the MaskGit's
+    self-attention (the fused (b, n, 3 * 512) product) and cross-attention (128
+    text keys and 2 null key/values), and the decoder's. Each output within
+    one bf16 ulp of the plain version (both round an f32 value once for
+    LayerNorm; the plain q/k normalisation rounds twice), v bit-equal. `ms`
+    back to back and `graph_ms` by graph replay, each cycling over four inputs
+    (beyond the 50 MB L2, so each call reads from device memory); `plain_ms`
+    the plain version; `library_ms` and `library_graph_ms` PyTorch's fused
+    `F.layer_norm` (f32 statistics, one rounding, gamma and beta in x's
+    dtype: the one library call that computes the same function); the bound
+    reads every input and writes every output once. At the MaskGit's shape
+    the LayerNorm must be within 1.5x of its bound and the head split within
+    2x."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from phenaki_tpu_torch.ops.attention import qk_norm_split, qk_norm_split_plain
+    from phenaki_tpu_torch.ops.norms import EPS, layer_norm, layer_norm_plain
+
+    gen = torch.Generator().manual_seed(24)
+    bf16 = torch.bfloat16
+
+    def params(d, beta):
+        gamma = (1 + 0.5 * torch.randn(d, generator=gen)).to("cuda", bf16)
+        return gamma, (0.5 * torch.randn(d, generator=gen)).to("cuda", bf16) if beta else None
+
+    result = {}
+    ln_cases = {"maskgit": ((128, 288, 512), False), "maskgit_ff": ((128, 288, 512), True),
+                "text_context": ((128, 128, 768), False), "decoder_temporal": ((2048, 9, 512), True),
+                "decoder_spatial": ((576, 32, 512), False), "patch_norm_3072": ((128, 32, 3072), True),
+                "patch_norm_6144": ((32, 256, 6144), True)}
+    for tag, (shape, beta) in ln_cases.items():
+        xs = [(2 * torch.randn(*shape, generator=gen) + 0.5).to("cuda", bf16) for _ in range(4)]
+        gamma, b = params(shape[-1], beta)
+        x = xs[0]
+        got, plain = layer_norm(x, gamma, b), layer_norm_plain(x, gamma, b)
+        excess = _within_one_ulp(torch, got, plain)
+        cycle = itertools.cycle(xs)
+        ms = cuda_ms(lambda: layer_norm(next(cycle), gamma, b), reps=20)
+        g_ms = graph_ms(lambda: layer_norm(next(cycle), gamma, b), reps=20)
+        plain_ms = cuda_ms(lambda: layer_norm_plain(next(cycle), gamma, b), reps=8)
+        d = shape[-1]
+        lib_ms = cuda_ms(lambda: F.layer_norm(next(cycle), (d,), gamma, b, EPS), reps=20)
+        lib_g_ms = graph_ms(lambda: F.layer_norm(next(cycle), (d,), gamma, b, EPS), reps=20)
+        lib_excess = _within_one_ulp(torch, F.layer_norm(x, (d,), gamma, b, EPS), plain)
+        bound_ms, bound_by = bound(2 * nbytes(x) + nbytes(gamma, b), 8 * x.numel(), "f32")
+        phase(f"layer_norm {tag}", shape=list(shape), beta=beta, max_abs_err=(got.float() - plain.float()).abs().max().item(),
+              ulp_excess=excess, ms=ms, graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
+              library_graph_ms=lib_g_ms, library_ulp_excess=lib_excess, bound_ms=bound_ms, bound_by=bound_by,
+              graph_roofline_pct=100.0 * bound_ms / g_ms, library_graph_roofline_pct=100.0 * bound_ms / lib_g_ms)
+        check(excess <= 0.0, f"layer_norm {tag}: more than one bf16 ulp off the plain version (by {excess})")
+        result[f"layer_norm_{tag}"] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                           bound_by=bound_by, library_ms=lib_ms, library_graph_ms=lib_g_ms)
+        del xs, x, got, plain
+    qk_cases = {"maskgit_self": (128, 288, 288, 0, True), "maskgit_cross": (128, 288, 128, 2, False),
+                "decoder_spatial": (576, 32, 32, 0, True), "decoder_temporal": (2048, 9, 9, 0, True)}
+    heads, d = 8, 64
+    inner = heads * d
+    for tag, (b, n, m, null, fused) in qk_cases.items():
+        inputs = []
+        for _ in range(4):
+            if fused:
+                qkv = torch.randn(b, n, 3 * inner, generator=gen).to("cuda", bf16)
+                inputs.append((qkv[..., :inner], qkv[..., inner:2 * inner], qkv[..., 2 * inner:]))
+            else:
+                kv = torch.randn(b, m, 2 * inner, generator=gen).to("cuda", bf16)
+                inputs.append((torch.randn(b, n, inner, generator=gen).to("cuda", bf16), kv[..., :inner],
+                               kv[..., inner:]))
+        qs, ks = (params(d, False)[0] for _ in range(2))
+        null_kv = torch.randn(heads, 2 * null, d, generator=gen).to("cuda", bf16) if null else None
+        q, k, v = inputs[0]
+        got, plain = qk_norm_split(q, k, v, heads, qs, ks, null_kv), qk_norm_split_plain(q, k, v, heads, qs, ks, null_kv)
+        excess = max(_within_one_ulp(torch, g, w) for g, w in zip(got[:2], plain[:2]))
+        cycle = itertools.cycle(inputs)
+        ms = cuda_ms(lambda: qk_norm_split(*next(cycle), heads, qs, ks, null_kv), reps=20)
+        g_ms = graph_ms(lambda: qk_norm_split(*next(cycle), heads, qs, ks, null_kv), reps=20)
+        plain_ms = cuda_ms(lambda: [t.contiguous() for t in qk_norm_split_plain(*next(cycle), heads, qs, ks, null_kv)],
+                           reps=8)
+        moved = nbytes(q, k, v, null_kv, qs, ks) + nbytes(*got)
+        bound_ms, bound_by = bound(moved, 3 * (q.numel() + k.numel()), "f32")
+        phase(f"qk_norm_split {tag}", b=b, n=n, m=m, num_null=null, heads=heads, d=d, ulp_excess=excess,
+              v_equal=bool(torch.equal(got[2], plain[2])), contiguous=all(t.is_contiguous() for t in got),
+              ms=ms, graph_ms=g_ms, plain_with_copies_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              graph_roofline_pct=100.0 * bound_ms / g_ms)
+        check(excess <= 0.0, f"qk_norm_split {tag}: more than one bf16 ulp off the plain version (by {excess})")
+        check(torch.equal(got[2], plain[2]) and all(t.is_contiguous() for t in got),
+              f"qk_norm_split {tag}: v not copied bit for bit, or an output not contiguous")
+        result[f"qk_norm_split_{tag}"] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                              bound_by=bound_by, library_ms=None)
+        del inputs, q, k, v, got, plain
+    torch.cuda.empty_cache()
+    for key, limit in (("layer_norm_maskgit", 1.5), ("qk_norm_split_maskgit_self", 2.0)):
+        r = result[key]
+        check(r["graph_ms"] <= limit * r["bound_ms"],
+              f"{key}: {r['graph_ms']:.5f} ms by graph replay, over {limit}x its bound {r['bound_ms']:.5f} ms")
+    return result
+
+
 def check_small_model(torch, reference_layout=False):
     """A small fp32 model whose shapes pass both kernel gates, sampled greedy
     on the card and on the CPU (plain versions): ids equal, video atol 1e-4.
@@ -2129,16 +2282,20 @@ def run_serving_paths(torch, card, profile_path=None):
 def all_kernels():
     """Every kernel's wrapper by key: the attention forward, the ring chunk,
     their three backward kernels, the fused CE's forward and two backward kernels, the
-    projection sampler, the logits-path sampler and PEG's stencil."""
+    projection sampler, the logits-path sampler, PEG's stencil, the LayerNorm and
+    the attention's head split with its q/k l2norm."""
+    import phenaki_tpu_torch.ops.attention as attention
     import phenaki_tpu_torch.ops.flash_attention as fa
     import phenaki_tpu_torch.ops.fused_ce as ce
     import phenaki_tpu_torch.ops.fused_sampling as fs
+    import phenaki_tpu_torch.ops.norms as norms
     import phenaki_tpu_torch.ops.positional as pos
 
     return {"fwd": fa.flash_attention, "chunk": fa.flash_attend_chunk, "dq": fa.flash_attention_bwd_dq,
             "dkv": fa.flash_attention_bwd_dkv, "dbias": fa.flash_attention_bwd_dbias,
             "ce_fwd": ce.fused_ce_fwd, "ce_dh": ce.fused_ce_bwd_dh, "ce_dw": ce.fused_ce_bwd_dw,
-            "proj": fs.project_sample, "gumbel": fs.gumbel_sample_with_score, "peg": pos.peg_stencil}
+            "proj": fs.project_sample, "gumbel": fs.gumbel_sample_with_score, "peg": pos.peg_stencil,
+            "ln": norms.layer_norm, "qk": attention.qk_norm_split}
 
 
 def kernel_counts():
@@ -2804,7 +2961,9 @@ def check_small_discriminator(torch):
     the card and on the CPU: the hinge loss plus the R1 penalty, and every
     gradient of it (second order through the plain attention). The loss
     agrees within 1e-4 relative and each gradient within 1e-3 * max|g| of
-    its tensor (floored at 1e-5), TF32 off; no kernel is launched."""
+    its tensor (floored at 1e-5), TF32 off; no attention kernel is launched,
+    the norm kernels once in each of its three calls (their gradients, to
+    the second order, are the plain version's)."""
     import copy
 
     import phenaki_tpu_torch.models.cvivit_losses as L
@@ -2830,7 +2989,7 @@ def check_small_discriminator(torch):
     phase("small fp32 discriminator R1 card vs cpu", loss_cpu=loss_cpu, loss_gpu=loss_gpu,
           gradients=len(g_cpu), worst_grad_rel_err=worst, kernel_launches=nonzero(launched))
     check(sorted(g_cpu) == sorted(g_gpu), "the discriminator's gradients differ in which parameters they reach")
-    check(not nonzero(launched), f"the discriminator launched kernels: {nonzero(launched)}")
+    check(launched == exact({"ln": 3, "qk": 3}), f"the discriminator launched kernels: {nonzero(launched)}")
     check(abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu), f"R1 loss differs: {loss_gpu} vs {loss_cpu}")
     check(worst <= 1e-3, f"a discriminator gradient differs between card and CPU by {worst} of its max")
 
@@ -2887,7 +3046,7 @@ def run_cvivit_gan_path(torch, card, profile_path=None):
     warm-up, whose reconstructions (EMA and raw parameters: 4 GIFs each,
     each decoding to 17 x 256 x 128) and checkpoint are timed apart; every
     step launches exactly GAN_PER_STEP (step 0 also GAN_RECON_LAUNCHES for
-    each reconstruction). Steps 1-8 give the seconds a step with and without
+    each reconstruction; a penalty step also GAN_PENALTY_LAUNCHES). Steps 1-8 give the seconds a step with and without
     the penalty, videos/s over the 8 (2 of them with the penalty: the
     1-in-4 mix), the host's wait for data and peak memory; two more steps
     under `torch.profiler`, one without the penalty and one with, the
@@ -2925,11 +3084,12 @@ def run_cvivit_gan_path(torch, card, profile_path=None):
         torch.cuda.reset_peak_memory_stats()
         seconds, logs = [], []
         launched = gan_step(torch, trainer, seconds, logs)
-        expected = {k: v + 2 * GAN_RECON_LAUNCHES.get(k, 0) for k, v in GAN_PER_STEP.items()}
+        expected = {k: v + 2 * GAN_RECON_LAUNCHES.get(k, 0) for k, v in gan_step_launches(0).items()}
         check(launched == exact(expected), f"gan step 0: launches {nonzero(launched)} != {expected}")
         for step in range(1, GAN_STEPS + 1):
             launched = gan_step(torch, trainer, seconds, logs)
-            check(launched == exact(GAN_PER_STEP), f"gan step {step}: launches {nonzero(launched)} != {GAN_PER_STEP}")
+            expected = gan_step_launches(step)
+            check(launched == exact(expected), f"gan step {step}: launches {nonzero(launched)} != {expected}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         check(all(math.isfinite(v) for entry in logs for v in entry.values()), f"gan train: non-finite logs {logs}")
         check(all(entry["adaptive_weight"] > 0 for entry in logs), "gan train: adaptive weight not > 0")
@@ -2954,9 +3114,11 @@ def run_cvivit_gan_path(torch, card, profile_path=None):
             profiled[label] = profile_gan_step(
                 torch, trainer, f"{profile_path}.{label}.txt" if profile_path else None)
         launches = kernel_counts()
-        check(launches == exact({k: v * (len(logs) + 2) + (2 * GAN_RECON_LAUNCHES.get(k, 0))
-                                 for k, v in GAN_PER_STEP.items()}),
-              f"gan train: launches {nonzero(launches)} over {len(logs) + 2} steps")
+        # the logged steps and the two profiled ones, the second with the penalty
+        penalties = sum(entry["grad_penalty"] > 0 for entry in logs) + 1
+        check(launches == exact({k: v * (len(logs) + 2) + penalties * GAN_PENALTY_LAUNCHES.get(k, 0)
+                                 + 2 * GAN_RECON_LAUNCHES.get(k, 0) for k, v in GAN_PER_STEP.items()}),
+              f"gan train: launches {nonzero(launches)} over {len(logs) + 2} steps, {penalties} with the penalty")
         ckpt = trainer.checkpoints.path(0)
         phase("cvivit gan train path", card=card, batch=GAN_BATCH, frames=17, videos=RAW_VIDEOS,
               gif_decode_route="native" if videos.native_fast_path() else "pil", build_model_s=build_s,
@@ -4254,6 +4416,7 @@ def main() -> int:
     ce = check_fused_ce(torch)["train_bfloat16"]
     gumbel = check_gumbel_kernel(torch)["stacked_bfloat16"]
     peg_all = check_peg(torch)
+    norms_all = check_norms(torch)
     check_small_model(torch)
     check_small_model(torch, reference_layout=True)
     check_small_train(torch)
@@ -4345,6 +4508,10 @@ def main() -> int:
     kernels.append(dict(name="peg_stencil", route="cuda", source=PEG_SRC, replaces=PEG_TPU,
                         launches=launches["peg"], **peg_all["maskgit"],
                         shapes={tag: peg_all[tag] for tag in peg_all}))
+    for name, key, main in (("layer_norm", "ln", "layer_norm_maskgit"),
+                            ("qk_norm_split", "qk", "qk_norm_split_maskgit_self")):
+        kernels.append(dict(name=name, route="cuda", source=NORMS_SRC, replaces=NORMS_TPU, launches=launches[key],
+                            **norms_all[main], shapes={tag: r for tag, r in norms_all.items() if tag.startswith(name)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

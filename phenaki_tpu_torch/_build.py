@@ -129,6 +129,22 @@ _SIGNATURES = {
         _I, _I, _I,  # causal, dtype, the weight's and bias's dtype (0 = f32, 1 = bf16)
         _P,  # stream
     ],
+    "layer_norm_fwd": [
+        _P, _P, _P, _P,  # x (rows, d), gamma (d,), beta (d,) or null, out (rows, d)
+        _L, _I, _L, _L,  # rows, d, x's and out's row strides in elements
+        _F, _I, _I,  # eps, dtype, gamma's and beta's dtype (0 = f32, 1 = bf16, 2 = f16)
+        _P,  # stream
+    ],
+    "qk_norm_split": [
+        _P, _P, _P,  # q (b, n, h * d), k and v (b, m, h * d)
+        _P, _P,  # null k and null v (h, num_null, d), or null
+        _P, _P,  # q_scale, k_scale (d,)
+        _P, _P, _P,  # q_out (b, h, n, d), k_out and v_out (b, h, num_null + m, d)
+        _I, _I, _I, _I, _I, _I,  # b, n, m, num_null, h, d
+        _L, _L, _L, _L, _L, _L, _L, _L,  # strides of q, k, v (b, token) and of the nulls (head, row)
+        _I, _I,  # dtype, the scales' dtype (0 = f32, 1 = bf16, 2 = f16)
+        _P,  # stream
+    ],
 }
 
 

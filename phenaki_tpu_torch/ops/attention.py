@@ -10,8 +10,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from phenaki_tpu_torch import _build
 from phenaki_tpu_torch.ops.feedforward import linear
 from phenaki_tpu_torch.ops.flash_attention import MAX_DIM_HEAD, MIN_FLASH_SEQ, flash_attention
+from phenaki_tpu_torch.ops import norms
 from phenaki_tpu_torch.ops.norms import LayerNorm, l2norm_scaled
 from phenaki_tpu_torch.ops.positional import alibi_bias
 from phenaki_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
@@ -19,6 +21,8 @@ from phenaki_tpu_torch.parallel.ring_attention import sequence_sharded_attention
 
 NEG_INF = -1e30
 SCALE = 8.0  # the fixed cosine-attention temperature
+# the widest head row qk_norm_split_kernel takes, in bytes: one warp of 16-byte vectors
+QK_MAX_HEAD_BYTES = 32 * 16
 
 
 def flash_applies(q_shape, attn_bias: Optional[torch.Tensor]) -> bool:
@@ -86,12 +90,144 @@ def qk_norm_attention(q, k, v, *, scale: float = SCALE, attn_bias=None, key_mask
     return torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype), v)
 
 
+def qk_norm_split_plain(q, k, v, heads: int, q_scale, k_scale, null_kv=None):
+    """Plain version of `qk_norm_split`: the heads split off as transposed
+    views, the null key/values concatenated, then `l2norm_scaled`."""
+    batch, d = q.shape[0], q.shape[-1] // heads
+
+    def split_heads(t):
+        return t.reshape(batch, t.shape[1], heads, d).transpose(1, 2)
+
+    q, k, v = map(split_heads, (q, k, v))
+    if null_kv is not None:
+        nk, nv = null_kv.split(null_kv.shape[1] // 2, dim=-2)
+        k = torch.cat([nk.expand(batch, -1, -1, -1), k], dim=-2)
+        v = torch.cat([nv.expand(batch, -1, -1, -1), v], dim=-2)
+    return l2norm_scaled(q, q_scale), l2norm_scaled(k, k_scale), v
+
+
+def qk_norm_split(q, k, v, heads: int, q_scale, k_scale, null_kv=None):
+    """The attention's head split with its q/k normalisation: q (b, n, h*d),
+    k and v (b, m, h*d) as the projections give them (column slices of one
+    product need no copy), q_scale and k_scale (d,), null_kv (h, 2*num_null,
+    d) or None. Returns q (b, h, n, d) and k, v (b, h, num_null + m, d), the
+    null keys and values first (`Attention.forward` pads the mask and bias to
+    match): q and k l2-normalised over d (f32 sums, eps 1e-12) and times their
+    scale (rounded to q's dtype); v as it is.
+
+    A CPU tensor takes the plain version (transposed views, two roundings:
+    after the l2norm and after the scale). A CUDA tensor launches
+    csrc/norms.cu's `qk_norm_split_kernel`, under autograd with the plain
+    version's derivative (`_QkNormSplit`), or raises: d must be whole 16-byte
+    vectors, at most QK_MAX_HEAD_BYTES. One pass, one rounding (so within one
+    ulp of the plain version), and q, k, v contiguous, as flash attention
+    reads them without a copy."""
+    if not norms._on_card(q, k, v, q_scale, k_scale, null_kv):
+        return qk_norm_split_plain(q, k, v, heads, q_scale, k_scale, null_kv)
+    if norms.records(q, k, v, q_scale, k_scale, null_kv):
+        return _QkNormSplit.apply(q, k, v, heads, q_scale, k_scale, null_kv)
+    return _qk_norm_split_kernel(q, k, v, heads, q_scale, k_scale, null_kv)
+
+
+def _l2norm_scaled_backward(t, scale, dy):
+    """d/dt and d/dscale of `l2norm_scaled(t, scale)` for t (b, h, s, d),
+    given dy: in f32 with the forward's rsqrt(max(sum t^2, 1e-24)) (no
+    gradient through the clamp, as `clamp_min`'s), the scale rounded to t's
+    dtype as the forward multiplies by it."""
+    t32 = t.float()
+    ss = (t32 * t32).sum(-1, keepdim=True)
+    r = torch.rsqrt(ss.clamp_min(1e-24))
+    du = dy.float() * scale.to(t.dtype).float()
+    dscale = (dy.float() * (t32 * r).to(t.dtype).float()).sum((0, 1, 2)).to(scale.dtype)
+    dt = r * du - t32 * (r * r * r * (ss >= 1e-24) * (du * t32).sum(-1, keepdim=True))
+    return dt.to(t.dtype), dscale
+
+
+class _QkNormSplit(torch.autograd.Function):
+    """`qk_norm_split_kernel`'s forward with the plain version's derivative:
+    q's and k's l2norm backward (`_l2norm_scaled_backward`), v's gradient as
+    it comes, each moved back to the projection's (b, n, h*d) layout, and the
+    null key/values' summed over the batch. Differentiable again, as the R1
+    penalty's second derivative needs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, q_scale, k_scale, null_kv):
+        ctx.heads = heads
+        ctx.save_for_backward(q, k, q_scale, k_scale, null_kv)
+        return _qk_norm_split_kernel(q, k, v, heads, q_scale, k_scale, null_kv)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        q, k, q_scale, k_scale, null_kv = ctx.saved_tensors
+        b, n, inner = q.shape
+        qh, kh = (t.reshape(b, t.shape[1], ctx.heads, -1).transpose(1, 2) for t in (q, k))
+        num_null = 0
+        if null_kv is not None:
+            num_null = null_kv.shape[1] // 2
+            kh = torch.cat([null_kv[:, :num_null].expand(b, -1, -1, -1), kh], dim=-2)
+        dq, dq_scale = _l2norm_scaled_backward(qh, q_scale, dq)
+        dk, dk_scale = _l2norm_scaled_backward(kh, k_scale, dk)
+        dnull = None
+        if null_kv is not None:
+            dnull = torch.cat([dk[:, :, :num_null].sum(0), dv[:, :, :num_null].sum(0)], dim=1)
+            dk, dv = dk[:, :, num_null:], dv[:, :, num_null:]
+
+        def merge(t):
+            return t.transpose(1, 2).reshape(b, t.shape[2], inner)
+
+        return merge(dq), merge(dk), merge(dv), None, dq_scale, dk_scale, dnull
+
+
+def _qk_norm_split_kernel(q, k, v, heads, q_scale, k_scale, null_kv):
+    b, n, inner = q.shape
+    d = inner // heads
+    m = k.shape[1]
+    num_null = null_kv.shape[1] // 2 if null_kv is not None else 0
+    if (inner != heads * d or k.ndim != 3 or k.shape != (b, m, inner) or v.shape != k.shape
+            or (null_kv is not None and (null_kv.shape != (heads, 2 * num_null, d) or null_kv.dtype != q.dtype))
+            or k.dtype != q.dtype or v.dtype != q.dtype or q_scale.shape != (d,) or k_scale.shape != (d,)):
+        raise ValueError(f"q/k norm kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"({q.dtype}, {k.dtype}, {v.dtype}), {heads} heads, null_kv "
+                         f"{None if null_kv is None else (tuple(null_kv.shape), null_kv.dtype)} and scales "
+                         f"{tuple(q_scale.shape)}, {tuple(k_scale.shape)} disagree")
+    norms.check_dtypes("q/k norm kernel", q, q_scale, k_scale)
+    if not norms.takes(q, d, QK_MAX_HEAD_BYTES):
+        raise ValueError(f"q/k norm kernel takes head rows of whole 16-byte vectors up to {QK_MAX_HEAD_BYTES} "
+                         f"bytes, not {d} values of {q.dtype}")
+    q_out = q.new_empty((b, heads, n, d))
+    k_out = q.new_empty((b, heads, num_null + m, d))
+    v_out = torch.empty_like(k_out)
+    if q.numel() == 0 or k_out.numel() == 0:
+        return q_out, k_out, v_out
+    q, k, v = norms.rows16(q), norms.rows16(k), norms.rows16(v)
+    q_scale, k_scale = q_scale.contiguous(), k_scale.contiguous()
+    nk = nv = None
+    ns = (0, 0)
+    if null_kv is not None:
+        null_kv = norms.rows16(null_kv)
+        nk, nv = null_kv[:, :num_null], null_kv[:, num_null:]
+        ns = null_kv.stride()[:2]
+    p = _build.ptr
+    err = _build.load_library().qk_norm_split(
+        p(q), p(k), p(v), p(nk), p(nv), p(q_scale), p(k_scale), p(q_out), p(k_out), p(v_out),
+        b, n, m, num_null, heads, d, *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], *ns,
+        norms.DTYPES[q.dtype], norms.DTYPES[q_scale.dtype], _build.stream(q.device))
+    _build.check(err, "qk_norm_split")
+    qk_norm_split.launches += 1
+    return q_out, k_out, v_out
+
+
+qk_norm_split.launches = 0
+
+
 class Attention(nn.Module):
     """Self- or cross-attention block.
 
     Pre-LN (gamma only) on x, and on the context for cross-attention; no-bias
     projections, fused into one (dim -> 3*inner) product for self-attention;
-    l2-normalised q/k with learned per-dim scales and the fixed SCALE;
+    l2-normalised q/k with learned per-dim scales and the fixed SCALE (the
+    head split, the q/k normalisation and the null key/values in one pass on a
+    card: `qk_norm_split`);
     optional learned null key/values prepended to the keys; causal masking
     with ALiBi. `reference_self_kv` takes self-attention K/V from the
     pre-norm input (the reference checkpoints' quirk). Weights are cast to
@@ -175,19 +311,9 @@ class Attention(nn.Module):
         else:
             q, kv = linear(x, self.to_q), linear(kv_input, self.to_kv)
         k, v = kv[..., :inner], kv[..., inner:]
-
-        def split_heads(t):
-            return t.reshape(batch, t.shape[1], self.heads, self.dim_head).transpose(1, 2)
-
-        q, k, v = map(split_heads, (q, k, v))
-
-        if self.null_kv is not None:
-            nk, nv = self.null_kv.to(x.dtype).split(self.num_null_kv, dim=-2)
-            k = torch.cat([nk.expand(batch, -1, -1, -1), k], dim=-2)
-            v = torch.cat([nv.expand(batch, -1, -1, -1), v], dim=-2)
-
-        q = l2norm_scaled(q, copy_to_group(self.q_scale, tp))
-        k = l2norm_scaled(k, copy_to_group(self.k_scale, tp))
+        null_kv = self.null_kv.to(x.dtype) if self.null_kv is not None else None
+        q, k, v = qk_norm_split(q, k, v, self.heads, copy_to_group(self.q_scale, tp),
+                                copy_to_group(self.k_scale, tp), null_kv)
 
         if self.null_kv is not None:
             if attn_bias is not None:

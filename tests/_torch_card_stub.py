@@ -4,7 +4,9 @@ card: CPU tensors are sent down the card's route (`stub_card`) into a
 inputs' addresses and the tensors the kernel would read there (through the
 bias row stride it is given), and writes zeros to the outputs; a call of
 PEG's stencil is recorded with x's address and strides, and gets the plain
-version's result written through the output's strides."""
+version's result written through the output's strides; so is a call of the
+norm kernels (`ops.norms.layer_norm`, `ops.attention.qk_norm_split`), with the
+addresses and strides the wrapper passes."""
 
 import ctypes
 
@@ -13,6 +15,8 @@ import torch
 
 import phenaki_tpu_torch.ops.flash_attention as fa
 from phenaki_tpu_torch import _build
+from phenaki_tpu_torch.ops import norms
+from phenaki_tpu_torch.ops.attention import qk_norm_split_plain
 from phenaki_tpu_torch.ops.positional import peg_stencil_plain
 
 
@@ -100,9 +104,9 @@ class StubLibrary:
     def _view(ptr, shape, strides, dtype):
         """A tensor over the memory at `ptr` (no copy) with these strides."""
         span = 1 + sum((n - 1) * s for n, s in zip(shape, strides))
-        ctype = ctypes.c_uint16 if dtype == torch.bfloat16 else ctypes.c_float
+        ctype = ctypes.c_float if dtype == torch.float32 else ctypes.c_uint16
         flat = torch.from_numpy(np.ctypeslib.as_array(ctypes.cast(ptr.value, ctypes.POINTER(ctype)), (span,)))
-        return (flat.view(torch.bfloat16) if dtype == torch.bfloat16 else flat).as_strided(shape, strides)
+        return (flat if dtype == torch.float32 else flat.view(dtype)).as_strided(shape, strides)
 
     def peg_stencil(self, x, weight, bias, out, b, t, h, w, d, xs0, xs1, xs2, xs3, os0, os1, os2, os3,
                     causal, dtype, weight_dtype, stream):
@@ -115,6 +119,40 @@ class StubLibrary:
         self.calls.append(("peg", dict(x=x.value, strides=(xs0, xs1, xs2, xs3), out_strides=(os0, os1, os2, os3),
                                        causal=causal, dtype=dtype, weight_dtype=weight_dtype)))
         self._view(out, shape, (os0, os1, os2, os3, 1), tdtype).copy_(peg_stencil_plain(xv, wv, bv, bool(causal)))
+        return int(self.fail)
+
+    @staticmethod
+    def _norm_dtype(code):
+        return next(k for k, v in norms.DTYPES.items() if v == code)
+
+    def layer_norm_fwd(self, x, gamma, beta, out, rows, d, x_stride, out_stride, eps, dtype, param_dtype,
+                       stream):
+        tdtype, pdtype = self._norm_dtype(dtype), self._norm_dtype(param_dtype)
+        xv = self._view(x, (rows, d), (x_stride, 1), tdtype)
+        gv = self._view(gamma, (d,), (1,), pdtype)
+        bv = self._view(beta, (d,), (1,), pdtype) if beta.value else None
+        self.calls.append(("layer_norm", dict(x=x.value, rows=rows, d=d, x_stride=x_stride, out_stride=out_stride,
+                                              beta=bool(beta.value), eps=eps, dtype=dtype, param_dtype=param_dtype)))
+        self._view(out, (rows, d), (out_stride, 1), tdtype).copy_(norms.layer_norm_plain(xv, gv, bv))
+        return int(self.fail)
+
+    def qk_norm_split(self, q, k, v, null_k, null_v, q_scale, k_scale, q_out, k_out, v_out, b, n, m, num_null,
+                      h, d, qs0, qs1, ks0, ks1, vs0, vs1, ns0, ns1, dtype, scale_dtype, stream):
+        tdtype, sdtype = self._norm_dtype(dtype), self._norm_dtype(scale_dtype)
+        qv = self._view(q, (b, n, h * d), (qs0, qs1, 1), tdtype)
+        kv = [self._view(t, (b, m, h * d), (s0, s1, 1), tdtype) for t, s0, s1 in ((k, ks0, ks1), (v, vs0, vs1))]
+        null_kv = None
+        if num_null:
+            null_kv = torch.cat([self._view(t, (h, num_null, d), (ns0, ns1, 1), tdtype) for t in (null_k, null_v)],
+                                dim=1)
+        scales = [self._view(t, (d,), (1,), sdtype) for t in (q_scale, k_scale)]
+        self.calls.append(("qk_norm_split", dict(q=q.value, k=k.value, v=v.value, null_k=null_k.value or 0,
+                                                 null_v=null_v.value or 0, b=b, n=n, m=m, num_null=num_null, h=h, d=d,
+                                                 strides=((qs0, qs1), (ks0, ks1), (vs0, vs1)), null_strides=(ns0, ns1),
+                                                 dtype=dtype, scale_dtype=scale_dtype)))
+        outs = qk_norm_split_plain(qv, *kv, h, *scales, null_kv)
+        for ptr, t in zip((q_out, k_out, v_out), outs):
+            self._view(ptr, tuple(t.shape), torch.empty(t.shape).stride(), tdtype).copy_(t)
         return int(self.fail)
 
 
