@@ -29,7 +29,8 @@ flash-attention forward and its three backward kernels (these also at the
 C-ViViT's spatial shape in a GAN train step), the projection
 sampler, the fused cross-entropy forward and its two backward kernels, the
 logits-path sampler, PEG's stencil (`check_peg`: the MaskGit's and the
-C-ViViT decoder's shapes); the attention forward also at the C-ViViT encoder's
+C-ViViT decoder's shapes), the norm kernels (`check_norms`) and the
+feedforward's GEGLU GEMM (`check_ff`); the attention forward also at the C-ViViT encoder's
 tokenize shape, the primed MaskGit's and the served batches', the
 projection sampler also on the strided scene rows of primed embeddings and
 at a served bucket 8), checks small fp32 models sampled and trained on the
@@ -140,6 +141,8 @@ PEG_SRC = "phenaki_tpu_torch/csrc/peg_stencil.cu"
 PEG_TPU = None  # no TPU kernel: XLA's 27-tap loop, phenaki_tpu/ops/positional.py:24 depthwise3x3x3
 NORMS_SRC = "phenaki_tpu_torch/csrc/norms.cu"
 NORMS_TPU = None  # no TPU kernel: XLA fuses phenaki_tpu/ops/norms.py and the head split
+FF_SRC = "phenaki_tpu_torch/csrc/geglu_gemm.cu"
+FF_TPU = None  # no TPU kernel: XLA fuses phenaki_tpu/ops/feedforward.py's GEGLU into the product
 CHUNK_TPU = "phenaki_tpu/ops/pallas_attention.py:812"  # flash_attend_chunk (_flash_kernel, offs_ref)
 
 # the H100 SXM's published peaks (NVIDIA's data sheet; dense tensor-core rates)
@@ -162,34 +165,41 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 # stacks' final norms, and 8 head splits; the encoder also its four patch
 # norms (at patch 16: 768 and 1536 wide, then 512). A forward autograd
 # records launches them all the same (their backward is the plain version's
-# derivative in PyTorch, and launches nothing)
+# derivative in PyTorch, and launches nothing). The GEGLU GEMM ("ff"): one
+# launch a transformer layer's feedforward in every forward, autograd's too
+# (its backward is PyTorch's products): 6 a MaskGit or critic forward, 8 a
+# C-ViViT decoder or encoder (4 temporal and 4 spatial layers)
 PEG_SAMPLE = 6 * 18 + 4
+FF_FORWARD, FF_DECODE, FF_ENCODE = 6, 8, 8
+FF_SAMPLE = 18 * FF_FORWARD + FF_DECODE
 NORM_FORWARD = {"ln": 6 * 4 + 1, "qk": 6 * 2}
 NORM_DECODE = {"ln": 8 * 2 + 2, "qk": 8}
 NORM_ENCODE = {"ln": NORM_DECODE["ln"] + 4, "qk": NORM_DECODE["qk"]}
 NORM_SAMPLE = {k: 18 * NORM_FORWARD[k] + NORM_DECODE[k] for k in NORM_FORWARD}
-SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE}
+SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE, "ff": FF_SAMPLE}
 CRITIC_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 6 * 2 * 17 + 4, "proj": 18, "peg": PEG_SAMPLE + 6 * 17,
-                          **{k: NORM_SAMPLE[k] + 17 * NORM_FORWARD[k] for k in NORM_FORWARD}}
-LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE}
+                          **{k: NORM_SAMPLE[k] + 17 * NORM_FORWARD[k] for k in NORM_FORWARD},
+                          "ff": FF_SAMPLE + 17 * FF_FORWARD}
+LOGITS_SAMPLE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "gumbel": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE, "ff": FF_SAMPLE}
 # kernel launches per flagship train step (grad_accum_every = 1): 6 MaskGit
 # layers x (self + cross attention) forward, dQ and dK/dV; dBias for the
 # self-attention's CPB bias only; one fused CE forward, dh and dW. A
 # TokenCritic adds its 6 x 2 attention calls each way (no position bias, so
 # no dBias) and one projection sample of the generator's tokens
 TRAIN_PER_STEP = {"fwd": 12, "dq": 12, "dkv": 12, "dbias": 6, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6,
-                  **NORM_FORWARD}
+                  **NORM_FORWARD, "ff": FF_FORWARD}
 CRITIC_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=24, dq=24, dkv=24, proj=1, peg=12,
-                             **{k: 2 * NORM_FORWARD[k] for k in NORM_FORWARD})
+                             **{k: 2 * NORM_FORWARD[k] for k in NORM_FORWARD}, ff=2 * FF_FORWARD)
 TRAIN_BATCH, TRAIN_STEPS, CRITIC_TRAIN_STEPS = 4, 5, 3
 # the 4 heads x 128 flagship (`tpu_native=True`) launches what the 8 x 64
 # one does, kernel 1 and kernels 4-6 at d = 128 (dK/dV and dBias on wgmma,
 # dQ on its f32 CUDA-core route); `remat=True` on the MaskGit recomputes each of its 12
 # attention calls once in the backward, so kernel 1 launches twice each, and
-# so do the layers' norm kernels (not the stack's final norm)
+# so do the layers' norm kernels (not the stack's final norm) and their
+# feedforwards
 TPU_NATIVE_TRAIN_STEPS = 3
 REMAT_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=2 * TRAIN_PER_STEP["fwd"], ln=2 * NORM_FORWARD["ln"] - 1,
-                            qk=2 * NORM_FORWARD["qk"])
+                            qk=2 * NORM_FORWARD["qk"], ff=2 * FF_FORWARD)
 # a train path's losses beside "train path"'s: bit-equal is expected (the
 # kernels are deterministic); the check allows this relative difference, and
 # the phase prints the largest one seen
@@ -201,7 +211,7 @@ PATH_NUMBERS = {}
 # call launches kernel 1 once for each of the encoder's 4 spatial layers
 # (its temporal attention, over 9 latent frames, takes the plain path)
 TOKENIZE_BATCH, TOKENIZE_CALLS = 32, 5
-TOKENIZE_LAUNCHES = {"fwd": 4, "peg": 4, **NORM_ENCODE}
+TOKENIZE_LAUNCHES = {"fwd": 4, "peg": 4, **NORM_ENCODE, "ff": FF_ENCODE}
 # the long video: 17 scenes, the first of 17 frames, each later one 16 new
 # frames primed with the previous scene's last 5 (3 latent frames, 384
 # tokens, in front of the scene's 1024). Scene 1 launches what a 17-frame
@@ -210,9 +220,9 @@ TOKENIZE_LAUNCHES = {"fwd": 4, "peg": 4, **NORM_ENCODE}
 LONG_VIDEO_FRAMES = (17,) + (16,) * 16
 LONG_VIDEO_PRIME = 5
 PRIMED_SCENE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4 + 4, "proj": 18, "peg": PEG_SAMPLE + 4,
-                         **{k: NORM_SAMPLE[k] + NORM_ENCODE[k] for k in NORM_FORWARD}}
+                         **{k: NORM_SAMPLE[k] + NORM_ENCODE[k] for k in NORM_FORWARD}, "ff": FF_SAMPLE + FF_ENCODE}
 # sample_images: one latent frame of 128 tokens, decoded by one frame
-IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE}
+IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE, "ff": FF_SAMPLE}
 # the sequence-sharded flagship over SP ranks (1152 / 2 = 576 rows a rank):
 # a sample launches, on each rank, 2 ring chunks (kernel 3) for each of the 6
 # MaskGit self-attention layers on each of the 18 steps; cross-attention (6 x
@@ -222,9 +232,10 @@ IMAGE_LAUNCHES = {"fwd": 6 * 2 * 18 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_S
 # and the cross-attention's kernel 1 forward, dq and dkv. Every rank runs
 # the whole forward outside attention, PEG's stencil among it
 SP = 2
-SEQ_SAMPLE_LAUNCHES = {"chunk": 18 * 6 * SP, "fwd": 18 * 6 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE}
+SEQ_SAMPLE_LAUNCHES = {"chunk": 18 * 6 * SP, "fwd": 18 * 6 + 4, "proj": 18, "peg": PEG_SAMPLE, **NORM_SAMPLE,
+                       "ff": FF_SAMPLE}
 SEQ_TRAIN_PER_STEP = {"chunk": 6 * SP, "fwd": 6, "dq": 6 + 6 * SP, "dkv": 6 + 6 * SP, "dbias": 6 * SP,
-                      "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6, **NORM_FORWARD}
+                      "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": 6, **NORM_FORWARD, "ff": FF_FORWARD}
 SEQ_TRAIN_STEPS = 3
 RANK_TIMEOUT_S = 600  # the spawned ranks' join timeout
 # the mesh paths (data, fully sharded and tensor parallelism) on MESH
@@ -253,7 +264,7 @@ PIPE_ATTENTION_CALLS = PIPE_STAGE_LAYERS * 2 * PIPE_MICROBATCHES  # self + cross
 PIPE_TRAIN_PER_STEP = {"fwd": PIPE_ATTENTION_CALLS, "dq": PIPE_ATTENTION_CALLS, "dkv": PIPE_ATTENTION_CALLS,
                        "dbias": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES, "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1,
                        "peg": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES, "ln": PIPE_STAGE_LAYERS * 4 * PIPE_MICROBATCHES + 1,
-                       "qk": PIPE_ATTENTION_CALLS}
+                       "qk": PIPE_ATTENTION_CALLS, "ff": PIPE_STAGE_LAYERS * PIPE_MICROBATCHES}
 # the FSDP x pipeline train path on FSDP_PIPE_RANKS spawned ranks (gloo, all
 # on the one card when it is alone): `PhenakiTrainer(mesh=make_mesh(dp=2,
 # pp=2), fsdp=True, pipeline_microbatches=4)` on the flagship at the mesh
@@ -268,7 +279,8 @@ FSDP_PIPE_TRAIN_PER_STEP = {
     "fwd": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL, "dq": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL,
     "dkv": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL, "dbias": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL,
     "ce_fwd": 1, "ce_dh": 1, "ce_dw": 1, "peg": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL,
-    "ln": PIPE_STAGE_LAYERS * 4 * FSDP_PIPE_MB_LOCAL + 1, "qk": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL}
+    "ln": PIPE_STAGE_LAYERS * 4 * FSDP_PIPE_MB_LOCAL + 1, "qk": PIPE_STAGE_LAYERS * 2 * FSDP_PIPE_MB_LOCAL,
+    "ff": PIPE_STAGE_LAYERS * FSDP_PIPE_MB_LOCAL}
 # the C-ViViT overfit check: tests/test_learning.py's C-ViViT, recon-only,
 # 30 Adam steps at lr 3e-3 on one batch, f32 on the card; the last recon loss
 # must be below 0.7 of the first and the reconstruction PSNR must rise
@@ -293,7 +305,8 @@ RAW_VIDEOS, RAW_TRAIN_STEPS, RAW_SAMPLES, RESUME_STEPS = 8, 5, 4, 2
 RAW_CAPTIONS = [f"clip {k}: a ball bounces {k + 1} times on a wooden floor" for k in range(RAW_VIDEOS)]
 RAW_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, fwd=TRAIN_PER_STEP["fwd"] + TOKENIZE_LAUNCHES["fwd"],
                           peg=TRAIN_PER_STEP["peg"] + TOKENIZE_LAUNCHES["peg"],
-                          **{k: TRAIN_PER_STEP[k] + NORM_ENCODE[k] for k in NORM_FORWARD})
+                          **{k: TRAIN_PER_STEP[k] + NORM_ENCODE[k] for k in NORM_FORWARD},
+                          ff=TRAIN_PER_STEP["ff"] + TOKENIZE_LAUNCHES["ff"])
 MILESTONE_LAUNCHES = SAMPLE_LAUNCHES
 
 
@@ -318,9 +331,10 @@ MILESTONE_LAUNCHES = SAMPLE_LAUNCHES
 # the reconstructed one; the discriminator phase's logits of the fake and of
 # the real frame; on a penalty step once more, the R1 penalty's logits
 GAN_BATCH, GAN_STEPS, GAN_PENALTY_EVERY = 4, 8, 4
-GAN_RECON_LAUNCHES = {"fwd": 8, "peg": 8, **{k: NORM_ENCODE[k] + NORM_DECODE[k] for k in NORM_FORWARD}}
+GAN_RECON_LAUNCHES = {"fwd": 8, "peg": 8, **{k: NORM_ENCODE[k] + NORM_DECODE[k] for k in NORM_FORWARD},
+                      "ff": FF_ENCODE + FF_DECODE}
 GAN_PER_STEP = {"fwd": 16, "dq": 8, "dkv": 8, "dbias": 8, "peg": 16,
-                **{k: 2 * GAN_RECON_LAUNCHES[k] + 5 for k in NORM_FORWARD}}
+                **{k: 2 * GAN_RECON_LAUNCHES[k] + 5 for k in NORM_FORWARD}, "ff": 2 * GAN_RECON_LAUNCHES["ff"]}
 GAN_PENALTY_LAUNCHES = {"ln": 1, "qk": 1}
 
 
@@ -564,7 +578,7 @@ def flash_cases(torch, dtype, gen):
 WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": 2, "flash_fwd_wgmma_d128": 4, "flash_bwd_dq_wgmma": 2,
                  "flash_bwd_dkv_wgmma": 2,
                  "flash_bwd_dbias_wgmma": 2, "proj_wgmma_kernel": 4, "ce_fwd_wgmma_kernel": 2,
-                 "ce_dh_wgmma_kernel": 5, "ce_dw_wgmma_kernel": 5}
+                 "ce_dh_wgmma_kernel": 5, "ce_dw_wgmma_kernel": 5, "geglu_gemm_kernel": 4}
 
 
 def check_wgmma_build():
@@ -1545,6 +1559,93 @@ def check_norms(torch):
     return result
 
 
+def check_ff(torch):
+    """`geglu_gemm` (the feedforward's first product with GEGLU in its
+    epilogue, csrc/geglu_gemm.cu) against its plain version, bf16: the
+    MaskGit's and the TokenCritic's guided forward (128 rows of 288 tokens,
+    36,864 rows at d = 512, inner 1365 padded to 1408), the C-ViViT decoder's
+    layers at b = 64 (18,432 rows), a ragged row count (1000), a tensor-parallel
+    rank's 683 columns (704 padded) and the tokenize shape at patch 16 (32
+    videos of 9 x 16 x 8 tokens). Each h within half a bf16 ulp (rtol 2^-8)
+    plus 1e-4 of the largest value of the f32 GEGLU of the f32 product on the
+    same bf16 operands (the kernel rounds once), the padded columns exactly 0,
+    and the packed pre-activation (the backward's) within one bf16 ulp of the
+    f32 product. At the MaskGit's shape `ms` back to back and `graph_ms` by
+    graph replay, each cycling over four inputs (151 MB, beyond the 50 MB
+    L2); `plain_ms` the plain version (the aligned 2816-wide product, `gelu`
+    and its multiply); two library yardsticks: `unaligned_ms`, cuBLAS on the
+    2730-wide product of the unpacked weight with `gelu` and its multiply (the
+    feedforward's first half before the kernel), and `aligned_product_ms`,
+    cuBLAS on the padded 2816-wide product alone; and the whole feedforward
+    after its norm, `ff_before_ms` (both unaligned products and the GEGLU)
+    against `ff_ms` (the kernel and proj_out's aligned product). The bound
+    counts the unpadded operations, 2 rows d (2 inner + inner) of the
+    kernel, and reads x and the weight and writes h once."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from phenaki_tpu_torch.ops.feedforward import (geglu, geglu_gemm, geglu_gemm_plain, geglu_packed, pack_proj_in,
+                                                   pad_proj_out, padded_inner)
+
+    gen = torch.Generator().manual_seed(25)
+    bf16 = torch.bfloat16
+    cases = {"maskgit": (128 * 288, 512, 1365), "decoder": (64 * 288, 512, 1365), "ragged": (1000, 512, 1365),
+             "tp_rank": (128 * 288, 512, 683), "tokenize_patch16": (32 * 1152, 512, 1365)}
+    result = {}
+    for tag, (rows, d, inner) in cases.items():
+        timed = tag == "maskgit"
+        xs = [torch.randn(rows, d, generator=gen).to("cuda", bf16) for _ in range(4 if timed else 1)]
+        w = (torch.randn(2 * inner, d, generator=gen) / d**0.5).to("cuda", bf16)
+        w_out = (torch.randn(d, inner, generator=gen) / inner**0.5).to("cuda", bf16)
+        wp, ip = pack_proj_in(w), padded_inner(inner)
+        x = xs[0]
+        before = geglu_gemm.launches
+        h, pre = geglu_gemm(x, wp, pre=True)
+        torch.cuda.synchronize()
+        check(geglu_gemm.launches == before + 1, f"geglu_gemm {tag}: {geglu_gemm.launches - before} launches")
+        ref_pre = torch.matmul(x.float(), wp.float().t())
+        ref = geglu_packed(ref_pre)
+        excess = ((h.float() - ref).abs() - 2.0**-8 * ref.abs() - 1e-4 * ref.abs().max()).max().item()
+        pre_excess = ((pre.float() - ref_pre).abs() - 2.0**-7 * ref_pre.abs() - 1e-4 * ref_pre.abs().max()).max().item()
+        pad_zero = bool((h[:, inner:] == 0).all()) if ip > inner else True
+        numbers = dict(rows=rows, d=d, inner=inner, padded=ip, max_abs_err=(h.float() - ref).abs().max().item(),
+                       excess=excess, pre_excess=pre_excess, padded_columns_zero=pad_zero)
+        if timed:
+            cycle = itertools.cycle(xs)
+            w_pad_out = pad_proj_out(w_out)
+            numbers["ms"] = cuda_ms(lambda: geglu_gemm(next(cycle), wp), reps=20)
+            numbers["graph_ms"] = graph_ms(lambda: geglu_gemm(next(cycle), wp), reps=20)
+            numbers["pre_graph_ms"] = graph_ms(lambda: geglu_gemm(next(cycle), wp, pre=True), reps=10)
+            numbers["plain_ms"] = cuda_ms(lambda: geglu_gemm_plain(next(cycle), wp), reps=10)
+            numbers["unaligned_ms"] = cuda_ms(lambda: geglu(F.linear(next(cycle), w)), reps=10)
+            numbers["aligned_product_ms"] = cuda_ms(lambda: torch.matmul(next(cycle), wp.t()), reps=10)
+            numbers["ff_before_ms"] = cuda_ms(lambda: F.linear(geglu(F.linear(next(cycle), w)), w_out), reps=10)
+            numbers["ff_ms"] = cuda_ms(lambda: torch.matmul(geglu_gemm(next(cycle), wp), w_pad_out.t()), reps=10)
+            numbers["ff_graph_ms"] = graph_ms(lambda: torch.matmul(geglu_gemm(next(cycle), wp), w_pad_out.t()),
+                                              reps=10)
+            numbers["bound_ms"], numbers["bound_by"] = bound(nbytes(x, w) + rows * inner * 2, 2.0 * rows * d * 2 * inner)
+            numbers["graph_roofline_pct"] = 100.0 * numbers["bound_ms"] / numbers["graph_ms"]
+            numbers["ff_bound_ms"] = bound(nbytes(x, w, w_out) + 2 * rows * inner * 2 + rows * d * 2,
+                                           2.0 * rows * d * 3 * inner)[0]
+        phase(f"geglu_gemm {tag}", **numbers)
+        check(excess <= 0.0, f"geglu_gemm {tag}: off the f32 GEGLU by {excess} beyond its tolerance")
+        check(pre_excess <= 0.0, f"geglu_gemm {tag}: pre-activation off the f32 product by {pre_excess}")
+        check(pad_zero, f"geglu_gemm {tag}: a padded column of h is not 0")
+        result[tag] = dict(numbers, library_ms=numbers.get("unaligned_ms"))
+        del xs, x, h, pre, ref, ref_pre
+    torch.cuda.empty_cache()
+    # small f32 shapes of the card checks' models: the CUDA-core kernel
+    for rows, d, inner in ((300, 128, 341), (77, 48, 40)):
+        x = torch.randn(rows, d, generator=gen).to("cuda")
+        wp = pack_proj_in(torch.randn(2 * inner, d, generator=gen).to("cuda") / d**0.5)
+        h = geglu_gemm(x, wp)
+        err = (h - geglu_gemm_plain(x, wp)).abs().max().item()
+        phase(f"geglu_gemm f32 {rows}x{d} inner {inner}", max_abs_err=err)
+        check(err <= 1e-5, f"geglu_gemm f32 {rows}x{d}: {err} off the plain version")
+    return result
+
+
 def check_small_model(torch, reference_layout=False):
     """A small fp32 model whose shapes pass both kernel gates, sampled greedy
     on the card and on the CPU (plain versions): ids equal, video atol 1e-4.
@@ -2283,8 +2384,10 @@ def all_kernels():
     """Every kernel's wrapper by key: the attention forward, the ring chunk,
     their three backward kernels, the fused CE's forward and two backward kernels, the
     projection sampler, the logits-path sampler, PEG's stencil, the LayerNorm and
-    the attention's head split with its q/k l2norm."""
+    the attention's head split with its q/k l2norm, and the feedforward's GEGLU
+    GEMM."""
     import phenaki_tpu_torch.ops.attention as attention
+    import phenaki_tpu_torch.ops.feedforward as feedforward
     import phenaki_tpu_torch.ops.flash_attention as fa
     import phenaki_tpu_torch.ops.fused_ce as ce
     import phenaki_tpu_torch.ops.fused_sampling as fs
@@ -2295,7 +2398,7 @@ def all_kernels():
             "dkv": fa.flash_attention_bwd_dkv, "dbias": fa.flash_attention_bwd_dbias,
             "ce_fwd": ce.fused_ce_fwd, "ce_dh": ce.fused_ce_bwd_dh, "ce_dw": ce.fused_ce_bwd_dw,
             "proj": fs.project_sample, "gumbel": fs.gumbel_sample_with_score, "peg": pos.peg_stencil,
-            "ln": norms.layer_norm, "qk": attention.qk_norm_split}
+            "ln": norms.layer_norm, "qk": attention.qk_norm_split, "ff": feedforward.geglu_gemm}
 
 
 def kernel_counts():
@@ -4417,6 +4520,7 @@ def main() -> int:
     gumbel = check_gumbel_kernel(torch)["stacked_bfloat16"]
     peg_all = check_peg(torch)
     norms_all = check_norms(torch)
+    ff_all = check_ff(torch)
     check_small_model(torch)
     check_small_model(torch, reference_layout=True)
     check_small_train(torch)
@@ -4512,6 +4616,8 @@ def main() -> int:
                             ("qk_norm_split", "qk", "qk_norm_split_maskgit_self")):
         kernels.append(dict(name=name, route="cuda", source=NORMS_SRC, replaces=NORMS_TPU, launches=launches[key],
                             **norms_all[main], shapes={tag: r for tag, r in norms_all.items() if tag.startswith(name)}))
+    kernels.append(dict(name="geglu_gemm", route="cuda", source=FF_SRC, replaces=FF_TPU, launches=launches["ff"],
+                        **ff_all["maskgit"], shapes=ff_all))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -135,6 +135,12 @@ _SIGNATURES = {
         _F, _I, _I,  # eps, dtype, gamma's and beta's dtype (0 = f32, 1 = bf16, 2 = f16)
         _P,  # stream
     ],
+    "geglu_gemm": [
+        _P, _P,  # x (rows, d), proj_in's packed weight (2 * ip, d)
+        _P, _P,  # h (rows, ip), the packed pre-activation (rows, 2 * ip) or null
+        _I, _I, _I, _I, _I,  # rows, d, ip, splits (bf16: 1..2 * ip / 128), dtype (0 = f32, 1 = bf16)
+        _P,  # stream
+    ],
     "qk_norm_split": [
         _P, _P, _P,  # q (b, n, h * d), k and v (b, m, h * d)
         _P, _P,  # null k and null v (h, num_null, d), or null

@@ -1,8 +1,10 @@
-// The main loop of the two bf16 kernels that fold the vocab projection
-// logits = h . W^T (+ bias) into per-row statistics without writing the
-// logits: the projection sampler (proj_sample.cu, kernel 2) and the fused
-// cross-entropy forward (fused_ce.cu, kernel 7). Each passes its own
-// epilogue; this header owns the tiling, the copies and the products.
+// The main loop of the bf16 kernels that run a product h . W^T (+ bias)
+// through an epilogue without writing it: the projection sampler
+// (proj_sample.cu, kernel 2) and the fused cross-entropy forward
+// (fused_ce.cu, kernel 7) fold the vocab logits into per-row statistics; the
+// GEGLU GEMM (geglu_gemm.cu) pairs the feedforward's a and gate columns. Each
+// passes its own epilogue; this header owns the tiling, the copies and the
+// products.
 //
 //  - A block (two warpgroups, 256 threads) owns 128 rows of h (64 a
 //    warpgroup) and one of S vocab splits, and walks the split's 128-id
@@ -22,8 +24,10 @@
 //    memory with the tile's first slice.
 //  - Two accumulators: a pass issues tile t's products slice by slice, then
 //    runs tile t - 1's epilogue under the products still in flight.
-// h must hold round_up(rows, 128) rows (the wrappers zero-pad it); V is a
-// multiple of 128 and every split holds at least one tile.
+// h must hold round_up(rows, 128) rows (the wrappers zero-pad it), unless
+// its P says `static constexpr bool kMaskRows = true` (the GEGLU GEMM,
+// geglu_gemm.cu): then h holds p.rows rows and the copies read zeros past
+// them. V is a multiple of 128 and every split holds at least one tile.
 #pragma once
 
 #include "wgmma.cuh"
@@ -65,14 +69,33 @@ int pb_smem(int NS) {
   return (RES ? NS * PB_SLICE : 0) + PB_STAGES * pb_stage<RES>() + PB_BIAS_SLOTS * PB_VT * 4 + 1024;
 }
 
+// whether P's h holds only p.rows rows (P::kMaskRows), and that count
+template <class P, class = void>
+struct masks_rows {
+  static constexpr bool value = false;
+};
+template <class P>
+struct masks_rows<P, decltype(void(P::kMaskRows))> {
+  static constexpr bool value = P::kMaskRows;
+};
+template <class P>
+__device__ __forceinline__ size_t h_rows(const P& p) {
+  if constexpr (masks_rows<P>::value) return (size_t)p.rows;
+  else return 0;
+}
+
 // rows [r0, r0 + 128) x columns [c0, c0 + 64) of a row-major (., D) bf16
-// array into 128 swizzled rows of 128 bytes (8-row groups 1024 B apart)
-__device__ __forceinline__ void load_slice(uint32_t dst, const bf16* src, size_t r0, int c0, int D) {
+// array into 128 swizzled rows of 128 bytes (8-row groups 1024 B apart);
+// with MASK, rows at or past nrows are zeros
+template <bool MASK = false>
+__device__ __forceinline__ void load_slice(uint32_t dst, const bf16* src, size_t r0, int c0, int D,
+                                           size_t nrows = 0) {
 #pragma unroll
   for (int it = 0; it < PB_ROWS * 8 / PB_THREADS; ++it) {
     const int e = threadIdx.x + it * PB_THREADS;
     const int r = e >> 3, ch = e & 7;
-    cp_async16(dst + r * 128 + ((ch ^ (r & 7)) << 4), src + (r0 + r) * D + c0 + ch * 8, 16);
+    const bool ok = !MASK || r0 + r < nrows;
+    cp_async16(dst + r * 128 + ((ch ^ (r & 7)) << 4), src + (ok ? r0 + r : 0) * D + c0 + ch * 8, ok ? 16 : 0);
   }
 }
 
@@ -125,7 +148,7 @@ __device__ __forceinline__ void load_step(const P& p, const Walk& k, int i) {
   const uint32_t st = k.ring + (i % PB_STAGES) * pb_stage<RES>();
   const int tl = i / k.NS, t = k.t_begin + min(tl, k.nt - 1), c0 = (i % k.NS) * PB_KS;
   load_slice(st, p.w, (size_t)t * PB_VT, c0, p.D);
-  if (!RES) load_slice(st + PB_SLICE, p.h, k.r0, c0, p.D);
+  if (!RES) load_slice<masks_rows<P>::value>(st + PB_SLICE, p.h, k.r0, c0, p.D, h_rows(p));
   if (p.bias && c0 == 0 && tl < k.nt && threadIdx.x < PB_VT / 4)
     cp_async16(smem_u32(k.sbias + (tl % PB_BIAS_SLOTS) * PB_VT + threadIdx.x * 4),
                p.bias + (size_t)t * PB_VT + threadIdx.x * 4, 16);
@@ -180,7 +203,8 @@ __device__ __forceinline__ void vocab_walk(const P& p, const Walk& k, Epi& epi) 
 
   // resident h: all of the block's rows, with the first step's copies
   if (RES)
-    for (int s = 0; s < k.NS; ++s) load_slice(k.hres + s * PB_SLICE, p.h, k.r0, s * PB_KS, p.D);
+    for (int s = 0; s < k.NS; ++s)
+      load_slice<masks_rows<P>::value>(k.hres + s * PB_SLICE, p.h, k.r0, s * PB_KS, p.D, h_rows(p));
 #pragma unroll
   for (int i = 0; i < PB_STAGES - 2; ++i) {
     load_step<RES>(p, k, i);  // a split has at least one tile: 2 NS >= PB_STAGES - 2 steps

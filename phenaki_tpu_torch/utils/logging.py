@@ -13,6 +13,8 @@ the head's cast), one `phenaki.decode_step` a decoding step and
 `phenaki.critic_forward` and `phenaki.critic_noise`. A trainer step holds
 `phenaki.train_data`, `phenaki.train_loss_backward`,
 `phenaki.train_optimizer` and, when due, `phenaki.train_milestone`.
+Every transformer layer's feedforward (its two products and the GEGLU, not
+its norm) is a `phenaki.feedforward`, inside whichever of these runs it.
 """
 
 from __future__ import annotations

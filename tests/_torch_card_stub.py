@@ -6,7 +6,9 @@ bias row stride it is given), and writes zeros to the outputs; a call of
 PEG's stencil is recorded with x's address and strides, and gets the plain
 version's result written through the output's strides; so is a call of the
 norm kernels (`ops.norms.layer_norm`, `ops.attention.qk_norm_split`), with the
-addresses and strides the wrapper passes."""
+addresses and strides the wrapper passes, and of the GEGLU GEMM
+(`ops.feedforward.geglu_gemm`), whose h and packed pre-activation get the plain
+version's values."""
 
 import ctypes
 
@@ -17,6 +19,7 @@ import phenaki_tpu_torch.ops.flash_attention as fa
 from phenaki_tpu_torch import _build
 from phenaki_tpu_torch.ops import norms
 from phenaki_tpu_torch.ops.attention import qk_norm_split_plain
+from phenaki_tpu_torch.ops.feedforward import geglu_packed
 from phenaki_tpu_torch.ops.positional import peg_stencil_plain
 
 
@@ -153,6 +156,18 @@ class StubLibrary:
         outs = qk_norm_split_plain(qv, *kv, h, *scales, null_kv)
         for ptr, t in zip((q_out, k_out, v_out), outs):
             self._view(ptr, tuple(t.shape), torch.empty(t.shape).stride(), tdtype).copy_(t)
+        return int(self.fail)
+
+    def geglu_gemm(self, x, w, h, pre, rows, d, ip, splits, dtype, stream):
+        tdtype = next(k for k, v in _build.DTYPES.items() if v == dtype)
+        xv = self._view(x, (rows, d), (d, 1), tdtype)
+        wv = self._view(w, (2 * ip, d), (d, 1), tdtype)
+        self.calls.append(("geglu_gemm", dict(x=x.value, w=w.value, rows=rows, d=d, ip=ip, splits=splits,
+                                              dtype=dtype, pre=bool(pre.value))))
+        p = torch.matmul(xv, wv.t())
+        self._view(h, (rows, ip), (ip, 1), tdtype).copy_(geglu_packed(p))
+        if pre.value:
+            self._view(pre, (rows, 2 * ip), (2 * ip, 1), tdtype).copy_(p)
         return int(self.fail)
 
 

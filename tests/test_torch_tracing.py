@@ -2,7 +2,8 @@
 
 Under `torch.profiler` a tiny `Phenaki.sample` (plain, with a TokenCritic,
 with a SelfCritic, primed) shows each span of the sampling path as often as
-the decode takes it, every one inside `phenaki.sample`; the same sample with
+the decode takes it, every one inside `phenaki.sample`, and each layer's
+`phenaki.feedforward` inside the forward that runs it; the same sample with
 no profiler running makes no profiler call and gives bit-equal output. A
 trainer step captured through `profile_dir` shows the step's four spans once
 each. Every span name in the package is a fixed string, and none is a prefix
@@ -30,6 +31,10 @@ SAMPLE_SPANS = ("phenaki.sample", "phenaki.tokenize_prime", "phenaki.prepare", "
                 "phenaki.critic_noise", "phenaki.cvivit_decode")
 TRAIN_SPANS = ("phenaki.train_data", "phenaki.train_loss_backward", "phenaki.train_optimizer",
                "phenaki.train_milestone")
+# every transformer layer's feedforward, in whichever forward runs it
+FF_SPAN = "phenaki.feedforward"
+# the spans that run trunks: a feedforward span lies inside one of them
+TRUNK_SPANS = ("phenaki.maskgit_forward", "phenaki.critic_forward", "phenaki.cvivit_decode", "phenaki.tokenize_prime")
 
 
 def _phenaki(case):
@@ -50,10 +55,14 @@ def _sample(ph, primed):
 
 def _sample_counts(case):
     critic = STEPS - 1 if case in ("token_critic", "self_critic") else 0
+    # one feedforward a layer: the MaskGit's (and the critic's) one layer a
+    # forward, the C-ViViT decoder's two (spatial, temporal), a prime's
+    # encoder's two
+    ff = STEPS + critic + 2 + 2 * int(case == "primed")
     return {"phenaki.sample": 1, "phenaki.tokenize_prime": int(case == "primed"), "phenaki.prepare": 1,
             "phenaki.decode_step": STEPS, "phenaki.remask": STEPS, "phenaki.maskgit_forward": STEPS,
             "phenaki.pick_tokens": STEPS, "phenaki.critic_forward": critic, "phenaki.critic_noise": critic,
-            "phenaki.cvivit_decode": 1}
+            "phenaki.cvivit_decode": 1, FF_SPAN: ff}
 
 
 def _no_profiler_call(monkeypatch):
@@ -112,18 +121,21 @@ def test_spans_of_a_profiled_call(case, tmp_path, monkeypatch):
         leaves = [s for s in spans if s[0] in ("phenaki.remask", "phenaki.maskgit_forward", "phenaki.pick_tokens",
                                                "phenaki.critic_forward", "phenaki.critic_noise")]
         assert all(any(a <= s[1] and s[2] <= b for a, b in steps) for s in leaves)
+        trunks = [(s[1], s[2]) for s in spans if s[0] in TRUNK_SPANS]
+        assert all(any(a <= s[1] and s[2] <= b for a, b in trunks) for s in spans if s[0] == FF_SPAN)
 
 
 def test_span_names_are_fixed_and_prefix_free():
     """Every `span(...)` in the package names a string literal; the names
-    are the sampling path's, the trainer's and the collective's, and none is
+    are the sampling path's, the trainer's, the feedforward's and the
+    collective's, and none is
     a prefix of another or of the benchmark's `portbench.call`."""
     root = Path(phenaki_tpu_torch.__file__).parent
     args = [a for f in sorted(root.rglob("*.py")) for a in re.findall(r"\bspan\(([^)]*)\)", f.read_text())]
     args = [a for a in args if a != "name: str"]  # the helper's own definition
     assert args and all(re.fullmatch(r'"[a-z_.]+"', a) for a in args), args
     names = {a.strip('"') for a in args}
-    assert names == set(SAMPLE_SPANS) | set(TRAIN_SPANS) | {"collectives.all_reduce"}
+    assert names == set(SAMPLE_SPANS) | set(TRAIN_SPANS) | {FF_SPAN, "collectives.all_reduce"}
     assert all(n.startswith("phenaki.") for n in names - {"collectives.all_reduce"})
     every = sorted(names | {"portbench.call"})
     assert not [(a, b) for a in every for b in every if a != b and b.startswith(a)]

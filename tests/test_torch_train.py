@@ -42,7 +42,8 @@ from phenaki_tpu_torch.bridge import flax_to_state_dict, load_flax_params
 from phenaki_tpu_torch.models.cvivit import CViViT
 from phenaki_tpu_torch.models.maskgit import MaskGit
 from phenaki_tpu_torch.models.phenaki import Phenaki
-from phenaki_tpu_torch.ops.feedforward import geglu
+from phenaki_tpu_torch.ops.feedforward import (_geglu_packed_bwd, geglu, pack_proj_in, padded_inner,
+                                               unpack_proj_in)
 from phenaki_tpu_torch.ops.norms import l2norm_scaled
 from phenaki_tpu_torch.ops.positional import PEG
 from phenaki_tpu_torch.ops.sampling import get_mask_subset_with_prob
@@ -93,6 +94,25 @@ def test_geglu_grads_match_jax_vjp():
     (y * torch.from_numpy(dy)).sum().backward()
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(out), atol=1e-5)
     np.testing.assert_allclose(xx.grad.numpy(), np.asarray(dx_ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("inner", [21, 1365])
+def test_the_packed_geglu_backward_matches_jax_vjp(inner):
+    """The card route's written-out backward (`_geglu_packed_bwd` on the
+    packed pre-activation, `ops.feedforward`) unpacked: the JAX package's
+    `_geglu_bwd` on [a | gate]; the padded columns' gradients are 0."""
+    rng = np.random.RandomState(inner)
+    x = rng.randn(5, 2 * inner).astype(np.float32) * 2
+    dy = rng.randn(5, inner).astype(np.float32)
+    _, vjp = jax.vjp(j_geglu, jnp.asarray(x))
+    (dx_ref,) = vjp(jnp.asarray(dy))
+    ip = padded_inner(inner)
+    pre = pack_proj_in(torch.from_numpy(x).t()).t()
+    dh = torch.nn.functional.pad(torch.from_numpy(dy), (0, ip - inner))
+    d_pre = _geglu_packed_bwd(pre, dh)
+    np.testing.assert_allclose(unpack_proj_in(d_pre.t(), inner).t().numpy(), np.asarray(dx_ref), atol=1e-5)
+    padding = pack_proj_in(torch.ones(2 * inner, 1))[:, 0] == 0
+    assert padding.sum() == 2 * (ip - inner) and not d_pre[:, padding].any()
 
 
 @pytest.mark.parametrize("causal", [False, True])
